@@ -1,0 +1,243 @@
+"""Quantized-linear dispatch: one entry point, routed by shape regime.
+
+Every dual-component matmul of the model goes through :func:`quant_linear`
+(one pack) or :func:`fused_linear` (a fused sibling group: q/k/v, gate/up),
+which route each call by its flattened M, as the JAX package does:
+
+* ``decode``  — M <= DECODE_M_MAX (the engine's slot count): the GEMV kernel;
+* ``prefill`` — larger M: the GEMM kernel;
+* ``ref``     — shapes the regime's kernel cannot tile, as its own launch
+  contract (``contracts.validate_dual_gemv_group`` /
+  ``validate_dual_gemm_group``) judges them, keep the reference's routing
+  decision and reason codes, counted as ``<kind>/ref`` and
+  ``<kind>/ref[<code>]``. Such a route runs the plain version for a CPU
+  tensor; for any other tensor it raises :class:`ContractError` naming the
+  code, so nothing on the card falls back to the plain version.
+
+Each decision bumps a counter keyed ``<kind>/<path>`` (kinds ``dual`` and
+``dual_fused``). PyTorch runs eagerly, so that is one bump per call.
+
+A ``decode`` or ``prefill`` route calls the kernel wrapper, which launches
+the CUDA kernel for a CUDA tensor and runs the plain version for a CPU
+tensor. :func:`set_force_ref` runs the plain version on any device (route
+``ref[forced]``), which is how the kernels are held to it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Union
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.autotune import DECODE_M_MAX, hopper_blocks
+from repro_torch.kernels.contracts import (
+    ContractError,
+    check_twinquant_group_pack,
+    check_twinquant_pack,
+    validate_dual_gemm_group,
+    validate_dual_gemv_group,
+)
+from repro_torch.kernels.ref import (
+    TwinQuantGroupWeights,
+    TwinQuantWeights,
+    fuse_twinquant_weights,
+)
+from repro_torch.kernels.twinquant_dual_gemm import dual_gemm, dual_gemm_group
+from repro_torch.kernels.twinquant_dual_gemv import dual_gemv, dual_gemv_group
+
+__all__ = [
+    "DECODE_M_MAX",
+    "Route",
+    "classify_dual",
+    "classify_dual_group",
+    "dispatch_counters",
+    "force_ref_enabled",
+    "fused_linear",
+    "fusion_enabled",
+    "quant_linear",
+    "reset_dispatch_counters",
+    "set_force_ref",
+    "set_fusion",
+]
+
+PATH_PREFILL = "prefill"
+PATH_DECODE = "decode"
+PATH_REF = "ref"
+
+_fusion_enabled = True
+_force_ref = False
+_counters: dict[str, int] = {}
+
+
+def fusion_enabled() -> bool:
+    """Whether sibling-projection groups run as one fused launch (default)."""
+    return _fusion_enabled
+
+
+def set_fusion(enabled: bool) -> bool:
+    """Enable/disable horizontal fusion; returns the previous setting. With
+    fusion off, ``models.common.linear_group`` runs each sibling through its
+    own :func:`quant_linear` call."""
+    global _fusion_enabled
+    prev = _fusion_enabled
+    _fusion_enabled = bool(enabled)
+    return prev
+
+
+def force_ref_enabled() -> bool:
+    """Whether every dispatch entry is forced onto the plain version."""
+    return _force_ref
+
+
+def set_force_ref(enabled: bool) -> bool:
+    """Force every dispatch entry onto the plain version (route
+    ``<kind>/ref[forced]``); returns the previous setting."""
+    global _force_ref
+    prev = _force_ref
+    _force_ref = bool(enabled)
+    return prev
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """A routing decision: which schedule, which blocks, and why. ``code``
+    names why a ``ref`` route was taken (``forced``, ``k_group``,
+    ``rank_rgroup``, ``decode_untileable``, ``prefill_untileable``)."""
+
+    path: str  # "prefill" | "decode" | "ref"
+    blocks: Optional[tuple[int, int, int]]  # (bm, bn, bk) of the CUDA launch
+    reason: str
+    code: str = "ok"
+
+
+def dispatch_counters() -> dict[str, int]:
+    """Snapshot of per-(kind, path) routing decision counts."""
+    return dict(_counters)
+
+
+def reset_dispatch_counters() -> None:
+    """Zero the routing counters."""
+    _counters.clear()
+
+
+def _record(kind: str, route: Route) -> None:
+    key = f"{kind}/{route.path}"
+    _counters[key] = _counters.get(key, 0) + 1
+    if route.path == PATH_REF:
+        rkey = f"{kind}/ref[{route.code}]"
+        _counters[rkey] = _counters.get(rkey, 0) + 1
+
+
+def classify_dual(m: int, n: int, k: int, group: int, rgroup: int, rank: int) -> Route:
+    """Route a dual-component (M, K) x (K, N) call by shape regime."""
+    return classify_dual_group(m, k, group, (n,), (rank,), (rgroup,))
+
+
+def classify_dual_group(m: int, k: int, group: int, seg_n: tuple[int, ...],
+                        seg_r: tuple[int, ...], rgroups: tuple[int, ...]) -> Route:
+    """Route a fused sibling group by shape regime. The regime's kernel
+    contract decides whether it tiles the shape (no N block may straddle a
+    segment boundary); a shape it rejects routes ``ref`` with the
+    reference's reason code."""
+    if k % group != 0 or group % 2 != 0:
+        return Route(PATH_REF, None, f"K={k} not tileable by group={group}", "k_group")
+    for rj, gr in zip(seg_r, rgroups):
+        if rj % gr != 0 or gr % 2 != 0:
+            return Route(PATH_REF, None, f"rank={rj} not tileable by rgroup={gr}",
+                         "rank_rgroup")
+    blocks = hopper_blocks(m, group)
+    decode = m <= DECODE_M_MAX
+    try:
+        if decode:
+            validate_dual_gemv_group(m, k, group, seg_n, seg_r, rgroups, blocks[1],
+                                     decode_m_max=DECODE_M_MAX)
+        else:
+            validate_dual_gemm_group(m, k, group, seg_n, seg_r, rgroups, blocks[1])
+    except ContractError as e:
+        return Route(PATH_REF, None, str(e),
+                     "decode_untileable" if decode else "prefill_untileable")
+    if decode:
+        return Route(PATH_DECODE, blocks, f"M={m}<={DECODE_M_MAX}")
+    return Route(PATH_PREFILL, blocks, f"M={m}>{DECODE_M_MAX}")
+
+
+def _require_cpu_for_ref(kind: str, route: Route, x: torch.Tensor) -> None:
+    """The plain version stands in for a kernel only on a CPU tensor (or when
+    the caller forces it); elsewhere an untileable shape is an error."""
+    if route.path == PATH_REF and route.code != "forced" and x.device.type != "cpu":
+        raise ContractError(
+            f"[{kind}] ref[{route.code}]: no kernel tiles this shape on {x.device}: "
+            f"{route.reason}\n  hint: the plain version runs only for CPU tensors "
+            f"or under set_force_ref(True)"
+        )
+
+
+def _finish(y: torch.Tensor, batch_shape, n: int, bias) -> torch.Tensor:
+    y = y.reshape(*batch_shape, n)
+    if bias is not None:
+        y = (y.to(torch.float32) + bias.to(torch.float32)).to(y.dtype)
+    return y
+
+
+def quant_linear(x: torch.Tensor, w: TwinQuantWeights,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dual-component quantized linear: (..., K) -> (..., N) bf16, routed."""
+    k = x.shape[-1]
+    n = w.ndim_out
+    check_twinquant_pack(w, k)
+    batch_shape = x.shape[:-1]
+    m = math.prod(batch_shape)
+    x2 = x.reshape(m, k)
+    if _force_ref:
+        route = Route(PATH_REF, None, "set_force_ref(True)", "forced")
+    else:
+        route = classify_dual(m, n, k, w.group, w.rgroup, w.rank)
+    _require_cpu_for_ref("dual", route, x)
+    _record("dual", route)
+    if route.path == PATH_REF:
+        y = _ref.dual_gemm_ref(x2, w)
+    elif route.path == PATH_DECODE:
+        y = dual_gemv(x2, w)
+    else:
+        y = dual_gemm(x2, w)
+    return _finish(y, batch_shape, n, bias)
+
+
+def fused_linear(x: torch.Tensor,
+                 ws: Union[TwinQuantGroupWeights, Sequence[TwinQuantWeights]],
+                 biases: Optional[Sequence[Optional[torch.Tensor]]] = None
+                 ) -> tuple[torch.Tensor, ...]:
+    """Fused sibling-projection linear: (..., K) -> per-segment (..., N_j).
+
+    One routed launch computes every projection of the group; the
+    activation is quantized once. Kind ``dual_fused``. Each segment equals
+    :func:`quant_linear` on its own pack bit for bit."""
+    gw = ws if isinstance(ws, TwinQuantGroupWeights) else fuse_twinquant_weights(ws)
+    if biases is None:
+        biases = (None,) * gw.n_segments
+    if len(biases) != gw.n_segments:
+        raise ValueError(f"{len(biases)} biases for {gw.n_segments} segments")
+    k = x.shape[-1]
+    check_twinquant_group_pack(gw, k)
+    batch_shape = x.shape[:-1]
+    m = math.prod(batch_shape)
+    x2 = x.reshape(m, k)
+    if _force_ref:
+        route = Route(PATH_REF, None, "set_force_ref(True)", "forced")
+    else:
+        route = classify_dual_group(m, k, gw.group, gw.seg_n, gw.seg_r, gw.rgroups)
+    _require_cpu_for_ref("dual_fused", route, x)
+    _record("dual_fused", route)
+    if route.path == PATH_REF:
+        y = _ref.dual_gemm_group_ref(x2, gw)
+    elif route.path == PATH_DECODE:
+        y = dual_gemv_group(x2, gw)
+    else:
+        y = dual_gemm_group(x2, gw)
+    return tuple(
+        _finish(yj, batch_shape, nj, bj)
+        for yj, nj, bj in zip(gw.split(y), gw.seg_n, biases)
+    )
