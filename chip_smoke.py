@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--spec-probe N]
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -10,11 +10,25 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 3. kernels — the four dual-component kernels at llama3-8b shapes, each held
    to its plain PyTorch version with ``torch.equal`` and timed (CUDA events)
    beside the plain version, a bf16 ``torch.matmul`` of the same (M, K) x
-   (K, N) as a yardstick, and the least time the card could take;
-4. serve   — llama3-8b at full width (depth cut), random weights from seed
-   0, W4A4 TwinQuant packs, through the bucketed ``ContinuousBatchingEngine``;
-   checks every request finishes, every kernel route ran with no plain-version
-   route, kernel-vs-plain logits, and solo-vs-interleaved greedy tokens.
+   (K, N) as a yardstick, and the least time the card could take; then the
+   paged-decode (sq 1 and 4, commit on and off) and ragged (T = 256)
+   attention kernels, held to their plain versions at atol 0.03 / rtol 0.05
+   (committed pools ``torch.equal``) and, per row and head, to the plain
+   version run in f32 (relative error <= ``ATT_REL_MAX``, a check that
+   planted faults at the longest context must fail), timed beside the plain
+   version and SDPA over a dense view, and the paged kernel's stacked rows
+   held ``torch.equal`` to sequential one-row launches;
+4. serve   — llama3-8b at full width and depth, random weights from seed 0:
+   first the bf16 model's ragged-step vs bucketed-prefill logits at several
+   depths (gated at full depth), then W4A4 TwinQuant packs quantized once,
+   through ``ContinuousBatchingEngine`` four times: bucketed dense cache,
+   paged (prefix cache on), paged with speculation (spec_k 4) and ragged
+   (token budget 256). Checks every request finishes, every run routes its
+   kernels and no plain-version route, each new kernel launches once per
+   layer per engine step, kernel-vs-plain logits, solo-vs-interleaved greedy
+   tokens, and speculative == paged tokens. A speculative run with the
+   norms and head over the whole draft stack reports which of them gave a
+   row other bits (``--spec-probe N``: every variant, N times).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -33,19 +47,27 @@ sys.path.insert(0, str(SRC))
 
 HBM_BYTES_S = 3.35e12  # H100 SXM memory rate
 INT8_OPS_S = 1.979e15  # H100 SXM dense int8 tensor-core rate
+BF16_OPS_S = 9.89e14  # H100 SXM dense bf16 tensor-core rate
 SERVE_LAYERS = 32  # llama3-8b's full depth
 
 KERNELS = {
-    # wrapper name -> (source, TPU kernel it replaces, representative case)
+    # wrapper name -> (source, TPU kernel it replaces)
     "dual_gemv": ("src/repro_torch/csrc/twinquant_dual_gemv.cu",
-                  "src/repro/kernels/twinquant_dual_gemv.py:139", ("down", 8)),
+                  "src/repro/kernels/twinquant_dual_gemv.py:139"),
     "dual_gemv_group": ("src/repro_torch/csrc/twinquant_dual_gemv.cu",
-                        "src/repro/kernels/twinquant_dual_gemv.py:200", ("gate_up", 8)),
+                        "src/repro/kernels/twinquant_dual_gemv.py:200"),
     "dual_gemm": ("src/repro_torch/csrc/twinquant_dual_gemm.cu",
-                  "src/repro/kernels/twinquant_dual_gemm.py:167", ("down", 512)),
+                  "src/repro/kernels/twinquant_dual_gemm.py:167"),
     "dual_gemm_group": ("src/repro_torch/csrc/twinquant_dual_gemm.cu",
-                        "src/repro/kernels/twinquant_dual_gemm.py:239", ("gate_up", 512)),
+                        "src/repro/kernels/twinquant_dual_gemm.py:239"),
+    "paged_decode_kernel": ("src/repro_torch/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:294"),
+    "ragged_attention_kernel": ("src/repro_torch/csrc/ragged_attention.cu",
+                                "src/repro/kernels/ragged_attention.py:232"),
 }
+# the dual kernels' representative main-path case (layer, M) for the table
+DUAL_REP = {"dual_gemv": ("down", 8), "dual_gemv_group": ("gate_up", 8),
+            "dual_gemm": ("down", 512), "dual_gemm_group": ("gate_up", 512)}
 
 
 def fail(msg: str) -> None:
@@ -168,7 +190,7 @@ def kernel_phase(device) -> dict:
                 print(f"kernel {name:16s} {lname:8s} M={m:4d} K={k:5d} N={n:5d} equal "
                       f"ms={t_k:.4f} plain_ms={t_p:.4f} bf16_matmul_ms={t_lib:.4f} "
                       f"bound_ms={t_b:.4f} ({by}) share={t_b / t_k:.3f}", flush=True)
-                if (lname, m) == KERNELS[name][2]:
+                if (lname, m) == DUAL_REP[name]:
                     rep = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, bound_ms=t_b,
                                bound_by=by)
             del copies
@@ -210,6 +232,310 @@ def _clone(w):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the block-table attention kernels at llama3-8b shapes
+# ---------------------------------------------------------------------------
+
+ATT = dict(B=8, H=32, KV=8, hd=128, page=16, maxp=128)  # llama3-8b, max_len 2048
+ATT_TOL = dict(atol=0.03, rtol=0.05)  # the reference's own kernel-vs-oracle bound
+# Per (row, head): ||y_kernel - y32|| / ||y32|| over hd, y32 the plain version
+# run on the same inputs in f32. The kernel folds in f32 and rounds once to
+# bf16 (<= 2^-8 of each value), so a sound row reads ~0.002; dropping one key
+# of 2000 reads ~0.04. atol/rtol alone passes such faults at long contexts,
+# where |out| ~ 0.05-0.1.
+ATT_REL_MAX = 0.005
+DECODE_LENS = (0, 1, 250, 511, 777, 1024, 1500, 2000)  # slot 0 idle: pos 0, bt all -1
+
+
+def _f32(*xs):
+    return [x.float() for x in xs]
+
+
+def _rel_rows(y, y32, rows=None):
+    """Per-(row, head) relative L2 error of ``y`` against ``y32``."""
+    a, b = y.float(), y32.float()
+    if rows is not None:
+        a, b = a[rows], b[rows]
+    return (a - b).norm(dim=-1) / b.norm(dim=-1)
+
+
+def _att_close(name: str, y_k, y_p, y32, rows=None) -> tuple[float, float]:
+    """Hold a kernel's output to its plain version (atol/rtol) and to the
+    plain version in f32 (per row and head, ``ATT_REL_MAX``); returns (max
+    |d| vs plain, max rel vs f32) and prints the plain version's own rel."""
+    import torch
+
+    a, b = y_k.float(), y_p.float()
+    if rows is not None:
+        a, b = a[rows], b[rows]
+    err = (a - b).abs().max().item()
+    if not torch.allclose(a, b, **ATT_TOL):
+        fail(f"{name}: kernel vs plain version beyond atol {ATT_TOL['atol']} / rtol "
+             f"{ATT_TOL['rtol']} (max |d| {err})")
+    rel = _rel_rows(y_k, y32, rows).max().item()
+    rel_p = _rel_rows(y_p, y32, rows).max().item()
+    print(f"kernel {name}: max rel per (row, head) vs the f32 plain version: kernel "
+          f"{rel:.5f} (limit {ATT_REL_MAX}), bf16 plain version {rel_p:.5f}", flush=True)
+    if not rel <= ATT_REL_MAX:
+        fail(f"{name}: kernel vs f32 plain version rel {rel} per (row, head) > {ATT_REL_MAX}")
+    return err, rel
+
+
+def _planted(name: str, y_f, y_p, y32, rows=None) -> None:
+    """A kernel run on deliberately wrong metadata must fail the rel check
+    (and is reported against the atol/rtol check)."""
+    import torch
+
+    rel = _rel_rows(y_f, y32, rows).max().item()
+    a, b = y_f.float(), y_p.float()
+    if rows is not None:
+        a, b = a[rows], b[rows]
+    tol_ok = torch.allclose(a, b, **ATT_TOL)
+    print(f"kernel planted fault ({name}): rel {rel:.5f} vs limit {ATT_REL_MAX} -> caught; "
+          f"atol/rtol check alone: {'passes it' if tol_ok else 'caught'}", flush=True)
+    if not rel > ATT_REL_MAX:
+        fail(f"planted fault ({name}) passes the rel check (rel {rel})")
+
+
+def _spare_page(bt) -> int:
+    """A pool page no block table maps."""
+    used = set(bt[bt >= 0].tolist())
+    return next(i for i in range(ATT["B"] * ATT["maxp"]) if i not in used)
+
+
+def _tables(lens, extra, gen, device):
+    """Block tables mapping each slot's pages for ``lens[b] + extra[b]``
+    rows from a shuffled pool, -1 elsewhere (slot with no rows: all -1)."""
+    import torch
+
+    c = ATT
+    perm = torch.randperm(c["B"] * c["maxp"], generator=gen, device="cpu")
+    bt = torch.full((c["B"], c["maxp"]), -1, dtype=torch.int32)
+    for b, (n, e) in enumerate(zip(lens, extra)):
+        if n + e:
+            n_pg = (n + e - 1) // c["page"] + 1
+            bt[b, :n_pg] = perm[b * c["maxp"]: b * c["maxp"] + n_pg].to(torch.int32)
+    return bt.to(device)
+
+
+def _pools(gen, device, copies: int):
+    """``copies`` pairs of (P, page, KV, hd) pools, enough to rotate the
+    pages read past the 50 MB L2 between timed launches."""
+    import torch
+
+    c = ATT
+    shape = (c["B"] * c["maxp"], c["page"], c["KV"], c["hd"])
+    return [tuple(torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+                  for _ in range(2)) for _ in range(copies)]
+
+
+def _bound_attn(nbytes: int, flops: int) -> tuple[float, str]:
+    t_b, t_o = nbytes / HBM_BYTES_S * 1e3, flops / BF16_OPS_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def attention_phase(device) -> dict:
+    """The paged-decode and ragged kernels against their plain versions at
+    llama3-8b shapes, timed beside the plain version and SDPA over a dense
+    view; plus the stacked-vs-sequential identity of the paged kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.contracts import check_ragged_rows
+    from repro_torch.kernels.paged_attention import paged_decode_kernel, paged_decode_ref
+    from repro_torch.kernels.ragged_attention import ragged_attention_kernel, ragged_attention_ref
+
+    c = ATT
+    B, H, KV, hd, page, maxp = c["B"], c["H"], c["KV"], c["hd"], c["page"], c["maxp"]
+    S = maxp * page
+    gen = torch.Generator(device=device).manual_seed(2)
+    cpu_gen = torch.Generator().manual_seed(2)
+    pools = _pools(gen, device, copies=4)
+    kp, vp = pools[0]
+    table = {}
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+
+    def sdpa(q4, k4, v4, mask):
+        try:
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        except TypeError:  # torch without enable_gqa: expand the KV heads first
+            return None
+
+    # -- paged decode: sq = 1 (decode) and 4 (speculative verify), commit on/off
+    pos = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
+    worst, rep = 0.0, None
+    for sq in (1, 4):
+        bt = _tables(DECODE_LENS, [sq if n else 0 for n in DECODE_LENS], cpu_gen, device)
+        q, kt, vt = rnd(B, sq, H, hd), rnd(B, sq, KV, hd), rnd(B, sq, KV, hd)
+        for commit in (False, True):
+            kk, vk = kp.clone(), vp.clone()
+            res_k = paged_decode_kernel(q, kk, vk, kt, vt, bt, pos, commit=commit)
+            res_p = paged_decode_ref(q, kp, vp, kt, vt, bt, pos, commit=commit)
+            torch.cuda.synchronize()
+            out_k, out_p = (res_k[0], res_p[0]) if commit else (res_k, res_p)
+            y32 = paged_decode_ref(*_f32(q, kp, vp, kt, vt), bt, pos, commit=False)
+            err, rel = _att_close(f"paged_decode sq={sq} commit={commit}", out_k, out_p, y32)
+            worst = max(worst, err)
+            if (sq, commit) == (1, False):
+                # faults confined to the longest context (slot 7, 2000 keys)
+                short = pos.clone()
+                short[7] -= 1
+                _planted("paged: slot 7 misses its last committed key",
+                         paged_decode_kernel(q, kp, vp, kt, vt, bt, short, commit=False),
+                         out_p, y32)
+                bad = bt.clone()
+                bad[7, 60] = _spare_page(bt)
+                _planted("paged: slot 7 reads one wrong page",
+                         paged_decode_kernel(q, kp, vp, kt, vt, bad, pos, commit=False),
+                         out_p, y32)
+            del y32
+            if commit:
+                if not (torch.equal(res_k[1], res_p[1]) and torch.equal(res_k[2], res_p[2])):
+                    fail(f"paged_decode sq={sq}: committed pools differ from the plain version's")
+            del kk, vk, res_k, res_p
+            it = [0]
+
+            def run_k():
+                it[0] = (it[0] + 1) % len(pools)
+                paged_decode_kernel(q, *pools[it[0]], kt, vt, bt, pos, commit=commit)
+
+            t_k = cuda_ms(run_k, iters=40)
+            t_p = cuda_ms(lambda: paged_decode_ref(q, kp, vp, kt, vt, bt, pos, commit=commit),
+                          iters=3, warmup=1)
+            # SDPA yardstick: one call over the dense view the plain version builds
+            rows = pos.long()[:, None] + torch.arange(sq, device=device)[None, :]
+            kc = kp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
+            vc = vp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
+            bi = torch.arange(B, device=device)[:, None].expand(B, sq)
+            kc[bi, rows], vc[bi, rows] = kt, vt
+            mask = (torch.arange(S, device=device)[None, None, :] <= rows[:, :, None])[:, None]
+            q4, k4, v4 = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+            if sdpa(q4, k4, v4, mask) is None:
+                k4 = k4.repeat_interleave(H // KV, dim=1)
+                v4 = v4.repeat_interleave(H // KV, dim=1)
+                t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
+                                iters=20)
+            else:
+                t_lib = cuda_ms(lambda: sdpa(q4, k4, v4, mask), iters=20)
+            del kc, vc, k4, v4
+            nbytes = (2 * sum(DECODE_LENS) * KV * hd * 2 + 2 * B * sq * H * hd * 2
+                      + (2 + 2 * commit) * B * sq * KV * hd * 2 + bt.numel() * 4 + B * 4)
+            flops = sum(4 * hd * H * (n + i + 1) for n in DECODE_LENS for i in range(sq))
+            t_b, by = _bound_attn(nbytes, flops)
+            print(f"kernel paged_decode_kernel sq={sq} commit={int(commit)} B={B} H={H}/{KV} "
+                  f"hd={hd} lens={list(DECODE_LENS)} close max_abs_err={err:.5f} "
+                  f"max_rel={rel:.5f} ms={t_k:.4f} "
+                  f"plain_ms={t_p:.4f} sdpa_ms={t_lib:.4f} bound_ms={t_b:.4f} ({by}) "
+                  f"share={t_b / t_k:.3f}", flush=True)
+            if (sq, commit) == (1, False):
+                rep = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, bound_ms=t_b, bound_by=by)
+    table["paged_decode_kernel"] = dict(max_abs_err=worst, **rep)
+
+    # -- stacked sq = 4 rows == four sequential sq = 1 launches, drafts committed between
+    sq = 4
+    bt = _tables(DECODE_LENS, [sq if n else 0 for n in DECODE_LENS], cpu_gen, device)
+    q, kt, vt = rnd(B, sq, H, hd), rnd(B, sq, KV, hd), rnd(B, sq, KV, hd)
+    stacked = paged_decode_kernel(q, kp, vp, kt, vt, bt, pos, commit=False)
+    ks, vs = kp.clone(), vp.clone()
+    seq = []
+    for i in range(sq):
+        o, ks, vs = paged_decode_kernel(q[:, i:i + 1].contiguous(), ks, vs,
+                                        kt[:, i:i + 1].contiguous(), vt[:, i:i + 1].contiguous(),
+                                        bt, pos + i, commit=True)
+        seq.append(o)
+    torch.cuda.synchronize()
+    seq = torch.cat(seq, dim=1)
+    # slots whose draft pages are mapped (the idle slot's drafts commit nowhere)
+    mapped = pos > 0
+    if not torch.equal(stacked[mapped], seq[mapped]):
+        fail(f"paged_decode stacked sq=4 rows != sequential launches "
+             f"({int((stacked[mapped] != seq[mapped]).sum())} of {seq[mapped].numel()} differ)")
+    print(f"kernel paged_decode_kernel stacked sq=4 == 4 sequential sq=1 launches: equal "
+          f"({int(mapped.sum())} mapped slots)", flush=True)
+    del ks, vs
+
+    # -- ragged: T = 256 rows, decode rows + a chunk behind committed pages +
+    #    a cold chunk + pad rows
+    T = 256
+    ctx_l = [1, 250, 777, 1500, 2000, 512, 0, 0]
+    runs = [1, 1, 1, 1, 1, 200, 40, 0]  # slot 7 idle; 11 pad rows
+    slot_l, pos_l = [], []
+    for s_i, (n0, r) in enumerate(zip(ctx_l, runs)):
+        slot_l += [s_i] * r
+        pos_l += list(range(n0, n0 + r))
+    n_real = len(slot_l)
+    slot_l += [B] * (T - n_real)
+    pos_l += [0] * (T - n_real)
+    check_ragged_rows(slot_l, pos_l, ctx_l)
+    slot = torch.tensor(slot_l, dtype=torch.int32, device=device)
+    rpos = torch.tensor(pos_l, dtype=torch.int32, device=device)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=device)
+    bt = _tables(ctx_l, runs, cpu_gen, device)
+    q, kt, vt = rnd(T, H, hd), rnd(T, KV, hd), rnd(T, KV, hd)
+    y_k = ragged_attention_kernel(q, kp, vp, kt, vt, bt, slot, rpos, ctx)
+    y_p = ragged_attention_ref(q, kp, vp, kt, vt, bt, slot, rpos, ctx)
+    torch.cuda.synchronize()
+    real = slot < B
+    y32 = ragged_attention_ref(*_f32(q, kp, vp, kt, vt), bt, slot, rpos, ctx)
+    err, rel = _att_close("ragged T=256", y_k, y_p, y32, rows=real)
+    if not torch.equal(y_k[~real], torch.zeros_like(y_k[~real])):
+        fail("ragged pad rows are not zero")
+    short = ctx.clone()
+    short[4] -= 1  # slot 4: one decode row behind 2000 committed keys
+    _planted("ragged: slot 4 misses its last committed key",
+             ragged_attention_kernel(q, kp, vp, kt, vt, bt, slot, rpos, short), y_p, y32, real)
+    bad = bt.clone()
+    bad[5, 10] = _spare_page(bt)  # slot 5: a 200-row chunk behind 512 committed keys
+    _planted("ragged: slot 5 reads one wrong page",
+             ragged_attention_kernel(q, kp, vp, kt, vt, bad, slot, rpos, ctx), y_p, y32, real)
+    del y32
+    it = [0]
+
+    def run_r():
+        it[0] = (it[0] + 1) % len(pools)
+        ragged_attention_kernel(q, *pools[it[0]], kt, vt, bt, slot, rpos, ctx)
+
+    t_k = cuda_ms(run_r, iters=40)
+    t_p = cuda_ms(lambda: ragged_attention_ref(q, kp, vp, kt, vt, bt, slot, rpos, ctx),
+                  iters=2, warmup=1)
+    # SDPA yardstick: every slot's dense view, in-batch rows written in, one
+    # call over all of them with a (T, B*S) mask
+    kc = kp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
+    vc = vp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
+    kc[slot.long()[real], rpos.long()[real]] = kt[real]
+    vc[slot.long()[real], rpos.long()[real]] = vt[real]
+    key_slot = torch.arange(B, device=device).repeat_interleave(S)
+    key_pos = torch.arange(S, device=device).repeat(B)
+    mask = (key_slot[None, :] == slot.long()[:, None]) & (key_pos[None, :] <= rpos.long()[:, None])
+    q4 = q.transpose(0, 1)[None]
+    k4 = kc.reshape(B * S, KV, hd).transpose(0, 1)[None]
+    v4 = vc.reshape(B * S, KV, hd).transpose(0, 1)[None]
+    if sdpa(q4, k4, v4, mask) is None:
+        k4 = k4.repeat_interleave(H // KV, dim=1)
+        v4 = v4.repeat_interleave(H // KV, dim=1)
+        t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
+                        iters=10)
+    else:
+        t_lib = cuda_ms(lambda: sdpa(q4, k4, v4, mask), iters=10)
+    del kc, vc, k4, v4, mask
+    keys_ctx = sum(n0 for n0, r in zip(ctx_l, runs) if r)
+    nbytes = (2 * keys_ctx * KV * hd * 2 + T * (2 * H + 2 * KV) * hd * 2 + bt.numel() * 4
+              + T * 8 + B * 4)
+    flops = sum(4 * hd * H * (p + 1) for p, s_i in zip(pos_l, slot_l) if s_i < B)
+    t_b, by = _bound_attn(nbytes, flops)
+    print(f"kernel ragged_attention_kernel T={T} rows={n_real} runs={runs} ctx={ctx_l} close "
+          f"max_abs_err={err:.5f} max_rel={rel:.5f} ms={t_k:.4f} plain_ms={t_p:.4f} "
+          f"sdpa_ms={t_lib:.4f} "
+          f"bound_ms={t_b:.4f} ({by}) share={t_b / t_k:.3f}", flush=True)
+    table["ragged_attention_kernel"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
+                                            library_ms=t_lib, bound_ms=t_b, bound_by=by)
+    del pools
+    torch.cuda.empty_cache()
+    return table
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serve llama3-8b (full width, cut depth)
 # ---------------------------------------------------------------------------
 
@@ -223,17 +549,184 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _ttft(reqs) -> tuple[float, float]:
+    """Mean and max time to first token (s, host clock from submit)."""
+    t = [r.t_first_token - r.t_submit for r in reqs]
+    return sum(t) / len(t), max(t)
+
+
+def _drive(name: str, engine, reqs, device, n_layers: int) -> dict:
+    """Serve ``reqs`` with the launch and route counters zeroed just before,
+    check the run, print its lines; returns the run's (launch counts,
+    routes)."""
+    import torch
+
+    from repro_torch.kernels import cuda_launch, dispatch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    dispatch.reset_dispatch_counters()
+    cuda_launch.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.serve(reqs)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = cuda_launch.launch_counts()
+    routes = dispatch.dispatch_counters()
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else "not measured"
+    bad = [(r.request_id, r.status, r.error) for r in reqs if r.status != "DONE"]
+    if bad:
+        fail(f"{name}: requests not DONE: {bad}")
+    if any(len(r.out) != r.max_new for r in reqs):
+        fail(f"{name}: short outputs: {[len(r.out) for r in reqs]}")
+    print(f"serve {name} routes {json.dumps(routes, sort_keys=True)}", flush=True)
+    print(f"serve {name} launches {json.dumps(launches, sort_keys=True)}", flush=True)
+    if any("/ref" in key for key in routes):
+        fail(f"{name}: plain-version routes taken: {routes}")
+    tp = engine.throughput()
+    mean_ttft, max_ttft = _ttft(reqs)
+    print(f"serve {name} done requests={len(reqs)} wall_s={wall:.3f} "
+          f"decode_tok_s={tp['decode_tok_s']:.2f} prefill_tok_s={tp['prefill_tok_s']:.2f} "
+          f"decode_steps={tp['decode_steps']} decode_tokens={tp['decode_tokens']} "
+          f"decode_s={tp['decode_s']:.4f} prefill_s={tp['prefill_s']:.4f} "
+          f"ttft_mean_s={mean_ttft:.4f} "
+          f"ttft_max_s={max_ttft:.4f} max_memory_allocated={peak} "
+          f"compile_stats={json.dumps(engine.compile_stats())}", flush=True)
+    return launches, routes
+
+
+# which per-row ops of the verify step run one draft column at a time
+SPEC_VARIANTS = {"shipped": ("norms",), "stacked": (), "per_column": ("norms", "head")}
+
+
+def _spec_run(variant: str, engine, reqs, want, cfg, device) -> None:
+    """Serve ``reqs`` speculatively with the verify step's rmsnorms and bf16
+    head run one draft column at a time or over the whole (B, spec_k, D)
+    stack, as ``SPEC_VARIANTS[variant]`` says (``shipped`` is the decode
+    step as it is). Every norm and head call of every verify step is run
+    both ways on its real input, so the line names the ops that gave a
+    verify row other bits stacked on this run's data; the tokens are
+    compared with the paged run's ``want``. Not gated: spec == paged as
+    shipped is the gate."""
+    from repro_torch.models import common as C
+    from repro_torch.models import dense
+
+    per_column, unembed = C.per_draft_row, dense._unembed
+    cols = SPEC_VARIANTS[variant]
+    calls, moved = [0], {}
+
+    def both(name, fn, x, per_col):
+        if x.shape[1] == 1:
+            return fn(x)
+        y_stk, y_col = fn(x), per_column(fn, x)
+        rows = int((y_stk != y_col).any(dim=-1).sum())
+        if rows:
+            moved[name] = moved.get(name, 0) + rows
+        return y_col if per_col else y_stk
+
+    def norm(fn, x):
+        k = calls[0] % (2 * cfg.n_layers)
+        calls[0] += 1
+        return both(f"layer{k // 2}.ln{1 + k % 2}", fn, x, "norms" in cols)
+
+    def head(params, c, x):
+        return both("head", lambda y: unembed(params, c, y), x, "head" in cols)
+
+    C.per_draft_row, dense._unembed = norm, head
+    try:
+        _drive(f"spec probe {variant}", engine, reqs, device, cfg.n_layers)
+    finally:
+        C.per_draft_row, dense._unembed = per_column, unembed
+    diff = [i for i, (a, b) in enumerate(zip(reqs, want)) if a.out != b.out]
+    norms = sum(v for k, v in moved.items() if k != "head")
+    print(f"serve spec probe variant={variant} (per column: {list(cols) or 'none'}) tokens == "
+          f"paged: {not diff} (differ: {diff}); verify rows with other bits stacked: head "
+          f"{moved.get('head', 0)}, rmsnorm {norms} in {len(moved) - ('head' in moved)} of "
+          f"{2 * cfg.n_layers} norms {json.dumps(dict(sorted(moved.items())[:6]))}", flush=True)
+
+
+def _first_layers(model, k: int):
+    """The same model cut to its first ``k`` layers (shared tensors)."""
+    from repro_torch.models import dense
+
+    return dense.DenseModel(model.embed, list(model.layers)[:k], model.ln_f, model.head)
+
+
+def _ragged_vs_prefill(model, cfg, prompt, device, depths) -> list:
+    """One whole prompt's last-row logits three ways, at each depth in
+    ``depths``: the bucketed prefill (plain attention with the reference's
+    bf16 roundings), the ragged step (the kernel, f32 fold, one rounding)
+    and the ragged step with its attention swapped for the plain version run
+    in f32 and rounded once (the kernel's numerics, written independently).
+    Returns [(depth, rel ragged vs prefill, rel f32-plain step vs prefill,
+    rel ragged vs f32-plain step, argmax equal, the prefill's top-2 gap)]."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.ragged_attention import ragged_attention_ref
+    from repro_torch.models import common as C
+    from repro_torch.models import dense
+
+    def f32_plain(q, kp, vp, kt, vt, bt, slot, pos, ctx):
+        return ragged_attention_ref(*_f32(q, kp, vp, kt, vt), bt, slot, pos, ctx).to(vt.dtype)
+
+    def rel(x, y):
+        return (torch.linalg.norm(x - y) / torch.linalg.norm(y)).item()
+
+    n, page = len(prompt), 16
+    toks = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    zeros = torch.zeros(n, dtype=torch.int32, device=device)
+    out = []
+    for k in depths:
+        m, c = _first_layers(model, k), cfg.replace(n_layers=k)
+        lb, _ = dense.prefill(m, c, toks[None], dense.init_decode_state(c, 1, n, device=device))
+        steps = []
+        for attn in (dispatch.ragged_attention, f32_plain):
+            st = C.init_paged_state(dense.init_decode_state, c, 1, n, page, -(-n // page), device)
+            st["bt"][0] = torch.arange(st["bt"].shape[1], dtype=torch.int32, device=device)
+            kernel_attn, dispatch.ragged_attention = dispatch.ragged_attention, attn
+            try:
+                lr, _ = dense.ragged_step(m, c, st, toks, zeros,
+                                          torch.arange(n, dtype=torch.int32, device=device),
+                                          zeros[:1], torch.tensor([n - 1], device=device))
+            finally:
+                dispatch.ragged_attention = kernel_attn
+            steps.append(lr[0, :cfg.vocab].float())
+        a = lb[0, -1, :cfg.vocab].float()
+        top2 = a.topk(2).values
+        out.append((k, rel(steps[0], a), rel(steps[1], a), rel(steps[0], steps[1]),
+                    bool(a.argmax() == steps[0].argmax()), (top2[0] - top2[1]).item()))
+    return out
+
+
+def _depth_line(rows) -> str:
+    return " ".join(f"L{k}:ragged={r:.4f},f32_plain={rf:.4f},ragged_vs_f32_plain={rr:.4f},"
+                    f"argmax_equal={e},top2_gap={g:.4f}" for k, r, rf, rr, e, g in rows)
+
+
+# the ragged step vs the bucketed prefill on the bf16 model (before
+# quantization): no 4-bit activation can flip, so what differs is the
+# attention's rounding carried through the depth (read 0.0196 at 32 layers
+# on an H100, PERF.md; the argmax is not held: random weights leave the top
+# two logits within that error)
+RAGGED_BF16_REL_MAX = 0.025
+DEPTHS = (1, 2, 4, 8, 16, 32)
+
+
 def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2048,
-                rank: int = 128) -> dict:
-    """Serve ``cfg`` (random weights, seed 0, W4A4) through the engine and
-    check it; returns the kernel launch counts of the main-path run. Runs on
-    the CPU too (plain versions), which is how it is rehearsed off the card."""
+                rank: int = 128, spec_probe: int = 0) -> dict:
+    """Serve ``cfg`` (random weights, seed 0, W4A4, quantized once) through
+    the engine in its bucketed, paged, speculative and ragged modes and check
+    each; returns each kernel's launch count from the run whose main path
+    it is. ``spec_probe`` > 0 repeats the paged run and every speculative
+    variant (``SPEC_VARIANTS``) that many times. Runs on the CPU too (plain
+    versions), which is how it is rehearsed off the card."""
     import numpy as np
     import torch
 
     from repro_torch.configs import QuantSpec
     from repro_torch.core.twinquant import fuse_params, quantize_params
-    from repro_torch.kernels import cuda_launch, dispatch
+    from repro_torch.kernels import dispatch
     from repro_torch.launch.serve import ContinuousBatchingEngine, Request, SamplingParams
     from repro_torch.models import dense
 
@@ -244,22 +737,36 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
     params = dense.init_params(cfg, seed=0, device=device)
     _sync(device)
     t1 = time.perf_counter()
-    qp = fuse_params(quantize_params(params, cfg, QuantSpec("w4a4", rank=rank, group_size=128)))
-    _sync(device)
-    t2 = time.perf_counter()
-    del params
-    nbytes = sum(t.numel() * t.element_size() for t in qp.buffers())
-    print(f"serve init_s={t1 - t0:.2f} quantize_fuse_s={t2 - t1:.2f} param_bytes={nbytes}",
-          flush=True)
-
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
+    depths = [k for k in DEPTHS if k < cfg.n_layers] + [cfg.n_layers]
+    bf16_rows = _ragged_vs_prefill(params, cfg, prompts[5], device, depths)
+    print(f"serve bf16 model: ragged step vs bucketed prefill logits ({len(prompts[5])}-token "
+          f"prompt) {_depth_line(bf16_rows)} (limit at full depth: ragged rel <= "
+          f"{RAGGED_BF16_REL_MAX})", flush=True)
+    if not bf16_rows[-1][1] <= RAGGED_BF16_REL_MAX:
+        fail(f"bf16 model: ragged step vs bucketed prefill logits rel {bf16_rows[-1][1]} "
+             f"(limit {RAGGED_BF16_REL_MAX})")
+    t2 = time.perf_counter()
+    qp = fuse_params(quantize_params(params, cfg, QuantSpec("w4a4", rank=rank, group_size=128)))
+    _sync(device)
+    t3 = time.perf_counter()
+    del params
+    nbytes = sum(t.numel() * t.element_size() for t in qp.buffers())
+    print(f"serve init_s={t1 - t0:.2f} quantize_fuse_s={t3 - t2:.2f} param_bytes={nbytes}",
+          flush=True)
+
+    def request(i):
+        return Request(prompts[i], max_new=32,
+                       sampling=SamplingParams(temperature=0.8, top_k=50, seed=1)
+                       if i == 3 else SamplingParams())
 
     def requests():
-        return [Request(p, max_new=32,
-                        sampling=SamplingParams(temperature=0.8, top_k=50, seed=1)
-                        if i == 3 else SamplingParams())
-                for i, p in enumerate(prompts)]
+        return [request(i) for i in range(len(prompts))]
+
+    def engine(**kw):
+        return ContinuousBatchingEngine(cfg, qp, batch_slots=8, max_len=max_len, device=device,
+                                        **kw)
 
     # kernel vs plain logits on one prompt, through the model entry point
     state = dense.init_decode_state(cfg, 1, 64, device=device)
@@ -274,57 +781,131 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
         fail(f"prefill logits through the kernels != plain versions "
              f"(max |d| {(lk.float() - lp.float()).abs().max().item()})")
     print("serve prefill logits kernel == plain: equal", flush=True)
+    L = cfg.n_layers
+    launches = {}
+    cuda = device.type == "cuda"
 
-    engine = ContinuousBatchingEngine(cfg, qp, batch_slots=8, max_len=max_len, device=device)
+    # -- bucketed, dense cache
     reqs = requests()
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    dispatch.reset_dispatch_counters()
-    cuda_launch.reset_launch_counts()
-    t0 = time.perf_counter()
-    engine.serve(reqs)
-    _sync(device)
-    wall = time.perf_counter() - t0
-    launches = cuda_launch.launch_counts()
-    routes = dispatch.dispatch_counters()
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else "not measured"
-    bad = [(r.request_id, r.status, r.error) for r in reqs if r.status != "DONE"]
-    if bad:
-        fail(f"requests not DONE: {bad}")
-    if any(len(r.out) != 32 for r in reqs):
-        fail(f"short outputs: {[len(r.out) for r in reqs]}")
-    print(f"serve routes {json.dumps(routes, sort_keys=True)}", flush=True)
-    print(f"serve launches {json.dumps(launches, sort_keys=True)}", flush=True)
+    eng = engine()
+    got, routes = _drive("bucketed", eng, reqs, device, L)
     for key in ("dual/decode", "dual/prefill", "dual_fused/decode", "dual_fused/prefill"):
         if routes.get(key, 0) <= 0:
-            fail(f"route {key} never taken")
-    if any("/ref" in key for key in routes):
-        fail(f"plain-version routes taken: {routes}")
-    for name in KERNELS if device.type == "cuda" else ():
-        if launches.get(name, 0) <= 0:
-            fail(f"kernel {name} never launched on the main path")
-    tp = engine.throughput()
-    steps, prefills = tp["decode_steps"], engine.compile_stats()["prefill_calls"]
-    print(f"serve launches_per_decode_step dual_gemv={2 * cfg.n_layers} "
-          f"dual_gemv_group={2 * cfg.n_layers} (o, down / qkv, gate_up per layer; "
-          f"{steps} decode steps, {prefills} prefills)", flush=True)
-    print(f"serve done requests={len(reqs)} wall_s={wall:.3f} decode_tok_s={tp['decode_tok_s']:.2f} "
-          f"prefill_tok_s={tp['prefill_tok_s']:.2f} decode_steps={tp['decode_steps']} "
-          f"max_memory_allocated={peak} compile_stats={json.dumps(engine.compile_stats())} "
-          f"card=\"{card}\"", flush=True)
-
-    # DESIGN.md §10: a request served interleaved equals the same request alone
-    solo_engine = ContinuousBatchingEngine(cfg, qp, batch_slots=8, max_len=max_len, device=device)
-    solo = requests()[5]
-    solo_engine.serve([solo])
+            fail(f"bucketed: route {key} never taken")
+    for name in ("dual_gemv", "dual_gemv_group", "dual_gemm", "dual_gemm_group"):
+        if cuda and got.get(name, 0) <= 0:
+            fail(f"kernel {name} never launched on the bucketed path")
+        launches[name] = got.get(name, 0)
+    print(f"serve bucketed launches_per_decode_step dual_gemv={2 * L} dual_gemv_group={2 * L} "
+          f"(o, down / qkv, gate_up per layer) card=\"{card}\"", flush=True)
+    solo = request(5)
+    engine().serve([solo])
     if solo.out != reqs[5].out:
-        fail("solo vs interleaved greedy tokens differ")
-    print("serve solo == interleaved: equal", flush=True)
+        fail("bucketed: solo vs interleaved greedy tokens differ")
+    print("serve bucketed solo == interleaved: equal", flush=True)
+    del eng
+
+    # -- (a) paged, prefix cache on
+    paged = requests()
+    eng = engine(paged=True)
+    got, routes = _drive("paged", eng, paged, device, L)
+    steps = eng.stats["decode_steps"]
+    if routes.get("paged_decode/kernel", 0) != L * steps:
+        fail(f"paged: paged_decode/kernel routed {routes.get('paged_decode/kernel')} "
+             f"times, want {L} x {steps} decode steps")
+    if cuda and got.get("paged_decode_kernel", 0) != L * steps:
+        fail(f"paged: paged_decode_kernel launched {got.get('paged_decode_kernel')} times, "
+             f"want {L} per decode step ({steps})")
+    launches["paged_decode_kernel"] = got.get("paged_decode_kernel", 0)
+    print(f"serve paged memory {json.dumps(eng.memory(), sort_keys=True)} prefix_hits="
+          f"{eng.stats['prefix_hits']} prefix_hit_tokens={eng.stats['prefix_hit_tokens']} "
+          f"launches_per_decode_step paged_decode_kernel={L}", flush=True)
+    eng.check_page_invariants()
+    solo = request(5)
+    engine(paged=True).serve([solo])
+    if solo.out != paged[5].out:
+        fail("paged: solo vs interleaved greedy tokens differ")
+    print("serve paged solo == interleaved: equal", flush=True)
+    del eng
+
+    # -- (b) paged + speculation
+    spec = requests()
+    eng = engine(paged=True, speculation=True, spec_k=4)
+    got, routes = _drive("spec", eng, spec, device, L)
+    n_launch = eng.stats["spec_launches"]
+    if cuda and got.get("paged_decode_kernel", 0) != L * n_launch:
+        fail(f"spec: paged_decode_kernel launched {got.get('paged_decode_kernel')} times, "
+             f"want {L} per verify launch ({n_launch})")
+    if routes.get("paged_decode/kernel", 0) != L * n_launch:
+        fail(f"spec: paged_decode/kernel routed {routes.get('paged_decode/kernel')} times, "
+             f"want {L} x {n_launch} verify launches")
+    diff = [i for i, (a, b) in enumerate(zip(spec, paged)) if a.out != b.out]
+    if diff:
+        fail(f"spec: speculative tokens != paged tokens for requests {diff}")
+    tp = eng.throughput()
+    print(f"serve spec == paged tokens: equal (12 requests) acceptance_rate="
+          f"{tp['acceptance_rate']:.4f} tokens_per_step={tp['tokens_per_step']:.4f} "
+          f"spec_launches={n_launch}", flush=True)
+    del eng
+    for rep in range(max(spec_probe, 1)):
+        if spec_probe:
+            again = requests()
+            _drive("paged again", engine(paged=True), again, device, L)
+            print(f"serve spec probe rep={rep} paged again == paged: "
+                  f"{all(a.out == b.out for a, b in zip(again, paged))}", flush=True)
+        for variant in SPEC_VARIANTS if spec_probe else ("stacked",):
+            _spec_run(variant, engine(paged=True, speculation=True, spec_k=4), requests(),
+                      paged, cfg, device)
+
+    # -- (c) ragged, token budget 256
+    ragged = requests()
+    eng = engine(paged=True, ragged=True, token_budget=256)
+    got, routes = _drive("ragged", eng, ragged, device, L)
+    steps = eng.stats["decode_steps"]
+    if routes.get("ragged/kernel", 0) != L * steps:
+        fail(f"ragged: ragged/kernel routed {routes.get('ragged/kernel')} times, want "
+             f"{L} x {steps} steps")
+    if cuda and got.get("ragged_attention_kernel", 0) != L * steps:
+        fail(f"ragged: ragged_attention_kernel launched {got.get('ragged_attention_kernel')} "
+             f"times, want {L} per step ({steps})")
+    launches["ragged_attention_kernel"] = got.get("ragged_attention_kernel", 0)
+    agree = sum(a == b for r, q in zip(ragged, paged) for a, b in zip(r.out, q.out))
+    w4a4_rows = _ragged_vs_prefill(qp, cfg, prompts[5], device, depths)
+    print(f"serve ragged tokens agreeing with paged: {agree} of {32 * len(ragged)}, first "
+          f"tokens {sum(r.out[0] == q.out[0] for r, q in zip(ragged, paged))} of {len(ragged)}; "
+          f"W4A4 model: ragged step vs bucketed prefill logits ({len(prompts[5])}-token "
+          f"prompt) {_depth_line(w4a4_rows)} (not gated) "
+          f"ttft_1024_s={ragged[-1].t_first_token - ragged[-1].t_submit:.4f} "
+          f"launches_per_step ragged_attention_kernel={L}", flush=True)
+    eng.check_page_invariants()
+    solo_eng = engine(paged=True, ragged=True, token_budget=256)
+    # the 1024-token prompt (chunked differently alone and interleaved) and the
+    # 3-token one. The kernel folds keys by absolute position, so chunking
+    # cannot move a row's bits; the plain version (a CPU rehearsal) keeps the
+    # reference's multi-chunk f32 reassociation, so there only the short one
+    # is held.
+    held = (len(prompts) - 1, 0) if cuda else (0,)
+    for i in held:
+        solo = request(i)
+        solo_eng.serve([solo])
+        if solo.out != ragged[i].out:
+            fail(f"ragged: solo vs interleaved tokens differ for the {len(prompts[i])}-token "
+                 f"prompt")
+    print(f"serve ragged solo == interleaved: equal (prompts of "
+          f"{[len(prompts[i]) for i in held]} tokens)", flush=True)
+    del eng, solo_eng
     return launches
 
 
 def main() -> None:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--spec-probe", type=int, default=0, metavar="N",
+                    help="repeat the paged run and every speculative variant N times")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -332,7 +913,8 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    print(f"device name={name} count={count}", flush=True)
+    print(f"device name={name} count={count} torch={torch.__version__} "
+          f"cuda={torch.version.cuda}", flush=True)
     print(card, flush=True)
 
     from repro_torch.kernels import build
@@ -344,12 +926,14 @@ def main() -> None:
             print(f"build {src}: {ln}", flush=True)
 
     table = kernel_phase(device)
+    table.update(attention_phase(device))
     from repro_torch.configs import get_config
 
-    launches = serve_phase(device, card, get_config("llama3-8b").replace(n_layers=SERVE_LAYERS))
+    launches = serve_phase(device, card, get_config("llama3-8b").replace(n_layers=SERVE_LAYERS),
+                           spec_probe=args.spec_probe)
 
     rows = []
-    for kname, (source, replaces, _) in KERNELS.items():
+    for kname, (source, replaces) in KERNELS.items():
         rows.append(dict(name=kname, route="cuda", source=source, replaces=replaces,
                          launches=launches.get(kname, 0), **table[kname]))
     print(json.dumps({"kernels": rows}))

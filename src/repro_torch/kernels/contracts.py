@@ -11,18 +11,35 @@
   :class:`ContractError` before anything is launched. Dispatch asks them
   too: a consistent pack they reject is a ``ref`` route, which runs the
   plain version for a CPU tensor and raises for any other.
+* :func:`check_paged_decode_args` / :func:`check_ragged_args` — shape
+  consistency of a block-table attention call, run at its dispatch entry.
+* :func:`validate_paged_decode` / :func:`validate_ragged_attention` — what
+  the CUDA attention kernels take: GQA grouping, head dims in whole 16-byte
+  loads, at most ``ATT_QV_MAX`` query vectors a block, pages of at most
+  ``ATT_PAGE_MAX`` rows, and their shared memory against the budget.
+* :func:`check_ragged_rows` — the ragged kernel's row contract (each slot
+  one contiguous run of consecutive positions from its ``ctx``), checked on
+  the host while the metadata is still numpy.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
+
 import torch
 
 __all__ = [
+    "ATT_PAGE_MAX",
+    "ATT_QV_MAX",
     "ContractError",
     "SMEM_BUDGET_BYTES",
     "MAX_SEGMENTS",
+    "attn_smem_bytes",
+    "check_paged_decode_args",
+    "check_ragged_args",
+    "check_ragged_rows",
     "check_twinquant_group_pack",
     "check_twinquant_pack",
     "divisible",
@@ -32,11 +49,16 @@ __all__ = [
     "validate_dual_gemm_group",
     "validate_dual_gemv",
     "validate_dual_gemv_group",
+    "validate_paged_decode",
+    "validate_ragged_attention",
 ]
 
 SMEM_BUDGET_BYTES = 232_448  # 227 KB: the most one H100 block can use
 MAX_SEGMENTS = 4  # segment table size compiled into the kernels
 _GMAX = 128  # largest scale group the kernels' shared tiles hold
+ATT_QV_MAX = 32  # query vectors (rows x query heads of one KV head) an attention block
+ATT_PAGE_MAX = 64  # page rows an attention block folds as one tile
+_ATT_HD_MAX = 256  # head dims a lane set of 32 x 8 covers
 
 
 class ContractError(ValueError):
@@ -206,3 +228,157 @@ def check_twinquant_group_pack(gw, k: int, *, kind: str = "dual_fused") -> None:
     if problems:
         raise ContractError(f"[{kind}] malformed fused pack (K={k}, segments N={gw.seg_n}, "
                             f"r={gw.seg_r}):\n  " + "\n  ".join(problems))
+
+
+# ---------------------------------------------------------------------------
+# block-table attention (paged decode, ragged)
+# ---------------------------------------------------------------------------
+
+
+def attn_smem_bytes(page: int, hd: int) -> int:
+    """Dynamic shared memory of an attention block: the f32 query panel,
+    two buffers of a K and a V tile in bf16, and the tiles' key flags
+    (``attn_smem_bytes`` in ``csrc/attention_common.cuh``)."""
+    return ATT_QV_MAX * hd * 4 + 2 * 2 * page * hd * 2 + 2 * page * 4
+
+
+def _attn_common(kind: str, h: int, kvh: int, hd: int, page: int, maxp: int) -> None:
+    if h < 1 or kvh < 1:
+        raise ContractError(f"[{kind}] head counts must be positive, got H={h} KV={kvh}")
+    divisible(h, kvh, "n_heads % n_kv_heads", kind=kind,
+              hint="GQA groups share each KV head across h//kvh query heads")
+    divisible(hd, 8, "head_dim % 8", kind=kind, hint="K/V rows move in 16-byte copies")
+    if hd > _ATT_HD_MAX:
+        raise ContractError(f"[{kind}] head_dim={hd} exceeds the kernel's {_ATT_HD_MAX}")
+    if h // kvh > ATT_QV_MAX:
+        raise ContractError(f"[{kind}] {h // kvh} query heads per KV head exceed the "
+                            f"block's {ATT_QV_MAX} query vectors")
+    if not 1 <= page <= ATT_PAGE_MAX:
+        raise ContractError(f"[{kind}] page_size={page} outside [1, {ATT_PAGE_MAX}]")
+    if maxp < 1:
+        raise ContractError(f"[{kind}] max_pages={maxp} must be positive")
+    _smem(kind, attn_smem_bytes(page, hd))
+
+
+def validate_paged_decode(b: int, sq: int, h: int, kvh: int, hd: int, maxp: int, page: int,
+                          *, decode_m_max: int = 8, kind: str = "paged_decode") -> None:
+    """Contract for the paged decode-attention launch: one block per (slot,
+    KV head) holds all ``sq`` rows of its ``h // kvh`` query heads, so
+    ``sq`` is bounded by the decode panel and ``sq * h // kvh`` by the
+    block's query vectors; the sequence length never enters."""
+    if b < 1:
+        raise ContractError(f"[{kind}] B={b} slots must be positive")
+    if not 1 <= sq <= decode_m_max:
+        raise ContractError(
+            f"[{kind}] sq={sq} draft rows outside [1, DECODE_M_MAX={decode_m_max}]\n"
+            "  hint: the speculative engine verifies at most DECODE_M_MAX tokens per slot"
+        )
+    _attn_common(kind, h, kvh, hd, page, maxp)
+    if sq * (h // kvh) > ATT_QV_MAX:
+        raise ContractError(f"[{kind}] sq * H/KV = {sq * (h // kvh)} query vectors exceed "
+                            f"the block's {ATT_QV_MAX}")
+
+
+def validate_ragged_attention(t: int, h: int, kvh: int, hd: int, b: int, maxp: int, page: int,
+                              *, kind: str = "ragged") -> None:
+    """Contract for the ragged-attention launch: one block per (slot, KV
+    head, tile of ``ATT_QV_MAX // (h // kvh)`` of the slot's rows), so the
+    token budget T only sets the grid, never a block's memory."""
+    if t < 1 or b < 1:
+        raise ContractError(f"[{kind}] T={t} rows and B={b} slots must be positive")
+    _attn_common(kind, h, kvh, hd, page, maxp)
+
+
+def check_paged_decode_args(q, kp, vp, kt, vt, bt, pos, *, kind: str = "paged_decode") -> None:
+    """Shape consistency of a paged-decode call: ``q (B, sq, H, hd)``,
+    ``kt, vt (B, sq, KV, hd)``, one layer's pools ``kp, vp (P, page, KV,
+    hd)``, block tables ``bt (B, maxp)`` and ``pos (B,)``."""
+    problems = []
+    if q.ndim != 4:
+        problems.append(f"q: expected (B, sq, H, hd), got {tuple(q.shape)}")
+    if kt.ndim != 4 or vt.ndim != 4 or kt.shape != vt.shape:
+        problems.append(f"kt/vt: expected matching (B, sq, KV, hd), got {tuple(kt.shape)} "
+                        f"vs {tuple(vt.shape)}")
+    if kp.ndim != 4 or vp.ndim != 4 or kp.shape != vp.shape:
+        problems.append(f"kp/vp: expected matching (P, page, KV, hd) pools, got "
+                        f"{tuple(kp.shape)} vs {tuple(vp.shape)}")
+    if bt.ndim != 2:
+        problems.append(f"bt: expected (B, max_pages), got {tuple(bt.shape)}")
+    if problems:
+        raise ContractError(f"[{kind}] malformed paged-decode call:\n  " + "\n  ".join(problems))
+    b, sq, _, hd = q.shape
+    if kt.shape[0] != b or kt.shape[1] != sq or kt.shape[3] != hd:
+        problems.append(f"kt shape {tuple(kt.shape)} disagrees with q {tuple(q.shape)}")
+    if kp.shape[2] != kt.shape[2] or kp.shape[3] != hd:
+        problems.append(f"pool trailing dims {tuple(kp.shape[2:])} != draft (KV, hd)="
+                        f"({kt.shape[2]}, {hd})")
+    if q.shape[2] % kt.shape[2] != 0:
+        problems.append(f"n_heads {q.shape[2]} not a multiple of n_kv_heads {kt.shape[2]}")
+    if bt.shape[0] != b:
+        problems.append(f"bt rows {bt.shape[0]} != B={b} slots")
+    if tuple(pos.shape) != (b,):
+        problems.append(f"pos: expected ({b},), got {tuple(pos.shape)}")
+    if problems:
+        raise ContractError(f"[{kind}] malformed paged-decode call:\n  " + "\n  ".join(problems))
+
+
+def check_ragged_args(q, kp, vp, kt, vt, bt, slot, pos, ctx, *, kind: str = "ragged") -> None:
+    """Shape consistency of a ragged-attention call: ``q (T, H, hd)``,
+    ``kt, vt (T, KV, hd)``, pools ``kp, vp (P, page, KV, hd)``, ``bt (B,
+    maxp)``, ``slot, pos (T,)`` (slot == B marks a pad row), ``ctx (B,)``."""
+    problems = []
+    if q.ndim != 3:
+        problems.append(f"q: expected (T, H, hd), got {tuple(q.shape)}")
+    if kt.ndim != 3 or vt.ndim != 3 or kt.shape != vt.shape:
+        problems.append(f"kt/vt: expected matching (T, KV, hd), got {tuple(kt.shape)} "
+                        f"vs {tuple(vt.shape)}")
+    if kp.ndim != 4 or vp.ndim != 4 or kp.shape != vp.shape:
+        problems.append(f"kp/vp: expected matching (P, page, KV, hd) pools, got "
+                        f"{tuple(kp.shape)} vs {tuple(vp.shape)}")
+    if bt.ndim != 2:
+        problems.append(f"bt: expected (B, max_pages), got {tuple(bt.shape)}")
+    if problems:
+        raise ContractError(f"[{kind}] malformed ragged call:\n  " + "\n  ".join(problems))
+    t, _, hd = q.shape
+    if kt.shape[0] != t or kt.shape[2] != hd:
+        problems.append(f"kt rows/head_dim {tuple(kt.shape)} disagree with q {tuple(q.shape)}")
+    if kp.shape[2] != kt.shape[1] or kp.shape[3] != hd:
+        problems.append(f"pool trailing dims {tuple(kp.shape[2:])} != in-batch (KV, hd)="
+                        f"({kt.shape[1]}, {hd})")
+    if q.shape[1] % kt.shape[1] != 0:
+        problems.append(f"n_heads {q.shape[1]} not a multiple of n_kv_heads {kt.shape[1]}")
+    if tuple(slot.shape) != (t,) or tuple(pos.shape) != (t,):
+        problems.append(f"slot/pos: expected ({t},), got {tuple(slot.shape)} / "
+                        f"{tuple(pos.shape)}")
+    if tuple(ctx.shape) != (bt.shape[0],):
+        problems.append(f"ctx: expected ({bt.shape[0]},) to match bt rows, got "
+                        f"{tuple(ctx.shape)}")
+    if problems:
+        raise ContractError(f"[{kind}] malformed ragged call:\n  " + "\n  ".join(problems))
+
+
+def check_ragged_rows(slot, pos, ctx, *, kind: str = "ragged") -> None:
+    """The ragged kernel's row contract, on host (numpy) metadata: every
+    row's slot lies in [0, B] (B marks padding), and each slot's rows form
+    ONE contiguous run whose positions are ctx[slot], ctx[slot] + 1, ...
+    The kernel finds a slot's run by its first row and row count and takes
+    each key's place from that, so a broken batch would attend wrong keys."""
+    slot = np.asarray(slot)
+    pos = np.asarray(pos)
+    ctx = np.asarray(ctx)
+    b = ctx.shape[0]
+    if slot.shape != pos.shape or slot.ndim != 1:
+        raise ContractError(f"[{kind}] slot/pos must be matching 1-D arrays, got "
+                            f"{slot.shape} / {pos.shape}")
+    if slot.size and (slot.min() < 0 or slot.max() > b):
+        raise ContractError(f"[{kind}] slot ids must lie in [0, {b}] ({b} = pad), got "
+                            f"{sorted(set(slot.tolist()))[:8]}")
+    for s in np.unique(slot[slot < b]):
+        rows = np.flatnonzero(slot == s)
+        if rows[-1] - rows[0] + 1 != rows.size:
+            raise ContractError(f"[{kind}] slot {int(s)}'s rows {rows.tolist()[:8]} are not "
+                                "one contiguous run")
+        want = int(ctx[s]) + np.arange(rows.size)
+        if not np.array_equal(pos[rows], want):
+            raise ContractError(f"[{kind}] slot {int(s)}'s positions {pos[rows].tolist()[:8]} "
+                                f"are not consecutive from ctx={int(ctx[s])}")

@@ -1,5 +1,6 @@
-"""Launch plumbing shared by the dual-component kernel wrappers: operand
-checks, scratch allocation, the ctypes call and the launch counters.
+"""Launch plumbing shared by the kernel wrappers: the ctypes call, its error
+check and the launch counters; for the dual-component kernels also their
+operand checks and scratch allocation.
 
 Every wrapper counts its own launches here (``launch_counts()``), bumped
 exactly where it calls its CUDA entry and nowhere else, so a run can show
@@ -14,15 +15,15 @@ import torch
 
 from repro_torch.kernels.build import load
 
-__all__ = ["launch_counts", "reset_launch_counts", "launch_dual"]
+__all__ = ["device_operand", "launch_counts", "reset_launch_counts", "launch_dual", "run_kernel"]
 
 _counts: dict[str, int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # (x, up, us, rp, rs, M, K, N, R, G, a_bits, n_seg, seg_info, vps, vss,
-#  xq, xs, hf, hq, hs, out, stream)
-_ARGS = [_P] * 5 + [_I] * 7 + [_P] * 10
+#  xq, xs, hf, hq, hs, out)
+_DUAL_ARGS = [_P] * 5 + [_I] * 7 + [_P] * 9
 
 
 def launch_counts() -> dict[str, int]:
@@ -35,12 +36,45 @@ def reset_launch_counts() -> None:
     _counts.clear()
 
 
-def _entry(lib_name: str, fn_name: str):
+def _entry(lib_name: str, fn_name: str, argtypes):
     fn = getattr(load(lib_name), fn_name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGS
+        fn.argtypes = list(argtypes) + [_P]  # the stream last
         fn.restype = _I
     return fn
+
+
+def run_kernel(name: str, lib_name: str, fn_name: str, argtypes, args,
+               device: torch.device) -> None:
+    """Call the C entry ``fn_name`` of ``csrc/<lib_name>.cu`` with ``args``
+    (typed by ``argtypes``) and the current stream of ``device``; raise on
+    a launch error, else count one launch under ``name``."""
+    fn = _entry(lib_name, fn_name, argtypes)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"[{name}] CUDA launch failed: cudaError {rc}")
+    _counts[name] = _counts.get(name, 0) + 1
+
+
+def device_operand(kind: str, t: torch.Tensor, dtype, what: str, device: torch.device,
+                   *, in_place: bool = False) -> torch.Tensor:
+    """``t`` as a kernel reads it: on ``device`` and of ``dtype`` (else
+    ContractError), contiguous and 16-byte aligned — copied if not, unless
+    ``in_place`` (a buffer the kernel writes, or a page pool too large to
+    copy quietly), which raises instead."""
+    from repro_torch.kernels.contracts import ContractError
+
+    if t.device != device:
+        raise ContractError(f"[{kind}] {what} on {t.device}, the launch on {device}")
+    if t.dtype != dtype:
+        raise ContractError(f"[{kind}] {what} must be {dtype}, got {t.dtype}")
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    if in_place:
+        raise ContractError(f"[{kind}] {what} must be contiguous and 16-byte aligned")
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_operands(x: torch.Tensor, gw, kind: str) -> None:
@@ -87,7 +121,6 @@ def launch_dual(name: str, lib_name: str, fn_name: str, x: torch.Tensor, gw) -> 
     seg_info = (ctypes.c_longlong * len(info))(*info)
     vps = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in gw.vps])
     vss = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in gw.vss])
-    fn = _entry(lib_name, fn_name)
     args = [
         x.data_ptr(), gw.up.data_ptr(), gw.us.data_ptr(), gw.rp.data_ptr(), gw.rs.data_ptr(),
         m, k, n, r, G, gw.a_bits, ns,
@@ -95,10 +128,5 @@ def launch_dual(name: str, lib_name: str, fn_name: str, x: torch.Tensor, gw) -> 
         xq.data_ptr(), xs.data_ptr(), hf.data_ptr(), hq.data_ptr(), hs.data_ptr(),
         out.data_ptr(),
     ]
-    with torch.cuda.device(dev):
-        args.append(torch.cuda.current_stream(dev).cuda_stream)
-        rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"[{name}] CUDA launch failed: cudaError {rc}")
-    _counts[name] = _counts.get(name, 0) + 1
+    run_kernel(name, lib_name, fn_name, _DUAL_ARGS, args, dev)
     return out

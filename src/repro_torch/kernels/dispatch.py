@@ -1,4 +1,5 @@
-"""Quantized-linear dispatch: one entry point, routed by shape regime.
+"""Kernel dispatch: the quantized linears, routed by shape regime, and the
+block-table attention entries.
 
 Every dual-component matmul of the model goes through :func:`quant_linear`
 (one pack) or :func:`fused_linear` (a fused sibling group: q/k/v, gate/up),
@@ -16,6 +17,15 @@ which route each call by its flattened M, as the JAX package does:
 
 Each decision bumps a counter keyed ``<kind>/<path>`` (kinds ``dual`` and
 ``dual_fused``). PyTorch runs eagerly, so that is one bump per call.
+
+The attention entries :func:`paged_decode` (kind ``paged_decode``) and
+:func:`ragged_attention` (kind ``ragged``) have one kernel schedule each,
+so their classification is a viability check with the reference's reason
+codes: ``hd_unaligned`` (heads not grouped by the KV heads, or a head dim
+the kernel cannot load whole), ``rows`` (a draft stack past DECODE_M_MAX)
+and ``vmem`` (the kernel's own launch contract refuses the shape; on the
+card that is its shared memory and tiles, not TPU VMEM). Path ``kernel``
+calls the wrapper; a ``ref`` route follows the same rule as above.
 
 A ``decode`` or ``prefill`` route calls the kernel wrapper, which launches
 the CUDA kernel for a CUDA tensor and runs the plain version for a CPU
@@ -35,11 +45,17 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.autotune import DECODE_M_MAX, hopper_blocks
 from repro_torch.kernels.contracts import (
     ContractError,
+    check_paged_decode_args,
+    check_ragged_args,
     check_twinquant_group_pack,
     check_twinquant_pack,
     validate_dual_gemm_group,
     validate_dual_gemv_group,
+    validate_paged_decode,
+    validate_ragged_attention,
 )
+from repro_torch.kernels.paged_attention import paged_decode_kernel, paged_decode_ref
+from repro_torch.kernels.ragged_attention import ragged_attention_kernel, ragged_attention_ref
 from repro_torch.kernels.ref import (
     TwinQuantGroupWeights,
     TwinQuantWeights,
@@ -53,11 +69,15 @@ __all__ = [
     "Route",
     "classify_dual",
     "classify_dual_group",
+    "classify_paged_decode",
+    "classify_ragged",
     "dispatch_counters",
     "force_ref_enabled",
     "fused_linear",
     "fusion_enabled",
+    "paged_decode",
     "quant_linear",
+    "ragged_attention",
     "reset_dispatch_counters",
     "set_force_ref",
     "set_fusion",
@@ -66,6 +86,7 @@ __all__ = [
 PATH_PREFILL = "prefill"
 PATH_DECODE = "decode"
 PATH_REF = "ref"
+PATH_KERNEL = "kernel"
 
 _fusion_enabled = True
 _force_ref = False
@@ -105,9 +126,10 @@ def set_force_ref(enabled: bool) -> bool:
 class Route:
     """A routing decision: which schedule, which blocks, and why. ``code``
     names why a ``ref`` route was taken (``forced``, ``k_group``,
-    ``rank_rgroup``, ``decode_untileable``, ``prefill_untileable``)."""
+    ``rank_rgroup``, ``decode_untileable``, ``prefill_untileable``,
+    ``hd_unaligned``, ``rows``, ``vmem``)."""
 
-    path: str  # "prefill" | "decode" | "ref"
+    path: str  # "prefill" | "decode" | "kernel" | "ref"
     blocks: Optional[tuple[int, int, int]]  # (bm, bn, bk) of the CUDA launch
     reason: str
     code: str = "ok"
@@ -241,3 +263,90 @@ def fused_linear(x: torch.Tensor,
         _finish(yj, batch_shape, nj, bj)
         for yj, nj, bj in zip(gw.split(y), gw.seg_n, biases)
     )
+
+
+# ---------------------------------------------------------------------------
+# block-table attention
+# ---------------------------------------------------------------------------
+
+
+def _attn_viability(h: int, kvh: int, hd: int) -> Optional[Route]:
+    if h % kvh != 0:
+        return Route(PATH_REF, None, f"H={h} not grouped by KV={kvh}", "hd_unaligned")
+    if hd % 8 != 0:
+        return Route(PATH_REF, None, f"head_dim={hd} not a whole number of 16-byte loads",
+                     "hd_unaligned")
+    return None
+
+
+def classify_ragged(t: int, h: int, kvh: int, hd: int, b: int, maxp: int, page: int) -> Route:
+    """Route a ragged-attention call (kind ``ragged``)."""
+    bad = _attn_viability(h, kvh, hd)
+    if bad is not None:
+        return bad
+    try:
+        validate_ragged_attention(t, h, kvh, hd, b, maxp, page)
+    except ContractError as e:
+        return Route(PATH_REF, None, str(e), "vmem")
+    return Route(PATH_KERNEL, None, f"ragged schedule (T={t}, maxp={maxp})")
+
+
+def classify_paged_decode(b: int, sq: int, h: int, kvh: int, hd: int, maxp: int,
+                          page: int) -> Route:
+    """Route a paged decode-attention call (kind ``paged_decode``)."""
+    bad = _attn_viability(h, kvh, hd)
+    if bad is not None:
+        return bad
+    if sq > DECODE_M_MAX:
+        return Route(PATH_REF, None, f"sq={sq} draft rows exceed DECODE_M_MAX={DECODE_M_MAX}",
+                     "rows")
+    try:
+        validate_paged_decode(b, sq, h, kvh, hd, maxp, page, decode_m_max=DECODE_M_MAX)
+    except ContractError as e:
+        return Route(PATH_REF, None, str(e), "vmem")
+    return Route(PATH_KERNEL, None, f"paged decode schedule (B={b}, sq={sq})")
+
+
+def ragged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, kt: torch.Tensor,
+                     vt: torch.Tensor, bt: torch.Tensor, slot: torch.Tensor,
+                     pos: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    """Routed ragged paged attention over one step's flat rows (kind
+    ``ragged``): ``q (T, H, hd)``, ``kt, vt (T, KV, hd)``, one layer's pools
+    ``kp, vp (P, page, KV, hd)``, ``bt (B, maxp)``, ``slot, pos (T,)``
+    (slot == B pads), ``ctx (B,)``. Returns (T, H, hd); pad rows are zero."""
+    check_ragged_args(q, kp, vp, kt, vt, bt, slot, pos, ctx)
+    t, h, hd = q.shape
+    b, maxp = bt.shape
+    if _force_ref:
+        route = Route(PATH_REF, None, "set_force_ref(True)", "forced")
+    else:
+        route = classify_ragged(t, h, kt.shape[1], hd, b, maxp, kp.shape[1])
+    _require_cpu_for_ref("ragged", route, q)
+    _record("ragged", route)
+    if route.path == PATH_REF:
+        return ragged_attention_ref(q, kp, vp, kt, vt, bt, slot, pos, ctx)
+    return ragged_attention_kernel(q, kp, vp, kt, vt, bt, slot, pos, ctx)
+
+
+def paged_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, kt: torch.Tensor,
+                 vt: torch.Tensor, bt: torch.Tensor, pos: torch.Tensor, *,
+                 commit: bool = True):
+    """Routed paged decode attention (kind ``paged_decode``): ``q (B, sq, H,
+    hd)`` and ``kt, vt (B, sq, KV, hd)`` post-RoPE rows, one layer's pools,
+    ``bt (B, maxp)`` and ``pos (B,)``; no dense view of the cache is built on
+    the kernel path. ``commit=True`` returns ``(out, kp, vp)`` with the rows
+    written into their tail pages (in place on the card, copies from the
+    plain version); ``commit=False`` returns ``out`` only, and the decode
+    step writes every layer's rows once after its layers
+    (``paged_attention.pool_rows`` + ``write_page_rows``)."""
+    check_paged_decode_args(q, kp, vp, kt, vt, bt, pos)
+    b, sq, h, hd = q.shape
+    if _force_ref:
+        route = Route(PATH_REF, None, "set_force_ref(True)", "forced")
+    else:
+        route = classify_paged_decode(b, sq, h, kt.shape[2], hd, bt.shape[1], kp.shape[1])
+    _require_cpu_for_ref("paged_decode", route, q)
+    _record("paged_decode", route)
+    if route.path == PATH_REF:
+        return paged_decode_ref(q, kp, vp, kt, vt, bt, pos, commit=commit)
+    return paged_decode_kernel(q, kp, vp, kt, vt, bt, pos, commit=commit)

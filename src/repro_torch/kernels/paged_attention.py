@@ -1,0 +1,154 @@
+"""Block-table paged decode attention: the plain version and the wrapper over
+the CUDA kernel in ``csrc/paged_attention.cu``.
+
+``q (B, sq, H, hd)`` / ``kt, vt (B, sq, KV, hd)`` are post-RoPE rows: row
+``i`` of slot ``b`` sits at position ``pos[b] + i`` and attends the committed
+prefix ``[0, pos[b])`` of the slot's pages (``kp, vp (P, page, KV, hd)``
+through ``bt (B, maxp)``, -1 unmapped), the earlier rows of its own slot,
+and itself. ``sq == 1`` is plain decode; ``sq > 1`` a speculative draft
+stack. With ``commit=True`` the rows are also written into their tail pages.
+
+* :func:`paged_decode_ref` is the plain version. Its numerics mirror the
+  reference's oracle rounding for rounding (one bf16 cache dot per row
+  under a strict per-row prefix mask over a dense view with the draft rows
+  written in, the self term rounded apart), so ``sq == 1`` equals the
+  dense-cache decode (``models/common.attention_decode_ro``) bit for bit
+  and row ``i`` of a stack equals a sequential launch at ``pos + i``.
+* :func:`paged_decode_kernel` launches the kernel for CUDA tensors and runs
+  the plain version for CPU tensors. The kernel accumulates in f32 with an
+  online softmax, so it agrees with the plain version to bf16 tolerance,
+  and its own stacked rows equal its sequential launches bit for bit. Its
+  commit updates the caller's pools in place; the plain version returns
+  updated copies.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.autotune import DECODE_M_MAX
+from repro_torch.kernels.contracts import validate_paged_decode
+from repro_torch.kernels.cuda_launch import device_operand, run_kernel
+
+__all__ = ["gather_pages", "paged_decode_kernel", "paged_decode_ref", "pool_rows",
+           "scatter_rows_pool", "write_page_rows"]
+
+_NEG = -1e30
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# (q, kp, vp, kt, vt, bt, pos, out, B, sq, H, KV, hd, maxp, page, scale, commit)
+_ARGS = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I]
+
+
+def pool_rows(bt: torch.Tensor, slot: torch.Tensor, pos: torch.Tensor, page: int,
+              n_pages: int):
+    """Where flat rows land in a pool: row ``i`` in page ``bt[slot_i, pos_i //
+    page]`` at offset ``pos_i % page``. Pad rows (slot >= B), rows past the
+    block table and rows into unmapped pages take the ``n_pages``
+    out-of-range sentinel (NOT -1, which would wrap into the last page) and
+    are dropped. Returns (rows kept, their page ids, their offsets); on the
+    card the selection synchronises once."""
+    b, maxp = bt.shape
+    slot, pos = slot.long(), pos.long()
+    pi = torch.div(pos, page, rounding_mode="floor")
+    page_id = bt.long()[slot.clamp(0, b - 1), pi.clamp(0, maxp - 1)]
+    ok = (slot >= 0) & (slot < b) & (pi < maxp) & (page_id >= 0)
+    page_id = torch.where(ok, page_id, n_pages)
+    keep = torch.nonzero(page_id < n_pages).flatten()
+    return keep, page_id[keep], (pos % page)[keep]
+
+
+def write_page_rows(pool: torch.Tensor, t: torch.Tensor, where) -> None:
+    """In place: pool (lead, P, page, ...) gets rows t (lead, R, ...) at the
+    places :func:`pool_rows` gave (the engine computes them once, before the
+    layers launch, as that synchronises on the card). The one row writer of
+    the port: every other page write goes through it."""
+    keep, page_id, off = where
+    pool[:, page_id, off] = t[:, keep].to(pool.dtype)
+
+
+def gather_pages(pool_l: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """One layer's pool (P, page, ...) + block table (B, maxp) -> the dense
+    per-slot view (B, maxp*page, ...). Unmapped (-1) entries read page 0;
+    callers mask those rows with the per-slot prefix."""
+    b, maxp = bt.shape
+    pages = pool_l[bt.long().clamp(min=0)]
+    return pages.reshape(b, maxp * pool_l.shape[1], *pool_l.shape[2:])
+
+
+def scatter_rows_pool(pool: torch.Tensor, t: torch.Tensor, bt: torch.Tensor,
+                      slot: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """A copy of the single-layer pool ``(P, page, KV, hd)`` with flat rows
+    ``t (R, KV, hd)`` scattered in where :func:`pool_rows` puts them."""
+    out = pool.clone()
+    write_page_rows(out[None], t[None], pool_rows(bt, slot, pos, pool.shape[1], pool.shape[0]))
+    return out
+
+
+def paged_decode_ref(q, kp, vp, kt, vt, bt, pos, *, commit: bool = True):
+    """Plain paged decode attention; returns ``(out, kp_new, vp_new)``, or
+    ``out`` alone when ``commit=False``."""
+    b, sq, h, hd = q.shape
+    kv = kt.shape[2]
+    g = h // kv
+    maxp, page = bt.shape[1], kp.shape[1]
+    s_max = maxp * page
+    dev = q.device
+    pos = pos.long()
+    # dense per-slot view (unmapped -> page 0, masked below), then the draft
+    # span written in: the view holds exactly the rows a sequential engine's
+    # cache would hold at each verified position
+    kc, vc = gather_pages(kp, bt), gather_pages(vp, bt)
+    rows = pos[:, None] + torch.arange(sq, device=dev)[None, :]
+    ok = rows < s_max
+    bi = torch.arange(b, device=dev)[:, None].expand(b, sq)
+    kc[bi[ok], rows[ok]] = kt[ok].to(kc.dtype)
+    vc[bi[ok], rows[ok]] = vt[ok].to(vc.dtype)
+
+    qg = q.reshape(b, sq, kv, g, hd)
+    logits_c = torch.einsum("bskgh,btkh->bkgst", qg, kc).to(torch.float32)
+    logits_c = logits_c / (hd ** 0.5)
+    mask = torch.arange(s_max, device=dev)[None, None, :] < rows[:, :, None]  # (B, sq, S)
+    logits_c = torch.where(mask[:, None, None, :, :], logits_c, _NEG)
+    logit_s = torch.einsum("bskgh,bskh->bkgs", qg, kt).to(torch.float32)[..., None] / (hd ** 0.5)
+    m = torch.maximum(logits_c.amax(dim=-1, keepdim=True), logit_s)
+    pc = torch.exp(logits_c - m)
+    ps = torch.exp(logit_s - m)
+    den = pc.sum(dim=-1, keepdim=True) + ps
+    out = torch.einsum("bkgst,btkh->bskgh", (pc / den).to(vc.dtype), vc)
+    self_w = (ps / den)[..., 0][..., None].permute(0, 3, 1, 2, 4).to(vt.dtype)
+    out = (out + self_w * vt[:, :, :, None, :]).reshape(b, sq, h, hd)
+    if not commit:
+        return out
+    slot_ids = torch.arange(b, device=dev).repeat_interleave(sq)
+    flat = rows.reshape(-1)
+    kp_new = scatter_rows_pool(kp, kt.reshape(b * sq, kv, hd), bt, slot_ids, flat)
+    vp_new = scatter_rows_pool(vp, vt.reshape(b * sq, kv, hd), bt, slot_ids, flat)
+    return out, kp_new, vp_new
+
+
+def paged_decode_kernel(q, kp, vp, kt, vt, bt, pos, *, commit: bool = True):
+    """Paged decode attention through the CUDA kernel (the plain version for
+    CPU tensors). ``commit=True`` returns ``(out, kp, vp)`` with the rows
+    written into the pools in place on the card; ``commit=False`` returns
+    ``out`` and leaves the pools untouched."""
+    b, sq, h, hd = q.shape
+    kv = kt.shape[2]
+    maxp, page = bt.shape[1], kp.shape[1]
+    validate_paged_decode(b, sq, h, kv, hd, maxp, page, decode_m_max=DECODE_M_MAX)
+    if q.device.type == "cpu":
+        return paged_decode_ref(q, kp, vp, kt, vt, bt, pos, commit=commit)
+    dev = q.device
+    for x, n in ((kp, "kp"), (vp, "vp")):  # the commit writes the caller's pools
+        device_operand("paged_decode", x, torch.bfloat16, n, dev, in_place=True)
+    q_, kt_, vt_ = (device_operand("paged_decode", x, torch.bfloat16, n, dev)
+                    for x, n in ((q, "q"), (kt, "kt"), (vt, "vt")))
+    bt_, pos_ = (device_operand("paged_decode", x.to(torch.int32), torch.int32, n, dev)
+                 for x, n in ((bt, "bt"), (pos, "pos")))
+    out = torch.empty((b, sq, h, hd), dtype=torch.bfloat16, device=dev)
+    args = [q_.data_ptr(), kp.data_ptr(), vp.data_ptr(), kt_.data_ptr(), vt_.data_ptr(),
+            bt_.data_ptr(), pos_.data_ptr(), out.data_ptr(),
+            b, sq, h, kv, hd, maxp, page, float(hd ** -0.5), int(commit)]
+    run_kernel("paged_decode_kernel", "paged_attention", "paged_decode", _ARGS, args, dev)
+    return (out, kp, vp) if commit else out

@@ -1,25 +1,40 @@
-"""Continuous-batching serving engine of the port: the bucketed, dense-cache
-configuration of the reference's ``ContinuousBatchingEngine``
-(``repro/launch/serve.py``).
+"""Continuous-batching serving engine of the port: the reference's
+``ContinuousBatchingEngine`` (``repro/launch/serve.py``) in its bucketed,
+paged, ragged and speculative modes.
 
 * Every slot of the static batch is an independent timeline with its own
   position (``state["pos"] (B,)``); requests of different lengths decode in
   lock-step.
 * Admission runs the model's prefill once on a batch-1 state, the prompt
   padded to a power-of-two bucket (at least 8); the ``length`` argument
-  keeps the padded math exact. ``compile_stats()`` reports the bucket
-  inventory (PyTorch runs eagerly, so a bucket is a launch shape, not a
-  compiled executable).
+  keeps the padded math exact. ``compile_stats()`` reports the launch-shape
+  inventory (PyTorch runs eagerly, so a "trace" is a distinct launch shape).
+* **Paged mode** (``paged=True``): the KV cache lives in page pools shared
+  by all slots (``models.common.init_paged_state``); a host-side
+  :class:`PageAllocator` owns the free list and refcounts, admission gates
+  on free pages and reserves a request's whole timeline up front, and a
+  :class:`PrefixCache` maps shared prompt prefixes (whole pages) into new
+  slots copy-free so only the suffix is prefilled. Decode attention runs
+  through the paged-decode kernel over the pages in use.
+* **Ragged mode** (``ragged=True``, needs paged): every step packs one
+  decode row per decoding slot, then prompt chunks, into one flat batch of
+  ``token_budget`` rows and runs ONE ``ragged_step`` launch through the
+  ragged-attention kernel; ``max_chunk_share`` caps the chunk rows a step.
+* **Speculation** (``speculation=True``, needs paged, not ragged): each
+  decode launch stacks the sampled token and ``spec_k - 1`` self-drafted
+  tokens per slot, accepts the longest greedy-matching draft prefix, and
+  rolls the rest back by rewinding ``pos``; greedy output equals the plain
+  engine's token for token.
 * Sampling is per request (greedy / temperature / top-k) on the host, with
   ``np.random.default_rng(seed)`` as in the reference.
 * Request lifecycle: ``NEW -> QUEUED -> PREFILL -> DECODE -> {DONE,
   FAILED}``; a finite-logits guard fails only the slot whose logits went
-  NaN/Inf (``error="nan_logits"``).
+  NaN/Inf (``error="nan_logits"``). Every exit releases the slot's pages
+  through ``_release_slot``.
 
 With quantized params the engine pre-merges sibling packs (``fuse_params``)
-when fusion is on, so q/k/v and gate/up each run as one kernel launch. The
-paged KV pool, the ragged step, speculation and preemption are later slices
-of the port and raise ``NotImplementedError`` here.
+when fusion is on, so q/k/v and gate/up each run as one kernel launch.
+Preemption is a later slice of the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,7 +54,7 @@ from repro_torch.models import common as C
 from repro_torch.models.registry import get_model
 
 __all__ = ["SamplingParams", "RequestState", "Request", "EngineStalledError",
-           "ContinuousBatchingEngine"]
+           "AllocatorError", "PageAllocator", "PrefixCache", "ContinuousBatchingEngine"]
 
 
 @dataclasses.dataclass
@@ -147,37 +162,240 @@ class Request:
     _last_logits: Any = dataclasses.field(default=None, repr=False)
     _rng: Any = dataclasses.field(default=None, repr=False)
     _prompt_host: Any = dataclasses.field(default=None, repr=False)
+    _prompt: Any = dataclasses.field(default=None, repr=False)  # ragged: prompt being chunked
+    _filled: int = dataclasses.field(default=0, repr=False)  # ragged: prompt rows scheduled
 
 
-_LATER = {
-    "paged": "ROADMAP Queue 1 item 5 (paged KV runtime)",
-    "ragged": "ROADMAP Queue 1 item 6 (ragged step)",
-    "speculation": "ROADMAP Queue 1 item 7 (speculative decoding)",
-    "preemption": "ROADMAP Queue 1 item 8 (lifecycle, faults)",
-}
+# ---------------------------------------------------------------------------
+# paged-pool host bookkeeping
+# ---------------------------------------------------------------------------
+
+
+class AllocatorError(AssertionError):
+    """A page-allocator bookkeeping violation (double release, unknown page
+    id, sharing an unreferenced page), raised with the page id and its
+    refcount instead of silently corrupting the free list."""
+
+
+class PageAllocator:
+    """Free-list allocator with refcounts over the global KV page pool.
+
+    A page's refcount is the number of slot block tables mapping it plus one
+    if a prefix-cache entry holds it. ``alloc`` hands out ref=1 pages,
+    ``share`` adds a reference, ``release`` drops one and returns fully
+    freed pages to the free list; ``audit`` asserts that the free list and
+    refcounts partition the pool."""
+
+    def __init__(self, n_pages: int):
+        self.n_pages = n_pages
+        self.free: deque[int] = deque(range(n_pages))
+        self.ref = np.zeros(n_pages, np.int32)
+        self.peak_used = 0
+
+    @property
+    def n_free(self) -> int:
+        """Pages currently on the free list."""
+        return len(self.free)
+
+    @property
+    def n_used(self) -> int:
+        """Pages currently mapped or cached (refcount > 0)."""
+        return self.n_pages - len(self.free)
+
+    def alloc(self, n: int) -> Optional[list[int]]:
+        """Take ``n`` pages off the free list at ref=1; None when the pool
+        cannot satisfy the request (admission then waits)."""
+        if n > len(self.free):
+            return None
+        pages = [self.free.popleft() for _ in range(n)]
+        for p in pages:
+            assert self.ref[p] == 0, f"free page {p} had ref {self.ref[p]}"
+            self.ref[p] = 1
+        self.peak_used = max(self.peak_used, self.n_used)
+        return pages
+
+    def _known(self, p, op: str) -> int:
+        p = int(p)
+        if not 0 <= p < self.n_pages:
+            raise AllocatorError(f"{op} of unknown page {p}: valid page ids are "
+                                 f"0..{self.n_pages - 1}")
+        return p
+
+    def share(self, pages) -> None:
+        """Add one reference to each already referenced page."""
+        for p in pages:
+            p = self._known(p, "share")
+            if self.ref[p] <= 0:
+                raise AllocatorError(f"sharing unreferenced page {p} (refcount "
+                                     f"{int(self.ref[p])}): only mapped or cached pages can "
+                                     "take another reference")
+            self.ref[p] += 1
+
+    def release(self, pages) -> None:
+        """Drop one reference per page; unreferenced pages return to the
+        free list. A page whose refcount is already zero raises."""
+        for p in pages:
+            p = self._known(p, "release")
+            if self.ref[p] <= 0:
+                raise AllocatorError(f"double release of page {p} (refcount already "
+                                     f"{int(self.ref[p])}): releasing it again would put it "
+                                     "on the free list twice")
+            self.ref[p] -= 1
+            if self.ref[p] == 0:
+                self.free.append(p)
+
+    def audit(self) -> None:
+        """Assert that the free list and refcounts partition the pool."""
+        free = set(self.free)
+        assert len(free) == len(self.free), "free list contains duplicates"
+        for p in range(self.n_pages):
+            if p in free:
+                assert self.ref[p] == 0, f"free page {p} has ref {self.ref[p]}"
+            else:
+                assert self.ref[p] > 0, f"page {p} leaked (ref 0 but not free)"
+
+
+class _PrefixEntry:
+    __slots__ = ("key", "page", "eid", "parent", "children", "tick")
+
+
+class PrefixCache:
+    """Prompt-prefix page cache, hash-chained at page granularity.
+
+    Entry j of a prompt's chain is keyed by (parent entry id, the page's
+    token tuple), so a key names the whole token prefix up to that page
+    boundary. Only whole pages fully covered by prompt tokens are
+    registered, and decode writes land after the prompt, so registered pages
+    are never written again. Each entry holds one page reference; ``evict``
+    drops least-recently-used leaf entries when admission runs short."""
+
+    def __init__(self, allocator: PageAllocator, page_size: int):
+        self.allocator = allocator
+        self.page_size = page_size
+        self.entries: dict[tuple, _PrefixEntry] = {}
+        self._by_id: dict[int, _PrefixEntry] = {}
+        self._next_id = 1
+        self._tick = 0
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def _key(self, parent: int, prompt, j: int) -> tuple:
+        ps = self.page_size
+        return (parent, tuple(int(t) for t in prompt[j * ps:(j + 1) * ps]))
+
+    def match(self, prompt) -> tuple[int, list[int]]:
+        """Longest cached prefix of whole pages, capped at len(prompt) - 1
+        so at least one suffix token is left to give prefill logits.
+        Returns (tokens matched, pages)."""
+        self._tick += 1
+        pages: list[int] = []
+        parent = 0
+        for j in range((len(prompt) - 1) // self.page_size):
+            e = self.entries.get(self._key(parent, prompt, j))
+            if e is None:
+                break
+            e.tick = self._tick
+            pages.append(e.page)
+            parent = e.eid
+        return len(pages) * self.page_size, pages
+
+    def register(self, prompt, pages: list[int]) -> None:
+        """Register an admitted prompt's full pages (``pages``: the slot's
+        mapped pages in timeline order, shared prefix included)."""
+        self._tick += 1
+        parent = 0
+        for j in range(min(len(prompt) // self.page_size, len(pages))):
+            key = self._key(parent, prompt, j)
+            e = self.entries.get(key)
+            if e is None:
+                e = _PrefixEntry()
+                e.key, e.page, e.parent = key, pages[j], parent
+                e.eid = self._next_id
+                self._next_id += 1
+                e.children = 0
+                self.entries[key] = e
+                self._by_id[e.eid] = e
+                if parent:
+                    self._by_id[parent].children += 1
+                self.allocator.share([e.page])
+            e.tick = self._tick
+            parent = e.eid
+
+    def evict(self, n_free_needed: int) -> int:
+        """Drop LRU leaf entries (an inner entry only once its children are
+        gone) until the allocator has ``n_free_needed`` free pages or nothing
+        is evictable. Returns the entries evicted."""
+        evicted = 0
+        while self.allocator.n_free < n_free_needed:
+            leaves = [e for e in self.entries.values() if e.children == 0]
+            if not leaves:
+                break
+            e = min(leaves, key=lambda e: e.tick)
+            del self.entries[e.key]
+            del self._by_id[e.eid]
+            if e.parent:
+                self._by_id[e.parent].children -= 1
+            self.allocator.release([e.page])
+            evicted += 1
+        return evicted
+
+
+def _ngram_draft(hist: list, k: int) -> list:
+    """Self-drafting for speculative decode: the ``k`` tokens that followed
+    the most recent earlier occurrence of the history's trailing n-gram
+    (n = 3, 2, 1, longest first), else the last token repeated. Host-side
+    and deterministic; verification makes any draft safe."""
+    n = len(hist)
+    if n == 0:
+        return [0] * k
+    for m in (3, 2, 1):
+        if n <= m:
+            continue
+        key = hist[n - m:]
+        for j in range(n - m - 1, -1, -1):
+            if hist[j:j + m] == key:
+                cont = hist[j + m:j + m + k]
+                if cont:
+                    return cont + [cont[-1]] * (k - len(cont))
+                break
+    return [hist[-1]] * k
+
+
+_LATER = {"preemption": "ROADMAP Queue 1 item 8 (lifecycle, faults)"}
 
 
 class ContinuousBatchingEngine:
     """Continuous-batching server over a static batch of ``batch_slots``
-    independent slot timelines with a dense per-slot KV cache: per-slot
-    admission and eviction, per-request sampling, lock-step decode, and
-    throughput accounting. Runs on the card unless ``device`` says
-    otherwise; ``params`` must already live there."""
+    independent slot timelines: per-slot admission and eviction, per-request
+    sampling, lock-step decode, and throughput accounting. Runs on the card
+    unless ``device`` says otherwise; ``params`` must already live there.
+
+    ``paged=True`` keeps the KV cache in page pools behind block tables
+    (``page_size`` rows a page, ``n_pages`` pages, default enough for every
+    slot's full timeline) with the prefix cache on unless
+    ``prefix_caching=False``. ``ragged=True`` (needs paged) serves every
+    step as one flat launch of ``token_budget`` rows, prompt chunks capped
+    at ``max_chunk_share`` of it. ``speculation=True`` (needs paged, not
+    ragged) verifies ``spec_k`` rows per slot per launch, drafted by
+    ``draft_fn(req, k)`` when given, else by the n-gram self-draft. Ragged
+    or speculation without their prerequisites warn and serve bucketed."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int = 4, max_len: int = 128,
-                 *, device=None, on_truncation: str = "warn",
-                 paged: bool = False, ragged: bool = False, speculation: bool = False,
-                 preemption: bool = False):
-        for flag, on in (("paged", paged), ("ragged", ragged), ("speculation", speculation),
-                         ("preemption", preemption)):
-            if on:
-                raise NotImplementedError(
-                    f"{flag}=True is not ported yet: it comes with {_LATER[flag]}"
-                )
+                 *, device=None, on_truncation: str = "warn", paged: bool = False,
+                 page_size: int = 16, n_pages: Optional[int] = None,
+                 prefix_caching: bool = True, ragged: bool = False, token_budget: int = 64,
+                 max_chunk_share: float = 1.0, speculation: bool = False, spec_k: int = 4,
+                 draft_fn: Optional[Callable] = None, preemption: bool = False):
+        if preemption:
+            raise NotImplementedError(
+                f"preemption=True is not ported yet: it comes with {_LATER['preemption']}")
         if on_truncation not in ("warn", "reject"):
             raise ValueError(f"on_truncation must be 'warn' or 'reject', got {on_truncation!r}")
+        if not 0.0 < max_chunk_share <= 1.0:
+            raise ValueError(f"max_chunk_share must be in (0, 1], got {max_chunk_share}")
         from repro_torch.core.twinquant import fuse_params
-        from repro_torch.kernels.dispatch import dispatch_counters, fusion_enabled
+        from repro_torch.kernels.dispatch import DECODE_M_MAX, dispatch_counters, fusion_enabled
 
         self.device = resolve_device(device)
         if params.embed.device != self.device:
@@ -188,28 +406,82 @@ class ContinuousBatchingEngine:
         self.batch = batch_slots
         self.max_len = max_len
         self.on_truncation = on_truncation
-        self.state = self.model.init_decode_state(cfg, batch_slots, max_len, device=self.device)
+        self._layout = C.paged_layout(self.model.init_decode_state, cfg, max_len)
+        self._pool_keys = tuple(k for k, (_, seq) in self._layout.items() if seq is not None)
+        self._slot_keys = tuple(k for k in self._layout if k not in self._pool_keys)
+        self.allocator: Optional[PageAllocator] = None
+        self.prefix_cache: Optional[PrefixCache] = None
+        if paged:
+            if page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            self.page_size = page_size
+            self._max_pages = -(-max_len // page_size)
+            self.n_pages = n_pages if n_pages is not None else batch_slots * self._max_pages
+            self.state = C.init_paged_state(self.model.init_decode_state, cfg, batch_slots,
+                                            max_len, page_size, self.n_pages, self.device)
+            self.allocator = PageAllocator(self.n_pages)
+            if prefix_caching:
+                self.prefix_cache = PrefixCache(self.allocator, page_size)
+            self._bt = np.full((batch_slots, self._max_pages), -1, np.int32)
+        else:
+            self.page_size = 0
+            self.n_pages = 0
+            self.state = self.model.init_decode_state(cfg, batch_slots, max_len,
+                                                      device=self.device)
         # constant zero batch-1 state: the prefill source of every admission
         self._sub_template = self.model.init_decode_state(cfg, 1, max_len, device=self.device)
         self.slots: list[Optional[Request]] = [None] * batch_slots
         self.queue: deque[Request] = deque()
         self._steps = 0
         self._next_rid = 0
-        self._prefill_shapes: dict[int, int] = {}
+        self._prefill_shapes: dict[tuple, int] = {}
+        self.ragged = False
+        self.token_budget = int(token_budget)
+        self.max_chunk_share = float(max_chunk_share)
+        self._ragged_shapes: dict[int, int] = {}
+        if ragged:
+            if self.allocator is None:
+                warnings.warn("ragged=True needs paged mode; falling back to bucketed prefill "
+                              "+ lock-step decode", stacklevel=2)
+            else:
+                if self.token_budget < batch_slots:
+                    raise ValueError(f"token_budget ({self.token_budget}) must be >= "
+                                     f"batch_slots ({batch_slots}) so every decoding slot gets "
+                                     "a row each step")
+                self.ragged = True
+                # host mirror of each slot's committed rows: the ragged loop
+                # never downloads state["pos"]
+                self._pos_host = np.zeros(batch_slots, np.int32)
+        self.speculation = False
+        self.spec_k = int(spec_k)
+        self._draft_fn = draft_fn
+        self._spec_shapes: dict[tuple, int] = {}
+        if speculation:
+            if self.allocator is None or self.ragged:
+                warnings.warn("speculation=True needs paged (non-ragged) mode; falling back to "
+                              "one-token decode steps", stacklevel=2)
+            elif not 2 <= self.spec_k <= DECODE_M_MAX:
+                raise ValueError(f"spec_k must be in [2, {DECODE_M_MAX}] (the paged kernel's "
+                                 f"draft-row cap), got {self.spec_k}")
+            else:
+                self.speculation = True
         self.stats = {
             "prefill_tokens": 0, "prefill_s": 0.0,
             "decode_tokens": 0, "decode_steps": 0, "decode_s": 0.0,
             "requests_done": 0, "requests_truncated": 0,
             "requests_failed": 0, "requests_timed_out": 0,
+            "prefix_lookups": 0, "prefix_hits": 0, "prefix_hit_tokens": 0,
+            "spec_launches": 0, "spec_slot_steps": 0, "spec_drafted": 0, "spec_accepted": 0,
         }
         self._dispatch0 = dispatch_counters()
 
     # -- admission ----------------------------------------------------------
 
     def submit(self, req: Request) -> bool:
-        """Enqueue a request and admit it at once if a slot is free. Returns
-        True when it went straight into a slot. Invalid requests (not 1-D,
-        not integer, token ids outside the vocab, no room in ``max_len``) are
+        """Enqueue a request and admit it at once if a slot (and, paged,
+        enough pages) is free. Returns True when it went straight into a
+        slot. Invalid requests (not 1-D, not integer, token ids outside the
+        vocab, no room in ``max_len``, more pages than the pool) are
         rejected here, before any queue or slot state changes."""
         if req.status in RequestState.TERMINAL or req.done:
             return True
@@ -233,6 +505,11 @@ class ContinuousBatchingEngine:
             if self.on_truncation == "reject":
                 raise ValueError(msg)
             warnings.warn(msg, stacklevel=2)
+        if self.allocator is not None:
+            worst = -(-min(n + req.max_new, self.max_len) // self.page_size)
+            if worst > self.n_pages:
+                raise ValueError(f"request needs up to {worst} pages but the pool only has "
+                                 f"{self.n_pages}; it could never be admitted")
         if any(s is req for s in self.slots) or any(q is req for q in self.queue):
             return any(s is req for s in self.slots)
         if req.request_id is None:
@@ -251,52 +528,180 @@ class ContinuousBatchingEngine:
         """Power-of-two prompt bucket (min 8), capped at the cache capacity."""
         return max(n, min(1 << max(3, (n - 1).bit_length()), cap))
 
-    def _run_prefill(self, tokens: np.ndarray):
-        """One batched prefill of the prompt, bucket-padded. Returns
-        (last_logits np (V,), sub_state)."""
+    def _run_prefill(self, tokens: np.ndarray, off: int = 0,
+                     shared_pages: Optional[list[int]] = None):
+        """One batched prefill of ``tokens`` (the prompt, or the suffix after
+        ``off`` prefix-cached tokens), bucket-padded. Returns (last_logits np
+        (V,), sub_state, bucket)."""
         s_real = len(tokens)
-        bucket = self._bucket(s_real, self.max_len)
+        bucket = self._bucket(s_real, self.max_len - off)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :s_real] = tokens
-        self._prefill_shapes[bucket] = self._prefill_shapes.get(bucket, 0) + 1
+        prefix = None
+        if off:
+            ids = torch.as_tensor(shared_pages, dtype=torch.long, device=self.device)
+            prefix = {k: self.state[k][:, ids].reshape(self.state[k].shape[0], 1,
+                                                       off, *self.state[k].shape[3:])
+                      for k in self._pool_keys}
+        key = (bucket, off)
+        self._prefill_shapes[key] = self._prefill_shapes.get(key, 0) + 1
         t0 = time.monotonic()
         logits, sub = self.model.prefill(
             self.params, self.cfg, torch.as_tensor(toks, device=self.device),
             self._sub_template, length=torch.tensor([s_real], device=self.device),
+            prefix=prefix,
         )
         last = logits[0, -1].float().cpu().numpy()  # sync-point
         self.stats["prefill_s"] += time.monotonic() - t0
         self.stats["prefill_tokens"] += s_real
-        return last, sub
+        return last, sub, bucket
 
     def _insert(self, sub: dict, i: int) -> None:
-        """Splice a batch-1 prefill state into slot ``i`` (in place)."""
-        self.state["k"][:, i] = sub["k"][:, 0]
-        self.state["v"][:, i] = sub["v"][:, 0]
-        self.state["pos"][i] = sub["pos"][0]
+        """Splice a batch-1 prefill state's per-slot leaves (all leaves when
+        dense) into slot ``i``, in place."""
+        keys = self._slot_keys if self.allocator is not None else tuple(self._layout)
+        for k in keys:
+            ax = self._layout[k][0]
+            self.state[k].select(ax, i).copy_(sub[k].select(ax, 0))
+
+    def _write_pages(self, sub: dict, page_ids: list[int]) -> None:
+        """In place: a batch-1 prefill's cache rows (L, 1, S, ...) into the
+        pages ``page_ids``, zero-padded or cut to whole pages; rows past the
+        prompt inside a page are hidden behind ``pos`` until decode
+        overwrites them."""
+        ids = torch.as_tensor(page_ids, dtype=torch.long, device=self.device)
+        n, ps = len(page_ids), self.page_size
+        for k in self._pool_keys:
+            pool = self.state[k]
+            rows = sub[k][:, 0, :n * ps]
+            if rows.shape[1] < n * ps:
+                pad = torch.zeros((rows.shape[0], n * ps - rows.shape[1], *rows.shape[2:]),
+                                  dtype=rows.dtype, device=rows.device)
+                rows = torch.cat([rows, pad], dim=1)
+            pool[:, ids] = rows.reshape(rows.shape[0], n, ps, *rows.shape[2:]).to(pool.dtype)
+
+    def _upload_bt(self) -> None:
+        self.state["bt"].copy_(torch.as_tensor(self._bt))
 
     def _admit(self) -> None:
         while self.queue:
             free = [i for i, s in enumerate(self.slots) if s is None]
             if not free:
                 return
-            self._admit_one(self.queue.popleft(), free[0])
+            if not self._admit_one(self.queue[0], free[0]):
+                return  # page-gated: wait for evictions
+            self.queue.popleft()
 
-    def _admit_one(self, req: Request, i: int) -> None:
-        self._set_status(req, RequestState.PREFILL)
+    def _reserve(self, req: Request, prompt: np.ndarray, bucket_prefix: bool):
+        """Reserve the request's whole timeline (prompt + quota, capped at
+        max_len) in pages, prefix-cache hits first. Returns (tokens matched,
+        shared pages, own pages), or None when the pool cannot hold it."""
+        need = min(len(prompt) + req.max_new - len(req.out), self.max_len)
+        n_res = -(-need // self.page_size)
+        m_tok, shared = 0, []
+        if self.prefix_cache is not None:
+            self.stats["prefix_lookups"] += 1
+            m_tok, shared = self.prefix_cache.match(prompt)
+            if shared and bucket_prefix:
+                # a power-of-two page count keeps the suffix-prefill shapes
+                # O(log max_pages), like prompt bucketing itself
+                keep = 1 << (len(shared).bit_length() - 1)
+                shared = shared[:keep]
+                m_tok = keep * self.page_size
+        # take our reference on the shared pages BEFORE any eviction, and
+        # hand it back on every way out that admits nothing
+        self.allocator.share(shared)
         try:
-            last, sub = self._run_prefill(req._prompt_host)
-            if C.nonfinite_rows(last[None, :], self.cfg.vocab):
-                raise _SlotFault("nan_logits", "non-finite prefill logits")
-            self._insert(sub, i)
-        except Exception as e:  # noqa: BLE001 — a faulty request fails alone
-            self._finish(req, RequestState.FAILED, *_fault_of(e))
-            return
+            pages = self.allocator.alloc(n_res - len(shared))
+            if pages is None and self.prefix_cache is not None:
+                self.prefix_cache.evict(n_res - len(shared))
+                pages = self.allocator.alloc(n_res - len(shared))
+        except Exception:
+            self.allocator.release(shared)
+            raise
+        if pages is None:
+            self.allocator.release(shared)
+            return None
+        if m_tok:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_hit_tokens"] += m_tok
+        return m_tok, shared, pages
+
+    def _map_row(self, i: int, row: list[int]) -> None:
+        self._bt[i, :] = -1
+        self._bt[i, :len(row)] = row
+        self._upload_bt()
+
+    def _admit_one(self, req: Request, i: int) -> bool:
+        """Admit ``req`` into slot ``i``; False when paged admission must wait
+        for pages. A request whose prefill faults fails alone (and counts as
+        consumed)."""
+        if self.ragged:
+            return self._admit_one_ragged(req, i)
+        prompt = req._prompt_host
+        if self.allocator is None:
+            self._set_status(req, RequestState.PREFILL)
+            try:
+                last, sub, _ = self._run_prefill(prompt)
+                if C.nonfinite_rows(last[None, :], self.cfg.vocab):
+                    raise _SlotFault("nan_logits", "non-finite prefill logits")
+                self._insert(sub, i)
+            except Exception as e:  # noqa: BLE001 — a faulty request fails alone
+                self._finish(req, RequestState.FAILED, *_fault_of(e))
+                return True
+        else:
+            res = self._reserve(req, prompt, bucket_prefix=True)
+            if res is None:
+                return False
+            m_tok, shared, pages = res
+            self._set_status(req, RequestState.PREFILL)
+            try:
+                last, sub, bucket = self._run_prefill(prompt[m_tok:], off=m_tok,
+                                                      shared_pages=shared)
+                if C.nonfinite_rows(last[None, :], self.cfg.vocab):
+                    raise _SlotFault("nan_logits", "non-finite prefill logits")
+                self._insert(sub, i)
+                self._write_pages(sub, pages[:min(-(-bucket // self.page_size), len(pages))])
+                self._map_row(i, shared + pages)
+                if self.prefix_cache is not None:
+                    self.prefix_cache.register(prompt, shared + pages)
+            except Exception as e:  # noqa: BLE001 — a faulty request fails alone
+                self._map_row(i, [])
+                self.allocator.release(shared + pages)
+                self._finish(req, RequestState.FAILED, *_fault_of(e))
+                return True
         req._last_logits = last
         if req._rng is None:
             req._rng = np.random.default_rng(req.sampling.seed)
         self._set_status(req, RequestState.DECODE)
         self.slots[i] = req
+        return True
+
+    def _admit_one_ragged(self, req: Request, i: int) -> bool:
+        """Ragged admission: reserve the pages (prefix hits included) and
+        park the request in slot ``i`` with its chunk cursor at the first
+        uncached prompt token; the prompt streams through later steps."""
+        prompt = req._prompt_host
+        res = self._reserve(req, prompt, bucket_prefix=False)
+        if res is None:
+            return False
+        m_tok, shared, pages = res
+        self._set_status(req, RequestState.PREFILL)
+        try:
+            self._map_row(i, shared + pages)
+        except Exception as e:  # noqa: BLE001 — a faulty request fails alone
+            self.allocator.release(shared + pages)
+            self._bt[i, :] = -1
+            self._finish(req, RequestState.FAILED, *_fault_of(e))
+            return True
+        req._prompt = prompt
+        req._filled = m_tok
+        self._pos_host[i] = m_tok
+        req._last_logits = None
+        if req._rng is None:
+            req._rng = np.random.default_rng(req.sampling.seed)
+        self.slots[i] = req
+        return True
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -318,12 +723,29 @@ class ContinuousBatchingEngine:
         req._last_logits = None
         self.stats[_FINISH_COUNTER[status]] += 1
 
-    def _evict(self, i: int, req: Request, truncated: bool) -> None:
+    def _release_slot(self, i: int) -> None:
+        """Release slot ``i``'s pages and neutralise its device state — the
+        one reclaim path of every exit: pos 0 and an unmapped block-table row
+        mean its lock-step decode attends nothing and writes nowhere."""
         self.slots[i] = None
+        if self.allocator is not None:
+            self.allocator.release([int(p) for p in self._bt[i] if p >= 0])
+            self._map_row(i, [])
+            self.state["pos"][i] = 0
+        if self.ragged:
+            self._pos_host[i] = 0
+
+    def _evict(self, i: int, req: Request, truncated: bool) -> None:
+        self._release_slot(i)
         req.truncated = truncated
         if truncated:
             self.stats["requests_truncated"] += 1
         self._finish(req, RequestState.DONE)
+
+    def _fail_slot(self, i: int, req: Request, what: str) -> None:
+        self._release_slot(i)
+        self._finish(req, RequestState.FAILED, "nan_logits",
+                     f"non-finite {what} logits at engine step {self._steps}")
 
     # -- sampling -----------------------------------------------------------
 
@@ -354,17 +776,36 @@ class ContinuousBatchingEngine:
                 warnings.warn(f"on_token callback for request {req.request_id} raised "
                               f"{type(e).__name__}: {e} — callback detached", stacklevel=2)
 
+    def _draft_tokens(self, req: Request, k: int) -> list:
+        """``k`` draft tokens continuing the request's history (prompt +
+        generated). A ``draft_fn(req, k)`` hook takes precedence over the
+        n-gram self-draft; its proposals are clamped into the vocab, so a
+        sloppy hook can only lower the acceptance rate."""
+        if self._draft_fn is not None:
+            d = [int(t) for t in self._draft_fn(req, k)][:k]
+            d = [min(max(t, 0), self.cfg.vocab - 1) for t in d]
+            last = d[-1] if d else (req.out[-1] if req.out else 0)
+            return d + [last] * (k - len(d))
+        return _ngram_draft(req._prompt_host.tolist() + req.out, k)
+
     # -- decode -------------------------------------------------------------
 
     def step(self) -> int:
         """Admit queued work, sample one token per live slot, then run one
-        lock-step decode for the slots that still need logits. Returns the
-        number of slots live at entry."""
+        lock-step decode for the slots that still need logits (speculative:
+        one verify launch of ``spec_k`` rows a slot; ragged: one unified
+        chunked-prefill + decode launch). Returns the slots live at entry."""
+        if self.ragged:
+            return self._step_ragged()
         self._steps += 1
         self._admit()
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return 0
+        if self.speculation:
+            self._step_spec(active)
+            self._admit()
+            return len(active)
         tok = np.zeros((self.batch, 1), np.int64)
         pos = self.state["pos"].cpu().numpy()  # sync-point: next write offset per slot
         live = []
@@ -389,13 +830,186 @@ class ContinuousBatchingEngine:
             self.stats["decode_tokens"] += len(live)
             bad = set(C.nonfinite_rows(last, self.cfg.vocab))
             for i in live:
-                req = self.slots[i]
                 if i in bad:
-                    self.slots[i] = None
-                    self._finish(req, RequestState.FAILED, "nan_logits",
-                                 f"non-finite decode logits at engine step {self._steps}")
+                    self._fail_slot(i, self.slots[i], "decode")
                 else:
-                    req._last_logits = last[i]
+                    self.slots[i]._last_logits = last[i]
+        self._admit()
+        return len(active)
+
+    def _step_spec(self, active: list) -> None:
+        """One speculative decode launch: per live slot, sample the next
+        token from the held logits (exactly the plain commit), stack it with
+        ``spec_k - 1`` drafts and run ONE (B, spec_k) decode launch. Greedy
+        slots accept the longest draft prefix matching the launch's own
+        argmaxes (each accepted row's logits verify the next), capped by
+        quota and cache rows; sampled slots commit only the sampled token,
+        so their random streams are untouched. Rejected rows are rolled back
+        by rewinding ``pos``; the up-front page reservation hides them until
+        they are overwritten."""
+        k = self.spec_k
+        tok = np.zeros((self.batch, k), np.int64)
+        pos = self.state["pos"].cpu().numpy()  # sync-point: next write offset per slot
+        live: list[int] = []
+        drafts: dict[int, list] = {}
+        for i in active:
+            req = self.slots[i]
+            nxt = self._sample(req)
+            self._emit_token(req, nxt)
+            if len(req.out) >= req.max_new:
+                self._evict(i, req, truncated=False)
+            elif int(pos[i]) >= self.max_len:
+                self._evict(i, req, truncated=True)
+            else:
+                drafts[i] = self._draft_tokens(req, k - 1)
+                tok[i, 0] = nxt
+                tok[i, 1:] = drafts[i]
+                live.append(i)
+        if not live:
+            return
+        t0 = time.monotonic()
+        logits, self.state = self.model.decode_step(
+            self.params, self.cfg, self.state, torch.as_tensor(tok, device=self.device))
+        last = logits.float().cpu().numpy()  # sync-point: (B, k, V) verify download
+        dt = time.monotonic() - t0
+        self._spec_shapes[(self.batch, k)] = self._spec_shapes.get((self.batch, k), 0) + 1
+        bad = {f // k for f in C.nonfinite_rows(last, self.cfg.vocab)}  # row b*k+j -> slot b
+        committed: dict[int, int] = {}
+        delta = np.zeros(self.batch, np.int32)
+        for i in live:
+            req = self.slots[i]
+            n_acc = 0
+            if i not in bad and req.sampling.temperature <= 0.0:
+                quota_room = req.max_new - len(req.out)
+                cap_rows = self.max_len - int(pos[i]) - 1
+                while (n_acc < k - 1 and n_acc < quota_room and n_acc < cap_rows
+                       and int(drafts[i][n_acc])
+                       == int(np.argmax(last[i, n_acc, : self.cfg.vocab]))):
+                    self._emit_token(req, int(drafts[i][n_acc]))
+                    n_acc += 1
+                self.stats["spec_drafted"] += k - 1
+                self.stats["spec_accepted"] += n_acc
+            committed[i] = 1 + n_acc
+            delta[i] = k - committed[i]
+        # rewind before any exit: the release path zeroes pos
+        self.state["pos"] -= torch.as_tensor(delta, device=self.device)
+        self.stats["decode_s"] += dt
+        self.stats["decode_steps"] += 1
+        self.stats["decode_tokens"] += sum(committed.values())
+        self.stats["spec_launches"] += 1
+        self.stats["spec_slot_steps"] += len(live)
+        for i in live:
+            req = self.slots[i]
+            if i in bad:
+                self._fail_slot(i, req, "decode")
+                continue
+            req._last_logits = last[i, committed[i] - 1]
+            if len(req.out) >= req.max_new:
+                self._evict(i, req, truncated=False)
+            elif int(pos[i]) + committed[i] >= self.max_len:
+                # the plain order: the token past the last cache row is still
+                # sampled and kept, then the slot exits
+                self._emit_token(req, self._sample(req))
+                self._evict(i, req, truncated=len(req.out) < req.max_new)
+
+    def _step_ragged(self) -> int:
+        """One unified ragged step: sample and schedule one decode row per
+        decoding slot first (admission never displaces decode), fill the rest
+        of the budget with prompt chunks FIFO across admitting slots (capped
+        at ``max_chunk_share`` of the budget), then run ONE ``ragged_step``
+        launch. Pad rows carry slot id B and are inert."""
+        from repro_torch.kernels.contracts import check_ragged_rows
+
+        self._steps += 1
+        self._admit()
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return 0
+        budget = self.token_budget
+        tokens = np.zeros(budget, np.int64)
+        slot = np.full(budget, self.batch, np.int32)  # pad sentinel = B
+        pos = np.zeros(budget, np.int32)
+        logit_idx = np.zeros(self.batch, np.int64)
+        row = 0
+        decode_rows: list[int] = []
+        for i in active:
+            req = self.slots[i]
+            if req._last_logits is None:
+                continue  # still prefilling: chunks below
+            nxt = self._sample(req)
+            self._emit_token(req, nxt)
+            if len(req.out) >= req.max_new:
+                self._evict(i, req, truncated=False)
+            elif int(self._pos_host[i]) >= self.max_len:
+                self._evict(i, req, truncated=True)
+            else:
+                tokens[row] = nxt
+                slot[row] = i
+                pos[row] = self._pos_host[i]
+                logit_idx[i] = row
+                decode_rows.append(i)
+                row += 1
+        chunk_cap = max(1, int(self.token_budget * self.max_chunk_share))
+        chunks: list[tuple[int, int]] = []
+        n_chunk = 0
+        for i in active:
+            req = self.slots[i]
+            if req is None or req._last_logits is not None:
+                continue
+            space = min(budget - row, chunk_cap - n_chunk)
+            if space <= 0:
+                break
+            take = min(space, len(req._prompt) - req._filled)
+            tokens[row:row + take] = req._prompt[req._filled:req._filled + take]
+            slot[row:row + take] = i
+            pos[row:row + take] = self._pos_host[i] + np.arange(take, dtype=np.int32)
+            if req._filled + take == len(req._prompt):
+                logit_idx[i] = row + take - 1
+            chunks.append((i, take))
+            n_chunk += take
+            row += take
+        if row == 0:
+            self._admit()
+            return len(active)
+        ctx = self._pos_host.copy()
+        check_ragged_rows(slot, pos, ctx)
+        dev = self.device
+        t0 = time.monotonic()
+        logits, self.state = self.model.ragged_step(
+            self.params, self.cfg, self.state, torch.as_tensor(tokens, device=dev),
+            torch.as_tensor(slot, device=dev), torch.as_tensor(pos, device=dev),
+            torch.as_tensor(ctx, device=dev), torch.as_tensor(logit_idx, device=dev))
+        last = logits.float().cpu().numpy()  # sync-point: per-slot logits
+        dt = time.monotonic() - t0
+        # wall time split by scheduled-row share so both tok/s stay honest
+        self.stats["decode_s"] += dt * len(decode_rows) / row
+        self.stats["prefill_s"] += dt * n_chunk / row
+        self.stats["decode_steps"] += 1
+        self.stats["decode_tokens"] += len(decode_rows)
+        self.stats["prefill_tokens"] += n_chunk
+        self._ragged_shapes[budget] = self._ragged_shapes.get(budget, 0) + 1
+        bad = set(C.nonfinite_rows(last, self.cfg.vocab))
+        for i in decode_rows:
+            req = self.slots[i]
+            if i in bad:
+                self._fail_slot(i, req, "decode")
+                continue
+            self._pos_host[i] += 1
+            req._last_logits = last[i]
+        for i, take in chunks:
+            req = self.slots[i]
+            self._pos_host[i] += take
+            req._filled += take
+            if req._filled == len(req._prompt):
+                if i in bad:
+                    self._fail_slot(i, req, "prefill")
+                    continue
+                req._last_logits = last[i]
+                self._set_status(req, RequestState.DECODE)
+                # the prompt's pages are whole only once its last chunk lands
+                if self.prefix_cache is not None:
+                    self.prefix_cache.register(req._prompt,
+                                               [int(p) for p in self._bt[i] if p >= 0])
         self._admit()
         return len(active)
 
@@ -404,12 +1018,16 @@ class ContinuousBatchingEngine:
     def run_until_done(self, max_steps: int = 100_000) -> None:
         """Drive ``step()`` until no slot is live and the queue is empty;
         exhausting ``max_steps`` marks the unfinished requests ``TIMED_OUT``
-        and raises :class:`EngineStalledError`."""
+        (pages released) and raises :class:`EngineStalledError`."""
         for _ in range(max_steps):
             if self.step() == 0 and not self.queue:
                 return
-        stranded = [r for r in self.slots if r is not None] + list(self.queue)
-        self.slots = [None] * self.batch
+        stranded = []
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                self._release_slot(i)
+                stranded.append(req)
+        stranded += list(self.queue)
         self.queue.clear()
         for req in stranded:
             self._finish(req, RequestState.TIMED_OUT, "engine_stalled",
@@ -429,14 +1047,65 @@ class ContinuousBatchingEngine:
     # -- introspection ------------------------------------------------------
 
     def compile_stats(self) -> dict:
-        """Prefill shape inventory: with prompt bucketing every distinct
-        bucket is one launch shape, O(log max_len) under any traffic."""
+        """Launch-shape inventory: every distinct (bucket, prefix offset) is
+        one prefill shape, O(log max_len) under any traffic; the ragged step
+        has one (token_budget) shape, the speculative decode one (batch,
+        spec_k) shape."""
         return {
             "prefill_traces": len(self._prefill_shapes),
             "prefill_calls": sum(self._prefill_shapes.values()),
-            "prefill_buckets": sorted(self._prefill_shapes),
-            "decode_traces": 1 if self.stats["decode_steps"] else 0,
+            "prefill_buckets": sorted({k[0] for k in self._prefill_shapes}),
+            "prefill_variants": len({k[1] for k in self._prefill_shapes}),
+            "decode_traces": 1 if (self.stats["decode_steps"] and not self.ragged
+                                   and not self.speculation) else 0,
+            "ragged_traces": len(self._ragged_shapes),
+            "spec_traces": len(self._spec_shapes),
         }
+
+    def memory(self) -> dict:
+        """Cache-memory accounting: the page pool's bytes and peak pages in
+        use against the dense per-slot cache the same (batch, max_len)
+        engine would allocate."""
+        dense = self.model.init_decode_state(self.cfg, self.batch, self.max_len, device="meta")
+        dense_bytes = sum(dense[k].numel() * dense[k].element_size() for k in self._pool_keys)
+        out = {"mode": "paged" if self.allocator is not None else "dense",
+               "dense_cache_bytes": dense_bytes}
+        if self.allocator is None:
+            out["cache_bytes"] = dense_bytes
+            out["peak_cache_bytes"] = dense_bytes
+            return out
+        page_bytes = sum(self.state[k][:, 0].numel() * self.state[k].element_size()
+                         for k in self._pool_keys)
+        out.update(
+            page_size=self.page_size, n_pages=self.n_pages, page_bytes=page_bytes,
+            cache_bytes=page_bytes * self.n_pages,
+            pages_in_use=self.allocator.n_used, pages_peak=self.allocator.peak_used,
+            peak_cache_bytes=page_bytes * self.allocator.peak_used,
+            prefix_entries=0 if self.prefix_cache is None else len(self.prefix_cache),
+        )
+        return out
+
+    def check_page_invariants(self) -> None:
+        """Allocator audit plus exact refcount accounting: every page's
+        refcount equals the block-table rows mapping it plus its prefix-cache
+        entries, no slot maps a page twice, empty slots map nothing."""
+        if self.allocator is None:
+            return
+        self.allocator.audit()
+        refs = np.zeros(self.n_pages, np.int32)
+        for i in range(self.batch):
+            row = [int(p) for p in self._bt[i] if p >= 0]
+            assert len(set(row)) == len(row), f"slot {i} maps a page twice: {row}"
+            assert self.slots[i] is not None or not row, f"empty slot {i} still maps {row}"
+            for p in row:
+                refs[p] += 1
+        if self.prefix_cache is not None:
+            for e in self.prefix_cache.entries.values():
+                refs[e.page] += 1
+        assert np.array_equal(refs, self.allocator.ref), (
+            f"refcount drift: mapped+cached {refs.tolist()} vs allocator "
+            f"{self.allocator.ref.tolist()}")
+        assert np.array_equal(self.state["bt"].cpu().numpy(), self._bt), "device bt drifted"
 
     def routing(self) -> dict:
         """Kernel routes taken since this engine was built: {kind/path: n}
@@ -448,12 +1117,17 @@ class ContinuousBatchingEngine:
                 if v - self._dispatch0.get(k, 0) > 0}
 
     def throughput(self) -> dict:
-        """Tokens/s summary from the accounting counters."""
+        """Tokens/s summary from the accounting counters, with speculation's
+        acceptance rate (drafts accepted / drafted) and tokens per slot per
+        decode launch (1.0 without speculation)."""
         st = self.stats
         return {
             "decode_tok_s": st["decode_tokens"] / max(st["decode_s"], 1e-9),
             "prefill_tok_s": st["prefill_tokens"] / max(st["prefill_s"], 1e-9),
             "mean_batch_occupancy": st["decode_tokens"] / max(st["decode_steps"], 1),
+            "acceptance_rate": st["spec_accepted"] / max(st["spec_drafted"], 1),
+            "tokens_per_step": (st["decode_tokens"] / max(st["spec_slot_steps"], 1)
+                                if self.speculation else (1.0 if st["decode_tokens"] else 0.0)),
             "routing": self.routing(),
             **st,
         }

@@ -1,16 +1,18 @@
 """Shared model substrate of the port: linear modules (bf16 and TwinQuant,
 routed through ``kernels/dispatch``), norms, RoPE, GQA attention with a
-dense per-slot KV cache, and the serving helpers the engine uses.
+dense per-slot KV cache or paged KV pools, and the serving helpers the
+engine uses.
 
 The math mirrors ``repro/models/common.py`` function for function, in the
 same layouts (activations (B, S, D), caches (L, B, S, KV, hd)), so the tests
 compare like with like. Attention, RoPE, norms and the embedding are plain
 tensor code here, as in the reference (they lie outside any Pallas kernel
-there); the attention kernels of a later slice replace the attention code.
+there). Paged decode and ragged attention go through the block-table
+kernels (``dispatch.paged_decode`` / ``dispatch.ragged_attention``).
 
-Unlike the reference's immutable arrays, the decode path updates the KV
-cache in place (one (L, B, KV, hd) row write per step instead of a copy of
-the whole cache).
+Unlike the reference's immutable arrays, the decode paths update the KV
+cache and the page pools in place (one row write per slot, row and layer
+instead of a copy of the whole cache or pool).
 """
 
 from __future__ import annotations
@@ -24,6 +26,13 @@ from torch import nn
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import dispatch
+# the page geometry lives beside the kernel; gather_pages is re-exported as
+# the reference's models/common has it
+from repro_torch.kernels.paged_attention import (  # noqa: F401
+    gather_pages,
+    pool_rows,
+    write_page_rows,
+)
 from repro_torch.kernels.ref import (
     TwinQuantGroupWeights,
     TwinQuantWeights,
@@ -249,9 +258,19 @@ def _sdpa_causal_chunked(q, k, v, chunk: int = _ATTN_CHUNK) -> torch.Tensor:
     return torch.stack(blocks, dim=1).reshape(b, s, h, hv)
 
 
+def prefix_attn_mask(s: int, off: int, device=None) -> torch.Tensor:
+    """(1, s, off+s) mask for suffix prefill over a cached prefix: every
+    suffix query sees the whole prefix plus the causal part of the suffix."""
+    return torch.cat([torch.ones((1, s, off), dtype=torch.bool, device=device),
+                      torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))[None]],
+                     dim=-1)
+
+
 def gqa_prefill_attn(p: nn.ModuleDict, h: torch.Tensor, cfg: ModelConfig,
-                     positions: torch.Tensor):
-    """One layer's causal prefill attention (fused q/k/v projection + RoPE).
+                     positions: torch.Tensor, prefix_kv=None, mask=None):
+    """One layer's prefill attention (fused q/k/v projection + RoPE), causal
+    or, given ``prefix_kv`` = (pk (B, m, KV, hd), pv) from cached pages and
+    the matching :func:`prefix_attn_mask`, over [prefix; causal suffix].
     Returns (attn_out, k, v) with k/v post-RoPE for the cache."""
     b, s, _ = h.shape
     hh, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -262,7 +281,12 @@ def gqa_prefill_attn(p: nn.ModuleDict, h: torch.Tensor, cfg: ModelConfig,
     tables = rope_tables(positions, hd, cfg.rope_fraction, cfg.rope_theta)
     q = apply_rope(q, tables)
     k = apply_rope(k, tables)
-    att = _sdpa_causal_chunked(q, k, v)
+    if prefix_kv is None:
+        att = _sdpa_causal_chunked(q, k, v)
+    else:
+        pk, pv = prefix_kv
+        att = _sdpa(q, torch.cat([pk.to(k.dtype), k], dim=1),
+                    torch.cat([pv.to(v.dtype), v], dim=1), mask)
     return linear(p["o"], att.reshape(b, s, hh * hd)), k, v
 
 
@@ -327,6 +351,129 @@ def attention_decode_ro(p: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig,
     self_w = (ps / den)[..., 0][..., None].permute(0, 3, 1, 2, 4).to(vt.dtype)
     out = out + self_w * vt[:, :, :, None, :]
     return linear(p["o"], out.reshape(b, sq, h * hd)), kt, vt
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache
+#
+# The paged layout replaces every sequence-carrying leaf of the decode state
+# with a global page pool (lead, n_pages, page_size, ...) shared by all
+# slots, plus one block table ``bt (B, max_pages)`` of page ids per slot
+# (-1 = unmapped). The host-side allocator in launch/serve.py owns the free
+# list and refcounts. Which leaves become pools is decided structurally
+# (paged_layout), from shapes on the meta device.
+# ---------------------------------------------------------------------------
+
+
+def paged_layout(init_fn, cfg: ModelConfig, max_len: int) -> dict:
+    """Classify decode-state leaves: key -> (slot_axis, seq_axis | None),
+    from a batch-2 vs batch-1 and a max_len vs 2*max_len shape diff. Pools
+    need the (lead, B, S, ...) layout (slot axis 1, sequence axis 2)."""
+    s2 = init_fn(cfg, 2, max_len, device="meta")
+    s1 = init_fn(cfg, 1, max_len, device="meta")
+    sl = init_fn(cfg, 1, 2 * max_len, device="meta")
+    out = {}
+    for key in s1:
+        slot = [i for i, (a, b) in enumerate(zip(s2[key].shape, s1[key].shape)) if a != b]
+        seq = [i for i, (a, b) in enumerate(zip(s1[key].shape, sl[key].shape)) if a != b]
+        if len(slot) != 1 or len(seq) > 1:
+            raise ValueError(f"cannot classify state leaf {key!r}: {tuple(s2[key].shape)} vs "
+                             f"{tuple(s1[key].shape)} vs {tuple(sl[key].shape)}")
+        if seq and (slot[0] != 1 or seq[0] != 2):
+            raise ValueError(f"page pools need (lead, B, S, ...) layout, got {key!r} with slot "
+                             f"axis {slot[0]}, seq axis {seq[0]}")
+        out[key] = (slot[0], seq[0] if seq else None)
+    return out
+
+
+def init_paged_state(init_fn, cfg: ModelConfig, batch: int, max_len: int, page_size: int,
+                     n_pages: int, device=None) -> dict:
+    """Paged decode state: sequence-carrying leaves become zeroed page pools
+    (lead, n_pages, page_size, trail); per-slot leaves are zeros of their
+    dense shape; ``bt (B, ceil(max_len / page_size))`` starts all -1. Only
+    the pools are allocated, never the dense cache."""
+    layout = paged_layout(init_fn, cfg, max_len)
+    shapes = init_fn(cfg, batch, max_len, device="meta")
+    st = {}
+    for key, (slot, seq) in layout.items():
+        sh, dt = tuple(shapes[key].shape), shapes[key].dtype
+        if seq is not None:
+            sh = sh[:slot] + (n_pages, page_size) + sh[seq + 1:]
+        st[key] = torch.zeros(sh, dtype=dt, device=device)
+    st["bt"] = torch.full((batch, -(-max_len // page_size)), -1, dtype=torch.int32,
+                          device=device)
+    return st
+
+
+def scatter_token_pages(pool: torch.Tensor, t: torch.Tensor, bt: torch.Tensor,
+                        pos: torch.Tensor) -> None:
+    """In place: each slot's one-token line t (lead, B, 1, ...) into its tail
+    page ``bt[b, pos_b // page]`` row ``pos_b % page``; slots whose target is
+    unmapped (an idle slot decoding in lock-step) or past the table are
+    dropped."""
+    scatter_rows_pages(pool, t[:, :, 0], bt, torch.arange(bt.shape[0], device=bt.device), pos)
+
+
+def scatter_rows_pages(pool: torch.Tensor, t: torch.Tensor, bt: torch.Tensor,
+                       slot: torch.Tensor, pos: torch.Tensor) -> None:
+    """In place: a step's rows t (lead, T, ...) into their slots' pages (pad,
+    unmapped and out-of-table rows dropped). The decode and ragged steps
+    call :func:`pool_rows` once before their layers and ``write_page_rows``
+    after them; this is the same write in one call."""
+    write_page_rows(pool, t, pool_rows(bt, slot, pos, pool.shape[2], pool.shape[1]))
+
+
+def paged_attn(p: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, kp: torch.Tensor,
+               vp: torch.Tensor, bt: torch.Tensor, pos: torch.Tensor):
+    """One layer's decode attention straight over the paged pools: ``x (B,
+    sq, D)`` holds each slot's rows (sq > 1: a speculative draft stack),
+    ``kp/vp (P, page, KV, hd)`` one layer's pools, ``pos (B,)`` the committed
+    prefix lengths. Routes ``dispatch.paged_decode`` with ``commit=False``
+    (the caller commits every layer's rows once); no dense view of the
+    cache is built on the kernel path. Returns (out, k_t, v_t) post-RoPE."""
+    b, sq, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = linear_group(p, ("q", "k", "v"), "qkv", x)
+    q = q.reshape(b, sq, h, hd)
+    k = k.reshape(b, sq, kvh, hd)
+    v = v.reshape(b, sq, kvh, hd)
+    tables = rope_tables(slot_positions(pos, b, sq), hd, cfg.rope_fraction, cfg.rope_theta)
+    q = apply_rope(q, tables)
+    k = apply_rope(k, tables)
+    out = dispatch.paged_decode(q, kp, vp, k, v, bt, pos, commit=False)
+    return linear(p["o"], out.reshape(b, sq, h * hd)), k, v
+
+
+def ragged_attn(p: nn.ModuleDict, h: torch.Tensor, cfg: ModelConfig, kp: torch.Tensor,
+                vp: torch.Tensor, bt: torch.Tensor, slot: torch.Tensor, pos: torch.Tensor,
+                ctx: torch.Tensor):
+    """One layer's attention over a ragged step's flat rows ``h (1, T, D)``
+    (``slot/pos (T,)``, slot == B pads; ``ctx (B,)`` committed rows per
+    slot): the fused q/k/v launch runs once over all T rows, then
+    ``dispatch.ragged_attention``. Returns (out (1, T, D), k_t, v_t)."""
+    _, t, _ = h.shape
+    hh, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = linear_group(p, ("q", "k", "v"), "qkv", h)
+    q = q.reshape(1, t, hh, hd)
+    k = k.reshape(1, t, kvh, hd)
+    v = v.reshape(1, t, kvh, hd)
+    tables = rope_tables(pos[None, :], hd, cfg.rope_fraction, cfg.rope_theta)
+    q = apply_rope(q, tables)
+    k = apply_rope(k, tables)
+    out = dispatch.ragged_attention(q[0], kp, vp, k[0], v[0], bt, slot, pos, ctx)
+    return linear(p["o"], out.reshape(1, t, hh * hd)), k[0], v[0]
+
+
+def per_draft_row(fn, x: torch.Tensor) -> torch.Tensor:
+    """Apply a row-wise ``fn`` to x (B, sq, D) one draft column (B, 1, D) at
+    a time, so a speculative stack's row i gets a plain decode step's bits.
+    On the card, :func:`rmsnorm`'s ``torch.mean`` over D picks its reduction
+    split by the number of rows: at B * sq rows some rows get other bits than
+    at B, and greedy speculation then loses tokens (``chip_smoke.py
+    --spec-probe`` shows both)."""
+    if x.shape[1] == 1:
+        return fn(x)
+    return torch.cat([fn(x[:, i:i + 1].contiguous()) for i in range(x.shape[1])], dim=1)
 
 
 def mlp_apply(p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:

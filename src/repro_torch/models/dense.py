@@ -16,10 +16,11 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
+from repro_torch.kernels.paged_attention import pool_rows
 from repro_torch.models import common as C
 
 __all__ = ["DenseLayer", "DenseModel", "init_params", "forward", "init_decode_state",
-           "prefill", "decode_step"]
+           "prefill", "decode_step", "ragged_step"]
 
 
 class DenseLayer(nn.Module):
@@ -74,6 +75,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     return DenseModel(embed, layers, ones(), head)
 
 
+def _norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return C.per_draft_row(lambda y: C.rmsnorm(y, w, cfg.norm_eps), x)
+
+
 def _unembed(params: DenseModel, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = C.rmsnorm(x, params.ln_f, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -81,9 +86,10 @@ def _unembed(params: DenseModel, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
     return C.linear(params.head, x)
 
 
-def _block(lp: DenseLayer, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+def _block(lp: DenseLayer, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+           prefix_kv=None, mask=None):
     h = C.rmsnorm(x, lp.ln1, cfg.norm_eps)
-    att, k, v = C.gqa_prefill_attn(lp.attn, h, cfg, positions)
+    att, k, v = C.gqa_prefill_attn(lp.attn, h, cfg, positions, prefix_kv=prefix_kv, mask=mask)
     x = x + att
     x = x + C.mlp_apply(lp.mlp, C.rmsnorm(x, lp.ln2, cfg.norm_eps))
     return x, k, v
@@ -108,42 +114,107 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=C.DTYPE,
 
 @torch.no_grad()
 def prefill(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor, state: dict,
-            length=None):
+            length=None, prefix=None):
     """Run the prompt, filling a copy of the cache. Returns (last_logits
     (B, 1, V), state). ``length`` (B,) marks the real prompt length when
     ``tokens`` is padded to a bucket: attention is causal, so the pad tail
     cannot perturb real positions, and logits / ``pos`` come from position
-    ``length - 1``. ``state`` itself is left unchanged."""
+    ``length - 1``. ``state`` itself is left unchanged.
+
+    ``prefix`` = {"k": (L, B, m, KV, hd), "v": ...} is an already-cached
+    post-RoPE prompt prefix (the engine's prefix cache, gathered from shared
+    pages): ``tokens`` then holds only the suffix, every suffix query
+    attends [prefix; causal suffix], positions start at m, the returned
+    cache rows hold the suffix only (from row 0) and ``pos`` counts m too."""
     x = C.embed_lookup(params.embed, tokens)
     b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+    off = 0 if prefix is None else prefix["k"].shape[2]
+    positions = off + torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+    mask = None if prefix is None else C.prefix_attn_mask(s, off, x.device)
     k_cache = state["k"].clone()
     v_cache = state["v"].clone()
     for i, lp in enumerate(params.layers):
-        x, k, v = _block(lp, x, cfg, positions)
+        x, k, v = _block(lp, x, cfg, positions, mask=mask,
+                         prefix_kv=None if prefix is None else (prefix["k"][i], prefix["v"][i]))
         k_cache[i, :, :s] = k.to(k_cache.dtype)
         v_cache[i, :, :s] = v.to(v_cache.dtype)
-    new_state = {"k": k_cache, "v": v_cache, "pos": C.prefill_pos(length, b, s, x.device)}
+    new_state = {"k": k_cache, "v": v_cache,
+                 "pos": off + C.prefill_pos(length, b, s, x.device)}
     return _unembed(params, cfg, C.select_at_length(x, length)), new_state
 
 
 @torch.no_grad()
 def decode_step(params: DenseModel, cfg: ModelConfig, state: dict, tokens: torch.Tensor):
     """tokens (B, sq) -> (logits (B, sq, V), state). Each slot attends its own
-    cache prefix; the new rows are written into ``state``'s caches in place
-    after all layers ran, and ``pos`` advances by sq."""
+    cache prefix; the new rows are written into ``state``'s caches (dense) or
+    pools (paged, ``"bt"`` in state) in place after all layers ran, and
+    ``pos`` advances by sq.
+
+    ``sq > 1`` stacks speculative draft rows (paged state only): the paged
+    branch routes ``dispatch.paged_decode``, whose row i equals a one-row
+    decode at ``pos + i`` once the earlier drafts are committed. The rmsnorms
+    run one draft column at a time (``C.per_draft_row``): their mean over D
+    gives some rows other bits at B * sq rows than at B. The linears are
+    row-independent kernels, and the bf16 head gives every row the same bits
+    stacked (``chip_smoke.py``'s speculative probe checks both)."""
     x = C.embed_lookup(params.embed, tokens)
     b, sq = tokens.shape
     pos = C.slot_positions(state["pos"], b)[:, 0]
+    paged = "bt" in state
+    if paged:  # where each row lands, found before the layers launch
+        kp0 = state["k"]
+        where = pool_rows(state["bt"], torch.arange(b, device=x.device).repeat_interleave(sq),
+                            C.slot_positions(pos, b, sq).reshape(-1), kp0.shape[2], kp0.shape[1])
+    kts, vts = [], []
+    for i, lp in enumerate(params.layers):
+        h = _norm(x, lp.ln1, cfg)
+        if paged:
+            att, kt, vt = C.paged_attn(lp.attn, h, cfg, state["k"][i], state["v"][i],
+                                       state["bt"], pos)
+        else:
+            att, kt, vt = C.attention_decode_ro(lp.attn, h, cfg, state["k"][i], state["v"][i],
+                                                pos)
+        x = x + att
+        x = x + C.mlp_apply(lp.mlp, _norm(x, lp.ln2, cfg))
+        kts.append(kt)
+        vts.append(vt)
+    if paged:
+        kvh, hd = cfg.n_kv_heads, cfg.head_dim
+        C.write_page_rows(state["k"], torch.stack(kts).reshape(-1, b * sq, kvh, hd), where)
+        C.write_page_rows(state["v"], torch.stack(vts).reshape(-1, b * sq, kvh, hd), where)
+        new_state = {**state, "pos": pos + sq}
+    else:
+        C.update_cache_slot_stacked(state["k"], torch.stack(kts), pos)
+        C.update_cache_slot_stacked(state["v"], torch.stack(vts), pos)
+        new_state = {"k": state["k"], "v": state["v"], "pos": pos + sq}
+    return _unembed(params, cfg, x), new_state
+
+
+@torch.no_grad()
+def ragged_step(params: DenseModel, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
+                slot: torch.Tensor, pos: torch.Tensor, ctx: torch.Tensor,
+                logit_idx: torch.Tensor):
+    """One unified ragged engine step over a flat batch: ``tokens, slot,
+    pos (T,)`` are the rows (slot == B pads), ``ctx (B,)`` each slot's
+    committed rows at step start, ``logit_idx (B,)`` the row whose logits
+    each slot wants back. Needs the paged state. The rows are committed to
+    the pools in place; returns (logits (B, V), state) with ``pos = ctx +``
+    the rows scheduled per slot."""
+    x = C.embed_lookup(params.embed, tokens[None, :])
+    kp0 = state["k"]
+    where = pool_rows(state["bt"], slot, pos, kp0.shape[2], kp0.shape[1])
     kts, vts = [], []
     for i, lp in enumerate(params.layers):
         h = C.rmsnorm(x, lp.ln1, cfg.norm_eps)
-        att, kt, vt = C.attention_decode_ro(lp.attn, h, cfg, state["k"][i], state["v"][i], pos)
+        att, kt, vt = C.ragged_attn(lp.attn, h, cfg, state["k"][i], state["v"][i], state["bt"],
+                                    slot, pos, ctx)
         x = x + att
         x = x + C.mlp_apply(lp.mlp, C.rmsnorm(x, lp.ln2, cfg.norm_eps))
         kts.append(kt)
         vts.append(vt)
-    C.update_cache_slot_stacked(state["k"], torch.stack(kts), pos)
-    C.update_cache_slot_stacked(state["v"], torch.stack(vts), pos)
-    new_state = {"k": state["k"], "v": state["v"], "pos": pos + sq}
-    return _unembed(params, cfg, x), new_state
+    C.write_page_rows(state["k"], torch.stack(kts), where)
+    C.write_page_rows(state["v"], torch.stack(vts), where)
+    b = ctx.shape[0]
+    counts = (slot.long()[None, :] == torch.arange(b, device=x.device)[:, None]).sum(dim=1)
+    new_state = {**state, "pos": (ctx.long() + counts).to(torch.int32)}
+    return _unembed(params, cfg, x[0][logit_idx.long()][None])[0], new_state

@@ -5,6 +5,8 @@
     init_decode_state(cfg, batch, max_len, device=...) -> state
     prefill(params, cfg, tokens, state, length=None) -> (logits, state)
     decode_step(params, cfg, state, tokens) -> (logits, state)
+    ragged_step(params, cfg, state, tokens, slot, pos, ctx, logit_idx)
+        -> (logits, state)
 
 Only the ``dense`` family is ported so far.
 """
@@ -24,6 +26,7 @@ _DENSE = SimpleNamespace(
     init_decode_state=dense.init_decode_state,
     prefill=dense.prefill,
     decode_step=dense.decode_step,
+    ragged_step=dense.ragged_step,
 )
 
 

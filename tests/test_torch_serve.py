@@ -1,8 +1,8 @@
 """The port's bucketed engine (repro_torch.launch.serve): the DESIGN.md §10
 invariant (a request served interleaved with others gives the tokens it
 gives alone), first greedy tokens against the JAX engine on the same
-bridged params, the modes that belong to later slices, and submit()
-validation."""
+bridged params, the mode that belongs to a later slice (preemption), and
+submit() validation."""
 
 import jax
 import jax.numpy as jnp
@@ -135,7 +135,7 @@ def test_accounting_surfaces(params):
     assert tp["requests_done"] == 2 and tp["decode_tokens"] > 0 and tp["routing"] == {}
 
 
-@pytest.mark.parametrize("flag", ["paged", "ragged", "speculation", "preemption"])
+@pytest.mark.parametrize("flag", ["preemption"])
 def test_later_slices_raise(params, flag):
     _, pt = params
     with pytest.raises(NotImplementedError, match="ROADMAP"):
