@@ -8,9 +8,14 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 2. build   — compiles every ``src/repro_torch/csrc/*.cu`` (one ``nvcc`` per
    source, all at once) and prints the ``-Xptxas -v`` lines;
 3. kernels — the four dual-component kernels at llama3-8b shapes, each held
-   to its plain PyTorch version with ``torch.equal`` and timed (CUDA events)
-   beside the plain version, a bf16 ``torch.matmul`` of the same (M, K) x
-   (K, N) as a yardstick, and the least time the card could take; then the
+   to its plain PyTorch version with ``torch.equal`` at a_bits 4 (timed with
+   CUDA events beside the plain version, a bf16 ``torch.matmul`` of the same
+   (M, K) x (K, N) as a yardstick, and the least time the card could take)
+   and at a_bits 8; the weight-only ``w4a16_gemm`` at every llama3-8b shape
+   and M in {1, 8, 32, 256, 512}, held per row to its plain version run in
+   f32 (relative error <= ``W4A16_REL_MAX``, a check two planted faults must
+   fail) and to the bf16 plain version at ``W4A16_TOL``, each row
+   ``torch.equal`` to a one-row launch, and timed the same way; then the
    paged-decode (sq 1 and 4, commit on and off) and ragged (T = 256)
    attention kernels, held to their plain versions at atol 0.03 / rtol 0.05
    (committed pools ``torch.equal``) and, per row and head, to the plain
@@ -20,15 +25,19 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    held ``torch.equal`` to sequential one-row launches;
 4. serve   — llama3-8b at full width and depth, random weights from seed 0:
    first the bf16 model's ragged-step vs bucketed-prefill logits at several
-   depths (gated at full depth), then W4A4 TwinQuant packs quantized once,
-   through ``ContinuousBatchingEngine`` four times: bucketed dense cache,
-   paged (prefix cache on), paged with speculation (spec_k 4) and ragged
-   (token budget 256). Checks every request finishes, every run routes its
-   kernels and no plain-version route, each new kernel launches once per
-   layer per engine step, kernel-vs-plain logits, solo-vs-interleaved greedy
-   tokens, and speculative == paged tokens. A speculative run with the
-   norms and head over the whole draft stack reports which of them gave a
-   row other bits (``--spec-probe N``: every variant, N times).
+   depths (gated at full depth), then W4A4 TwinQuant packs (quantized once)
+   and the W4A16 baseline through ``ContinuousBatchingEngine`` four times
+   each: bucketed dense cache, paged (prefix cache on), paged with
+   speculation (spec_k 4) and ragged (token budget 256); W4A8 (the W4A4
+   packs at a_bits 8) paged. Checks every request finishes, every run routes
+   its kernels and no plain-version route, each kernel launches as often as
+   the engine's steps say (attention once a layer, ``w4a16_gemm`` seven
+   times), kernel-vs-plain logits, solo-vs-interleaved greedy tokens, and
+   speculative == paged tokens. A speculative W4A4 run with the norms and
+   head over the whole draft stack reports which of them gave a row other
+   bits (``--spec-probe N``: every variant, N times);
+5. qwen3-8b — the paper's second model at full width, depth cut to
+   ``QWEN_LAYERS``, W4A4 (fused) and W4A16, paged, with the same checks.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -36,6 +45,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -49,6 +59,7 @@ HBM_BYTES_S = 3.35e12  # H100 SXM memory rate
 INT8_OPS_S = 1.979e15  # H100 SXM dense int8 tensor-core rate
 BF16_OPS_S = 9.89e14  # H100 SXM dense bf16 tensor-core rate
 SERVE_LAYERS = 32  # llama3-8b's full depth
+QWEN_LAYERS = 8  # qwen3-8b's 36 layers cut to keep the command near 600 s
 
 KERNELS = {
     # wrapper name -> (source, TPU kernel it replaces)
@@ -64,6 +75,7 @@ KERNELS = {
                             "src/repro/kernels/paged_attention.py:294"),
     "ragged_attention_kernel": ("src/repro_torch/csrc/ragged_attention.cu",
                                 "src/repro/kernels/ragged_attention.py:232"),
+    "w4a16_gemm": ("src/repro_torch/csrc/w4a16_gemm.cu", "src/repro/kernels/w4a16_gemm.py:58"),
 }
 # the dual kernels' representative main-path case (layer, M) for the table
 DUAL_REP = {"dual_gemv": ("down", 8), "dual_gemv_group": ("gate_up", 8),
@@ -197,6 +209,19 @@ def kernel_phase(device) -> dict:
         torch.cuda.empty_cache()
         table[name] = dict(max_abs_err=worst, **rep)
 
+    # W4A8: the same packs at a_bits 8 (packing does not depend on it)
+    for name, (kern, plain, packs, ms_) in cases.items():
+        for lname, w in packs.items():
+            w8 = dataclasses.replace(w, a_bits=8)
+            for m in ms_:
+                x = (torch.randn(m, w.kdim, generator=gen, device=device) * 2).to(torch.bfloat16)
+                y_k, y_p = kern(x, w8), plain(x, w8)
+                torch.cuda.synchronize()
+                if not torch.equal(y_k, y_p):
+                    fail(f"{name} {lname} M={m} a_bits=8: kernel != plain version "
+                         f"({int((y_k != y_p).sum())} of {y_k.numel()} differ)")
+        print(f"kernel {name:16s} a_bits=8 equal at {list(packs)} M={list(ms_)}", flush=True)
+
     # a shape no kernel tiles raises on the card instead of running the plain version
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.contracts import ContractError
@@ -217,8 +242,6 @@ def kernel_phase(device) -> dict:
 
 def _clone(w):
     """A copy of a pack in fresh device memory."""
-    import dataclasses
-
     import torch
 
     def c(v):
@@ -229,6 +252,128 @@ def _clone(w):
         return v
 
     return dataclasses.replace(w, **{f.name: c(getattr(w, f.name)) for f in dataclasses.fields(w)})
+
+
+# ---------------------------------------------------------------------------
+# phase 3a: the weight-only W4A16 GEMM at llama3-8b shapes
+# ---------------------------------------------------------------------------
+
+W4A16_SHAPES = {"q/o": (4096, 4096), "k/v": (4096, 1024), "gate/up": (4096, 14336),
+                "down": (14336, 4096)}  # (K, N)
+W4A16_MS = (1, 8, 32, 256, 512)
+W4A16_REP = ("down", 8)  # the table's case: decode M, the widest K
+# Per row: ||y_kernel - y32|| / ||y32||, y32 the plain version run in f32
+# (before its bf16 cast). The kernel differs from it only by the order of
+# the sum inside a group and then rounds once to bf16 (<= 2^-9 of each
+# value), so a sound row reads about 0.001; one group's scales taken from
+# the next group reads ~0.17 / sqrt(K / 128), about 0.016 at K = 14336.
+W4A16_REL_MAX = 0.004
+W4A16_TOL = dict(atol=0.01, rtol=0.01)  # against the bf16 plain version: ~1 bf16 ULP
+
+
+def _w4a16_pack(gen, k, n, device):
+    import torch
+
+    from repro_torch.kernels.ref import pack_rows_groupsplit, quantize_rows_ref
+
+    wq, ws = quantize_rows_ref(torch.randn(k, n, generator=gen, device=device) * 0.05, 128, 4)
+    return pack_rows_groupsplit(wq, 128), ws
+
+
+def _swap_nibbles(wp, g: int, group: int = 128):
+    """``wp`` with the two nibbles of every byte of scale group ``g`` swapped
+    (rows j and j + G/2 of the group trade places)."""
+    import torch
+
+    out = wp.clone()
+    rows = slice(g * group // 2, (g + 1) * group // 2)
+    u = out[rows].to(torch.int32) & 0xFF
+    sw = ((u & 0x0F) << 4) | (u >> 4)
+    out[rows] = (((sw + 128) % 256) - 128).to(torch.int8)
+    return out
+
+
+def w4a16_phase(device) -> dict:
+    """``w4a16_gemm`` against its plain version at every llama3-8b linear
+    shape and M in ``W4A16_MS``: per-row rel against the f32 plain version,
+    atol/rtol against the bf16 one, two planted faults, rows equal to one-row
+    launches; timed beside the plain version, a bf16 ``torch.matmul`` and
+    the bound."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.w4a16_gemm import w4a16_gemm
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    worst_err, worst_rel, rep = 0.0, 0.0, None
+    for lname, (k, n) in W4A16_SHAPES.items():
+        wp, ws = _w4a16_pack(gen, k, n, device)
+        pack_b = wp.numel() + ws.numel() * 4
+        # copies past the 50 MB L2, so each timed launch reads its weights
+        # from device memory as a layer of the real model does
+        copies = [(wp, ws)] + [(wp.clone(), ws.clone())
+                               for _ in range(min(7, 120_000_000 // pack_b))]
+        mid = k // 128 // 2  # the planted faults' group
+        faults = {"scales of group %d read from group %d" % (mid, mid + 1):
+                  (wp, torch.cat([ws[:mid], ws[mid + 1:mid + 2], ws[mid + 1:]])),
+                  "nibble halves of group %d swapped" % mid: (_swap_nibbles(wp, mid), ws)}
+        for m in W4A16_MS:
+            x = (torch.randn(m, k, generator=gen, device=device) * 2).to(torch.bfloat16)
+            y_k = w4a16_gemm(x, wp, ws)
+            y_p = ref.w4a16_gemm_ref(x, wp, ws)
+            y32 = ref.w4a16_gemm_f32(x, wp, ws)
+            torch.cuda.synchronize()
+            err = (y_k.float() - y_p.float()).abs().max().item()
+            rel = _rel_rows(y_k, y32).max().item()
+            rel_p = _rel_rows(y_p, y32).max().item()
+            worst_err, worst_rel = max(worst_err, err), max(worst_rel, rel)
+            if not torch.allclose(y_k.float(), y_p.float(), **W4A16_TOL):
+                fail(f"w4a16_gemm {lname} M={m}: kernel vs plain version beyond atol "
+                     f"{W4A16_TOL['atol']} / rtol {W4A16_TOL['rtol']} (max |d| {err})")
+            if not rel <= W4A16_REL_MAX:
+                fail(f"w4a16_gemm {lname} M={m}: kernel vs f32 plain version rel {rel} per row "
+                     f"> {W4A16_REL_MAX}")
+            rows = torch.cat([w4a16_gemm(x[i:i + 1], wp, ws) for i in range(m)])
+            if not torch.equal(rows, y_k):
+                fail(f"w4a16_gemm {lname} M={m}: {int((rows != y_k).any(dim=1).sum())} rows "
+                     f"differ from one-row launches")
+            if m == 8:
+                for what, (fwp, fws) in faults.items():
+                    y_f = w4a16_gemm(x, fwp, fws)
+                    rel_f = _rel_rows(y_f, y32).max().item()
+                    tol_ok = torch.allclose(y_f.float(), y_p.float(), **W4A16_TOL)
+                    print(f"kernel planted fault (w4a16_gemm {lname}: {what}): rel {rel_f:.5f} "
+                          f"vs limit {W4A16_REL_MAX} -> "
+                          f"{'caught' if rel_f > W4A16_REL_MAX else 'MISSED'}; atol/rtol check "
+                          f"alone: {'passes it' if tol_ok else 'caught'}", flush=True)
+                    if not rel_f > W4A16_REL_MAX:
+                        fail(f"planted fault (w4a16_gemm {lname}: {what}) passes the rel check")
+            it = [0]
+
+            def run_k():
+                it[0] = (it[0] + 1) % len(copies)
+                w4a16_gemm(x, *copies[it[0]])
+
+            t_k = cuda_ms(run_k, iters=50)
+            t_p = cuda_ms(lambda: ref.w4a16_gemm_ref(x, wp, ws), iters=3, warmup=1)
+            wb = torch.randn(k, n, generator=gen, device=device).to(torch.bfloat16)
+            t_lib = cuda_ms(lambda: torch.matmul(x, wb), iters=50)
+            del wb
+            nbytes = k * n // 2 + (k // 128) * n * 4 + m * k * 2 + m * n * 2
+            t_b, t_o = nbytes / HBM_BYTES_S * 1e3, 2 * m * n * k / BF16_OPS_S * 1e3
+            t_b, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+            print(f"kernel w4a16_gemm       {lname:8s} M={m:4d} K={k:5d} N={n:5d} close "
+                  f"max_abs_err={err:.5f} max_rel={rel:.5f} (limit {W4A16_REL_MAX}; bf16 plain "
+                  f"{rel_p:.5f}) rows == one-row launches ms={t_k:.4f} plain_ms={t_p:.4f} "
+                  f"bf16_matmul_ms={t_lib:.4f} bound_ms={t_b:.4f} ({by}) share={t_b / t_k:.3f}",
+                  flush=True)
+            if (lname, m) == W4A16_REP:
+                rep = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, bound_ms=t_b, bound_by=by)
+        del copies, faults
+        torch.cuda.empty_cache()
+    print(f"kernel w4a16_gemm max rel per row vs the f32 plain version {worst_rel:.5f} "
+          f"(limit {W4A16_REL_MAX})", flush=True)
+    return {"w4a16_gemm": dict(max_abs_err=worst_err, **rep)}
 
 
 # ---------------------------------------------------------------------------
@@ -555,6 +700,10 @@ def _ttft(reqs) -> tuple[float, float]:
     return sum(t) / len(t), max(t)
 
 
+def _param_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for t in model.buffers())
+
+
 def _drive(name: str, engine, reqs, device, n_layers: int) -> dict:
     """Serve ``reqs`` with the launch and route counters zeroed just before,
     check the run, print its lines; returns the run's (launch counts,
@@ -563,8 +712,12 @@ def _drive(name: str, engine, reqs, device, n_layers: int) -> dict:
 
     from repro_torch.kernels import cuda_launch, dispatch
 
-    if device.type == "cuda":
+    cuda = device.type == "cuda"
+    if cuda:
         torch.cuda.reset_peak_memory_stats(device)
+    # what is resident before the run (this model's and any other kept
+    # model's tensors): the run's own peak is max_memory_allocated above it
+    resident = torch.cuda.memory_allocated(device) if cuda else "not measured"
     dispatch.reset_dispatch_counters()
     cuda_launch.reset_launch_counts()
     t0 = time.perf_counter()
@@ -573,7 +726,7 @@ def _drive(name: str, engine, reqs, device, n_layers: int) -> dict:
     wall = time.perf_counter() - t0
     launches = cuda_launch.launch_counts()
     routes = dispatch.dispatch_counters()
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else "not measured"
+    peak = torch.cuda.max_memory_allocated(device) if cuda else "not measured"
     bad = [(r.request_id, r.status, r.error) for r in reqs if r.status != "DONE"]
     if bad:
         fail(f"{name}: requests not DONE: {bad}")
@@ -590,7 +743,8 @@ def _drive(name: str, engine, reqs, device, n_layers: int) -> dict:
           f"decode_steps={tp['decode_steps']} decode_tokens={tp['decode_tokens']} "
           f"decode_s={tp['decode_s']:.4f} prefill_s={tp['prefill_s']:.4f} "
           f"ttft_mean_s={mean_ttft:.4f} "
-          f"ttft_max_s={max_ttft:.4f} max_memory_allocated={peak} "
+          f"ttft_max_s={max_ttft:.4f} param_bytes={_param_bytes(engine.params)} "
+          f"resident_before={resident} max_memory_allocated={peak} "
           f"compile_stats={json.dumps(engine.compile_stats())}", flush=True)
     return launches, routes
 
@@ -713,26 +867,221 @@ RAGGED_BF16_REL_MAX = 0.025
 DEPTHS = (1, 2, 4, 8, 16, 32)
 
 
+MODES = {
+    "bucketed": {},
+    "paged": dict(paged=True),
+    "spec": dict(paged=True, speculation=True, spec_k=4),
+    "ragged": dict(paged=True, ragged=True, token_budget=256),
+}
+# kernel-vs-plain prefill logits of the W4A16 model at full depth (rel, one
+# prompt): the kernel differs from the plain version only by the order of the
+# sum inside a group, a bf16 ULP on some outputs of each linear, which random
+# weights carry and grow through the depth (read 0.0198 at 32 layers on an
+# H100, PERF.md; the bf16 model's ragged-vs-prefill reads alike)
+W4A16_LOGITS_REL_MAX = 0.03
+
+
+def _w4a16_f32_order(x, wp, ws, group=128):
+    """The W4A16 plain version with each group's dot a float32 matmul (the
+    order a matmul sums in) instead of f64: a second sound version."""
+    import torch
+
+    from repro_torch.kernels.ref import unpack_rows_groupsplit
+
+    wq = unpack_rows_groupsplit(wp, group)
+    acc = torch.zeros((x.shape[0], wq.shape[1]), dtype=torch.float32, device=x.device)
+    for g in range(wq.shape[0] // group):
+        w = (wq[g * group:(g + 1) * group].float() * ws[g:g + 1]).to(torch.bfloat16)
+        acc = acc + x[:, g * group:(g + 1) * group].float() @ w.float()
+    return acc.to(torch.bfloat16)
+
+
+class Served:
+    """One quantized model served in several engine modes on the same 12
+    requests: ``serve(mode)`` runs and checks a mode; ``launches`` holds each
+    kernel's count from the run whose main path it is."""
+
+    def __init__(self, tag: str, cfg, qp, kind: str, prompts, device, max_len: int = 2048):
+        self.tag, self.cfg, self.qp, self.kind = tag, cfg, qp, kind
+        self.prompts, self.device, self.max_len = prompts, device, max_len
+        self.outs: dict = {}
+        self.launches: dict = {}
+        print(f"serve {tag} param_bytes={_param_bytes(qp)}", flush=True)
+
+    def request(self, i):
+        from repro_torch.launch.serve import Request, SamplingParams
+
+        return Request(self.prompts[i], max_new=32,
+                       sampling=SamplingParams(temperature=0.8, top_k=50, seed=1)
+                       if i == 3 else SamplingParams())
+
+    def requests(self):
+        return [self.request(i) for i in range(len(self.prompts))]
+
+    def engine(self, mode):
+        from repro_torch.launch.serve import ContinuousBatchingEngine
+
+        return ContinuousBatchingEngine(self.cfg, self.qp, batch_slots=8, max_len=self.max_len,
+                                        device=self.device, **MODES[mode])
+
+    def prefill_logits(self) -> None:
+        """Kernel vs plain logits on one prompt through the model entry point:
+        equal for the dual kernels. For W4A16 at each depth in ``DEPTHS``:
+        the kernel and, as a control, the plain version with each group's
+        dot summed in f32 in a matmul's order (another sound order), both
+        against the plain version; gated at full depth."""
+        import torch
+
+        from repro_torch.kernels import dispatch, ref
+        from repro_torch.models import dense
+
+        toks = torch.as_tensor(self.prompts[4][None, :], device=self.device, dtype=torch.long)
+
+        def logits(model, cfg, plain=None):
+            state = dense.init_decode_state(cfg, 1, 64, device=self.device)
+            if plain is None:
+                return dense.prefill(model, cfg, toks, state)[0].float()
+            prev, keep = dispatch.set_force_ref(True), ref.w4a16_gemm_ref
+            ref.w4a16_gemm_ref = plain
+            try:
+                return dense.prefill(model, cfg, toks, state)[0].float()
+            finally:
+                dispatch.set_force_ref(prev)
+                ref.w4a16_gemm_ref = keep
+
+        if self.kind != "w4a16":
+            lk, lp = logits(self.qp, self.cfg), logits(self.qp, self.cfg, ref.w4a16_gemm_ref)
+            if not torch.equal(lk, lp):
+                fail(f"{self.tag}: prefill logits through the kernels != plain versions "
+                     f"(max |d| {(lk - lp).abs().max().item()})")
+            print(f"serve {self.tag} prefill logits kernel == plain: equal", flush=True)
+            return
+
+        def rel(a, b):
+            return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+        rows = []
+        for k in [d for d in DEPTHS if d < self.cfg.n_layers] + [self.cfg.n_layers]:
+            m, c = _first_layers(self.qp, k), self.cfg.replace(n_layers=k)
+            lp = logits(m, c, ref.w4a16_gemm_ref)
+            rows.append((k, rel(logits(m, c), lp), rel(logits(m, c, _w4a16_f32_order), lp)))
+        print(f"serve {self.tag} prefill logits vs plain ({len(self.prompts[4])}-token prompt) "
+              + " ".join(f"L{k}:kernel={a:.5f},f32_order_plain={b:.5f}" for k, a, b in rows)
+              + f" (limit at full depth: kernel rel <= {W4A16_LOGITS_REL_MAX})", flush=True)
+        if not rows[-1][1] <= W4A16_LOGITS_REL_MAX:
+            fail(f"{self.tag}: prefill logits kernel vs plain rel {rows[-1][1]} > "
+                 f"{W4A16_LOGITS_REL_MAX}")
+
+    def _linears(self, mode, eng, got, routes) -> None:
+        """The quantized linears' routes and launches for one run."""
+        L, cuda = self.cfg.n_layers, self.device.type == "cuda"
+        name = f"{self.tag} {mode}"
+        if self.kind == "w4a16":
+            calls = eng.stats["decode_steps"] + eng.compile_stats()["prefill_calls"]
+            want = 7 * L * calls
+            if any(k.startswith("dual") for k in routes) or routes.get("w4a16/prefill") != want:
+                fail(f"{name}: want only w4a16/prefill x {want} (7 x {L} layers x {calls} model "
+                     f"calls), routes {routes}")
+            if cuda and got.get("w4a16_gemm", 0) != want:
+                fail(f"{name}: w4a16_gemm launched {got.get('w4a16_gemm')} times, want {want}")
+            print(f"serve {name} launches_per_model_call w4a16_gemm=7x{L} (q, k, v, o, gate, "
+                  f"up, down) model_calls={calls}", flush=True)
+            if mode == "bucketed":
+                self.launches["w4a16_gemm"] = got.get("w4a16_gemm", 0)
+            return
+        if mode == "bucketed":
+            for key in ("dual/decode", "dual/prefill", "dual_fused/decode", "dual_fused/prefill"):
+                if routes.get(key, 0) <= 0:
+                    fail(f"{name}: route {key} never taken")
+            for kname in ("dual_gemv", "dual_gemv_group", "dual_gemm", "dual_gemm_group"):
+                if cuda and got.get(kname, 0) <= 0:
+                    fail(f"kernel {kname} never launched on the {name} path")
+                self.launches[kname] = got.get(kname, 0)
+            print(f"serve {name} launches_per_decode_step dual_gemv={2 * L} "
+                  f"dual_gemv_group={2 * L} (o, down / qkv, gate_up per layer)", flush=True)
+        elif not any(k.startswith("dual") for k in routes):
+            fail(f"{name}: no dual-kernel route taken: {routes}")
+
+    def _attention(self, mode, eng, got, routes) -> None:
+        """The attention kernel of the mode launches once a layer a step."""
+        L, cuda = self.cfg.n_layers, self.device.type == "cuda"
+        name = f"{self.tag} {mode}"
+        kernel, route = {"paged": ("paged_decode_kernel", "paged_decode/kernel"),
+                         "spec": ("paged_decode_kernel", "paged_decode/kernel"),
+                         "ragged": ("ragged_attention_kernel", "ragged/kernel")}[mode]
+        steps = eng.stats["spec_launches"] if mode == "spec" else eng.stats["decode_steps"]
+        if routes.get(route, 0) != L * steps:
+            fail(f"{name}: {route} routed {routes.get(route)} times, want {L} x {steps} steps")
+        if cuda and got.get(kernel, 0) != L * steps:
+            fail(f"{name}: {kernel} launched {got.get(kernel)} times, want {L} per step "
+                 f"({steps})")
+        if mode != "spec":
+            self.launches.setdefault(kernel, got.get(kernel, 0))
+
+    def serve(self, mode) -> list:
+        """Serve the 12 requests in ``mode`` and check the run."""
+        L, cuda = self.cfg.n_layers, self.device.type == "cuda"
+        name = f"{self.tag} {mode}"
+        reqs = self.requests()
+        eng = self.engine(mode)
+        got, routes = _drive(name, eng, reqs, self.device, L)
+        self._linears(mode, eng, got, routes)
+        if mode != "bucketed":
+            self._attention(mode, eng, got, routes)
+            eng.check_page_invariants()
+        if mode == "paged":
+            print(f"serve {name} memory {json.dumps(eng.memory(), sort_keys=True)} prefix_hits="
+                  f"{eng.stats['prefix_hits']} prefix_hit_tokens={eng.stats['prefix_hit_tokens']}",
+                  flush=True)
+        if mode == "spec":
+            diff = [i for i, (a, b) in enumerate(zip(reqs, self.outs["paged"])) if a.out != b.out]
+            if diff:
+                fail(f"{name}: speculative tokens != paged tokens for requests {diff}")
+            tp = eng.throughput()
+            print(f"serve {name} spec == paged tokens: equal ({len(reqs)} requests) "
+                  f"acceptance_rate={tp['acceptance_rate']:.4f} "
+                  f"tokens_per_step={tp['tokens_per_step']:.4f} "
+                  f"spec_launches={eng.stats['spec_launches']}", flush=True)
+        self.outs[mode] = reqs
+        del eng
+        if mode == "spec":
+            return reqs
+        # solo == interleaved greedy tokens. Ragged: the 1024-token prompt
+        # (chunked differently alone and interleaved) and the 3-token one;
+        # the kernels give a row the same bits however it is batched, while
+        # the plain attention (a CPU rehearsal) keeps the reference's
+        # multi-chunk f32 reassociation, so there only the short one is held.
+        held = ((len(self.prompts) - 1, 0) if cuda else (0,)) if mode == "ragged" else (5,)
+        solo_eng = self.engine(mode)
+        for i in held:
+            solo = self.request(i)
+            solo_eng.serve([solo])
+            if solo.out != reqs[i].out:
+                fail(f"{name}: solo vs interleaved greedy tokens differ for the "
+                     f"{len(self.prompts[i])}-token prompt")
+        print(f"serve {name} solo == interleaved: equal (prompts of "
+              f"{[len(self.prompts[i]) for i in held]} tokens)", flush=True)
+        return reqs
+
+
 def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2048,
                 rank: int = 128, spec_probe: int = 0) -> dict:
-    """Serve ``cfg`` (random weights, seed 0, W4A4, quantized once) through
-    the engine in its bucketed, paged, speculative and ragged modes and check
-    each; returns each kernel's launch count from the run whose main path
-    it is. ``spec_probe`` > 0 repeats the paged run and every speculative
+    """Serve ``cfg`` (random weights, seed 0) through the engine: W4A4
+    (quantized once) and W4A16 in the bucketed, paged, speculative and
+    ragged modes, W4A8 (the W4A4 packs at a_bits 8) paged; check each;
+    returns each kernel's launch count from the run whose main path it is.
+    ``spec_probe`` > 0 repeats the W4A4 paged run and every speculative
     variant (``SPEC_VARIANTS``) that many times. Runs on the CPU too (plain
     versions), which is how it is rehearsed off the card."""
     import numpy as np
-    import torch
 
     from repro_torch.configs import QuantSpec
-    from repro_torch.core.twinquant import fuse_params, quantize_params
-    from repro_torch.kernels import dispatch
-    from repro_torch.launch.serve import ContinuousBatchingEngine, Request, SamplingParams
+    from repro_torch.core.twinquant import fuse_params, quantize_params, with_activation_bits
     from repro_torch.models import dense
 
     print(f"serve config {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
-          f"head_dim={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab} n_layers={cfg.n_layers}",
-          flush=True)
+          f"head_dim={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab} n_layers={cfg.n_layers} "
+          f"card=\"{card}\"", flush=True)
     t0 = time.perf_counter()
     params = dense.init_params(cfg, seed=0, device=device)
     _sync(device)
@@ -748,153 +1097,96 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
         fail(f"bf16 model: ragged step vs bucketed prefill logits rel {bf16_rows[-1][1]} "
              f"(limit {RAGGED_BF16_REL_MAX})")
     t2 = time.perf_counter()
-    qp = fuse_params(quantize_params(params, cfg, QuantSpec("w4a4", rank=rank, group_size=128)))
+    qp16 = quantize_params(params, cfg, QuantSpec("w4a16"))
     _sync(device)
     t3 = time.perf_counter()
+    qp = fuse_params(quantize_params(params, cfg, QuantSpec("w4a4", rank=rank, group_size=128)))
+    _sync(device)
+    t4 = time.perf_counter()
     del params
-    nbytes = sum(t.numel() * t.element_size() for t in qp.buffers())
-    print(f"serve init_s={t1 - t0:.2f} quantize_fuse_s={t3 - t2:.2f} param_bytes={nbytes}",
-          flush=True)
+    print(f"serve init_s={t1 - t0:.2f} w4a16_quantize_s={t3 - t2:.2f} "
+          f"w4a4_quantize_fuse_s={t4 - t3:.2f}", flush=True)
 
-    def request(i):
-        return Request(prompts[i], max_new=32,
-                       sampling=SamplingParams(temperature=0.8, top_k=50, seed=1)
-                       if i == 3 else SamplingParams())
-
-    def requests():
-        return [request(i) for i in range(len(prompts))]
-
-    def engine(**kw):
-        return ContinuousBatchingEngine(cfg, qp, batch_slots=8, max_len=max_len, device=device,
-                                        **kw)
-
-    # kernel vs plain logits on one prompt, through the model entry point
-    state = dense.init_decode_state(cfg, 1, 64, device=device)
-    toks = torch.as_tensor(prompts[4][None, :], device=device, dtype=torch.long)
-    lk, _ = dense.prefill(qp, cfg, toks, state)
-    prev = dispatch.set_force_ref(True)
-    try:
-        lp, _ = dense.prefill(qp, cfg, toks, state)
-    finally:
-        dispatch.set_force_ref(prev)
-    if not torch.equal(lk, lp):
-        fail(f"prefill logits through the kernels != plain versions "
-             f"(max |d| {(lk.float() - lp.float()).abs().max().item()})")
-    print("serve prefill logits kernel == plain: equal", flush=True)
-    L = cfg.n_layers
-    launches = {}
-    cuda = device.type == "cuda"
-
-    # -- bucketed, dense cache
-    reqs = requests()
-    eng = engine()
-    got, routes = _drive("bucketed", eng, reqs, device, L)
-    for key in ("dual/decode", "dual/prefill", "dual_fused/decode", "dual_fused/prefill"):
-        if routes.get(key, 0) <= 0:
-            fail(f"bucketed: route {key} never taken")
-    for name in ("dual_gemv", "dual_gemv_group", "dual_gemm", "dual_gemm_group"):
-        if cuda and got.get(name, 0) <= 0:
-            fail(f"kernel {name} never launched on the bucketed path")
-        launches[name] = got.get(name, 0)
-    print(f"serve bucketed launches_per_decode_step dual_gemv={2 * L} dual_gemv_group={2 * L} "
-          f"(o, down / qkv, gate_up per layer) card=\"{card}\"", flush=True)
-    solo = request(5)
-    engine().serve([solo])
-    if solo.out != reqs[5].out:
-        fail("bucketed: solo vs interleaved greedy tokens differ")
-    print("serve bucketed solo == interleaved: equal", flush=True)
-    del eng
-
-    # -- (a) paged, prefix cache on
-    paged = requests()
-    eng = engine(paged=True)
-    got, routes = _drive("paged", eng, paged, device, L)
-    steps = eng.stats["decode_steps"]
-    if routes.get("paged_decode/kernel", 0) != L * steps:
-        fail(f"paged: paged_decode/kernel routed {routes.get('paged_decode/kernel')} "
-             f"times, want {L} x {steps} decode steps")
-    if cuda and got.get("paged_decode_kernel", 0) != L * steps:
-        fail(f"paged: paged_decode_kernel launched {got.get('paged_decode_kernel')} times, "
-             f"want {L} per decode step ({steps})")
-    launches["paged_decode_kernel"] = got.get("paged_decode_kernel", 0)
-    print(f"serve paged memory {json.dumps(eng.memory(), sort_keys=True)} prefix_hits="
-          f"{eng.stats['prefix_hits']} prefix_hit_tokens={eng.stats['prefix_hit_tokens']} "
-          f"launches_per_decode_step paged_decode_kernel={L}", flush=True)
-    eng.check_page_invariants()
-    solo = request(5)
-    engine(paged=True).serve([solo])
-    if solo.out != paged[5].out:
-        fail("paged: solo vs interleaved greedy tokens differ")
-    print("serve paged solo == interleaved: equal", flush=True)
-    del eng
-
-    # -- (b) paged + speculation
-    spec = requests()
-    eng = engine(paged=True, speculation=True, spec_k=4)
-    got, routes = _drive("spec", eng, spec, device, L)
-    n_launch = eng.stats["spec_launches"]
-    if cuda and got.get("paged_decode_kernel", 0) != L * n_launch:
-        fail(f"spec: paged_decode_kernel launched {got.get('paged_decode_kernel')} times, "
-             f"want {L} per verify launch ({n_launch})")
-    if routes.get("paged_decode/kernel", 0) != L * n_launch:
-        fail(f"spec: paged_decode/kernel routed {routes.get('paged_decode/kernel')} times, "
-             f"want {L} x {n_launch} verify launches")
-    diff = [i for i, (a, b) in enumerate(zip(spec, paged)) if a.out != b.out]
-    if diff:
-        fail(f"spec: speculative tokens != paged tokens for requests {diff}")
-    tp = eng.throughput()
-    print(f"serve spec == paged tokens: equal (12 requests) acceptance_rate="
-          f"{tp['acceptance_rate']:.4f} tokens_per_step={tp['tokens_per_step']:.4f} "
-          f"spec_launches={n_launch}", flush=True)
-    del eng
+    # -- W4A4: the four modes, the speculative probe, the ragged logits sweep
+    w4 = Served("w4a4", cfg, qp, "w4a4", prompts, device, max_len)
+    w4.prefill_logits()
+    for mode in ("bucketed", "paged", "spec"):
+        w4.serve(mode)
+    paged = w4.outs["paged"]
     for rep in range(max(spec_probe, 1)):
         if spec_probe:
-            again = requests()
-            _drive("paged again", engine(paged=True), again, device, L)
+            again = w4.requests()
+            _drive("w4a4 paged again", w4.engine("paged"), again, device, cfg.n_layers)
             print(f"serve spec probe rep={rep} paged again == paged: "
                   f"{all(a.out == b.out for a, b in zip(again, paged))}", flush=True)
         for variant in SPEC_VARIANTS if spec_probe else ("stacked",):
-            _spec_run(variant, engine(paged=True, speculation=True, spec_k=4), requests(),
-                      paged, cfg, device)
-
-    # -- (c) ragged, token budget 256
-    ragged = requests()
-    eng = engine(paged=True, ragged=True, token_budget=256)
-    got, routes = _drive("ragged", eng, ragged, device, L)
-    steps = eng.stats["decode_steps"]
-    if routes.get("ragged/kernel", 0) != L * steps:
-        fail(f"ragged: ragged/kernel routed {routes.get('ragged/kernel')} times, want "
-             f"{L} x {steps} steps")
-    if cuda and got.get("ragged_attention_kernel", 0) != L * steps:
-        fail(f"ragged: ragged_attention_kernel launched {got.get('ragged_attention_kernel')} "
-             f"times, want {L} per step ({steps})")
-    launches["ragged_attention_kernel"] = got.get("ragged_attention_kernel", 0)
+            _spec_run(variant, w4.engine("spec"), w4.requests(), paged, cfg, device)
+    ragged = w4.serve("ragged")
     agree = sum(a == b for r, q in zip(ragged, paged) for a, b in zip(r.out, q.out))
     w4a4_rows = _ragged_vs_prefill(qp, cfg, prompts[5], device, depths)
-    print(f"serve ragged tokens agreeing with paged: {agree} of {32 * len(ragged)}, first "
+    print(f"serve w4a4 ragged tokens agreeing with paged: {agree} of {32 * len(ragged)}, first "
           f"tokens {sum(r.out[0] == q.out[0] for r, q in zip(ragged, paged))} of {len(ragged)}; "
           f"W4A4 model: ragged step vs bucketed prefill logits ({len(prompts[5])}-token "
           f"prompt) {_depth_line(w4a4_rows)} (not gated) "
-          f"ttft_1024_s={ragged[-1].t_first_token - ragged[-1].t_submit:.4f} "
-          f"launches_per_step ragged_attention_kernel={L}", flush=True)
-    eng.check_page_invariants()
-    solo_eng = engine(paged=True, ragged=True, token_budget=256)
-    # the 1024-token prompt (chunked differently alone and interleaved) and the
-    # 3-token one. The kernel folds keys by absolute position, so chunking
-    # cannot move a row's bits; the plain version (a CPU rehearsal) keeps the
-    # reference's multi-chunk f32 reassociation, so there only the short one
-    # is held.
-    held = (len(prompts) - 1, 0) if cuda else (0,)
-    for i in held:
-        solo = request(i)
-        solo_eng.serve([solo])
-        if solo.out != ragged[i].out:
-            fail(f"ragged: solo vs interleaved tokens differ for the {len(prompts[i])}-token "
-                 f"prompt")
-    print(f"serve ragged solo == interleaved: equal (prompts of "
-          f"{[len(prompts[i]) for i in held]} tokens)", flush=True)
-    del eng, solo_eng
+          f"ttft_1024_s={ragged[-1].t_first_token - ragged[-1].t_submit:.4f}", flush=True)
+    launches = dict(w4.launches)
+
+    # -- W4A8: the same packs at a_bits 8, paged
+    t5 = time.perf_counter()
+    w8 = Served("w4a8", cfg, with_activation_bits(qp, 8), "w4a8", prompts, device, max_len)
+    w8.prefill_logits()
+    w8.serve("paged")
+    del w8, w4, qp
+    t6 = time.perf_counter()
+
+    # -- W4A16: the four modes
+    w16 = Served("w4a16", cfg, qp16, "w4a16", prompts, device, max_len)
+    w16.prefill_logits()
+    for mode in MODES:
+        w16.serve(mode)
+    launches["w4a16_gemm"] = w16.launches["w4a16_gemm"]
+    t7 = time.perf_counter()
+    print(f"serve phase seconds: w4a4 {t5 - t4:.1f} w4a8 {t6 - t5:.1f} w4a16 {t7 - t6:.1f}",
+          flush=True)
     return launches
+
+
+def qwen_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2048,
+               rank: int = 128) -> None:
+    """The paper's second model at full width and ``cfg``'s (cut) depth, in
+    W4A16 and W4A4 (fused), paged, with the serve phase's checks."""
+    import numpy as np
+
+    from repro_torch.configs import QuantSpec
+    from repro_torch.core.twinquant import fuse_params, quantize_params
+    from repro_torch.models import dense
+
+    t0 = time.perf_counter()
+    print(f"qwen config {cfg.name} d_model={cfg.d_model} d_ff={cfg.d_ff} vocab={cfg.vocab} "
+          f"padded_vocab={cfg.padded_vocab} rope_theta={cfg.rope_theta} n_layers={cfg.n_layers} "
+          f"(cut from 36) card=\"{card}\"", flush=True)
+    params = dense.init_params(cfg, seed=0, device=device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
+    qp16 = quantize_params(params, cfg, QuantSpec("w4a16"))
+    _sync(device)
+    t1 = time.perf_counter()
+    w16 = Served("qwen3-8b w4a16", cfg, qp16, "w4a16", prompts, device, max_len)
+    w16.prefill_logits()
+    w16.serve("paged")
+    del w16, qp16
+    t2 = time.perf_counter()
+    qp = fuse_params(quantize_params(params, cfg, QuantSpec("w4a4", rank=rank, group_size=128)))
+    del params
+    _sync(device)
+    t3 = time.perf_counter()
+    w4 = Served("qwen3-8b w4a4", cfg, qp, "w4a4", prompts, device, max_len)
+    w4.prefill_logits()
+    w4.serve("paged")
+    del w4, qp
+    t4 = time.perf_counter()
+    print(f"qwen phase seconds: init+w4a16_quantize {t1 - t0:.1f} w4a16_serve {t2 - t1:.1f} "
+          f"w4a4_quantize_fuse {t3 - t2:.1f} w4a4_serve {t4 - t3:.1f}", flush=True)
 
 
 def main() -> None:
@@ -925,12 +1217,22 @@ def main() -> None:
         for ln in lines:
             print(f"build {src}: {ln}", flush=True)
 
+    secs = {}
+    t = time.perf_counter()
     table = kernel_phase(device)
+    table.update(w4a16_phase(device))
     table.update(attention_phase(device))
+    secs["kernels"] = time.perf_counter() - t
     from repro_torch.configs import get_config
 
+    t = time.perf_counter()
     launches = serve_phase(device, card, get_config("llama3-8b").replace(n_layers=SERVE_LAYERS),
                            spec_probe=args.spec_probe)
+    secs["serve_llama3_8b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    qwen_phase(device, card, get_config("qwen3-8b").replace(n_layers=QWEN_LAYERS))
+    secs["serve_qwen3_8b"] = time.perf_counter() - t
+    print(f"phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():

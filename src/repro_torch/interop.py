@@ -2,10 +2,10 @@
 
 :func:`params_from_numpy` takes the JAX package's dense params as a nested
 dict of numpy arrays (``jax.tree.map(np.asarray, params)``) — bf16 weights,
-TwinQuant packs from ``quantize_params``, or fused packs from
-``fuse_params`` — and builds the port's :class:`~repro_torch.models.dense.
-DenseModel`, unstacking the ``(L, ...)`` layer axis into one module per
-layer. bf16 arrays are recognised by dtype name and moved bit for bit
+TwinQuant packs from ``quantize_params`` (W4A4 / W4A8), weight-only packs
+(W4A16), or fused packs from ``fuse_params`` — and builds the port's
+:class:`~repro_torch.models.dense.DenseModel`, unstacking the ``(L, ...)``
+layer axis into one module per layer. bf16 arrays are recognised by dtype name and moved bit for bit
 through a 16-bit integer view, so no bf16 numpy extension is needed here.
 """
 
@@ -17,7 +17,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.ref import TwinQuantGroupWeights, TwinQuantWeights
-from repro_torch.models.common import Linear, TwinQuantLinear, TwinQuantLinearGroup
+from repro_torch.models.common import Linear, TwinQuantLinear, TwinQuantLinearGroup, W4A16Linear
 from repro_torch.models.dense import DenseLayer, DenseModel
 
 __all__ = ["params_from_numpy", "to_torch"]
@@ -40,6 +40,8 @@ def _linear(d: dict, device) -> torch.nn.Module:
     b = t("b") if "b" in d else None
     if "w" in d:
         return Linear(t("w"), b)
+    if "wp" in d:  # W4A16 weight-only pack; its group comes from the shapes
+        return W4A16Linear(t("wp"), t("ws"), b)
     a_bits = d["abits"].shape[-1]
     group = d["rp"].shape[-2] * 2 // d["rs"].shape[-2]
     if "vp" in d:

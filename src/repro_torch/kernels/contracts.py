@@ -11,6 +11,11 @@
   :class:`ContractError` before anything is launched. Dispatch asks them
   too: a consistent pack they reject is a ``ref`` route, which runs the
   plain version for a CPU tensor and raises for any other.
+* :func:`check_w4a16_pack` — the same for a weight-only (``wp``, ``ws``)
+  pair; :func:`validate_w4a16` — what the weight-only CUDA kernel tiles: N
+  in whole 64-column blocks, groups that are whole 16-deep MMA steps and fit
+  its shared tile, and its shared memory against the budget (M is covered by
+  a guarded grid, so any M >= 1 launches).
 * :func:`check_paged_decode_args` / :func:`check_ragged_args` — shape
   consistency of a block-table attention call, run at its dispatch entry.
 * :func:`validate_paged_decode` / :func:`validate_ragged_attention` — what
@@ -42,6 +47,7 @@ __all__ = [
     "check_ragged_rows",
     "check_twinquant_group_pack",
     "check_twinquant_pack",
+    "check_w4a16_pack",
     "divisible",
     "gemm_smem_bytes",
     "gemv_smem_bytes",
@@ -51,6 +57,8 @@ __all__ = [
     "validate_dual_gemv_group",
     "validate_paged_decode",
     "validate_ragged_attention",
+    "validate_w4a16",
+    "w4a16_smem_bytes",
 ]
 
 SMEM_BUDGET_BYTES = 232_448  # 227 KB: the most one H100 block can use
@@ -84,6 +92,14 @@ def gemv_smem_bytes() -> int:
 def gemm_smem_bytes() -> int:
     """Static shared memory of the GEMM block (A and W tiles, scales)."""
     return 2 * 64 * (_GMAX + 16) + 2 * 64 * 4
+
+
+def w4a16_smem_bytes() -> int:
+    """Dynamic shared memory of the weight-only GEMM block (``W4Smem`` in
+    ``csrc/w4a16_gemm.cu``): two x tiles and two groups of packed rows and
+    scales in flight, one dequantized bf16 group."""
+    bm, bn = 64, 64
+    return 2 * bm * (_GMAX + 8) * 2 + 2 * (_GMAX // 2) * bn + 2 * bn * 4 + _GMAX * (bn + 8) * 2
 
 
 def _smem(kind: str, nbytes: int) -> None:
@@ -149,6 +165,27 @@ def validate_dual_gemm_group(m: int, k: int, group: int, seg_n, seg_r, rgroups,
 def validate_dual_gemm(m, n, k, r, group, rgroup, block_n, *, kind: str = "dual_gemm") -> None:
     """Contract for the single-pack prefill launch."""
     validate_dual_gemm_group(m, k, group, (n,), (r,), (rgroup,), block_n, kind=kind)
+
+
+def validate_w4a16(m: int, n: int, k: int, group: int, block_m: int, block_n: int,
+                   block_k: int, *, kind: str = "w4a16_gemm") -> None:
+    """Contract for the weight-only int4 GEMM launch on Hopper: the grid
+    covers M with guarded tiles (any M >= 1, no padding), N in whole
+    ``block_n`` tiles, K in whole ``block_k`` steps of whole scale groups;
+    groups are whole 16-deep MMA steps and fit the kernel's shared tile; the
+    block's shared memory fits the 227 KB budget."""
+    if m < 1:
+        raise ContractError(f"[{kind}] M={m} must be positive")
+    hint = "the grid's tiles must cover the operand exactly"
+    divisible(n, block_n, "N % block_n", kind=kind, hint=hint)
+    divisible(k, block_k, "K % block_k", kind=kind, hint=hint)
+    divisible(block_k, group, "block_k % group", kind=kind,
+              hint="every K step must hold whole scale groups")
+    divisible(group, 16, "group % 16", kind=kind,
+              hint="a group is whole 16-deep MMA steps (and pairs its nibble rows)")
+    if group > _GMAX:
+        raise ContractError(f"[{kind}] group={group} exceeds the kernel's largest group {_GMAX}")
+    _smem(kind, w4a16_smem_bytes())
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +265,29 @@ def check_twinquant_group_pack(gw, k: int, *, kind: str = "dual_fused") -> None:
     if problems:
         raise ContractError(f"[{kind}] malformed fused pack (K={k}, segments N={gw.seg_n}, "
                             f"r={gw.seg_r}):\n  " + "\n  ".join(problems))
+
+
+def check_w4a16_pack(wp, ws, k: int, group: int, *, kind: str = "w4a16") -> None:
+    """Consistency contract for a weight-only (packed, scales) pair."""
+    problems = []
+    if wp.ndim != 2 or ws.ndim != 2:
+        problems.append(f"expected 2-D (wp, ws), got {tuple(wp.shape)}, {tuple(ws.shape)}")
+    elif wp.dtype != torch.int8:
+        problems.append(f"wp: expected packed int8 nibbles, got {wp.dtype}")
+    elif not ws.dtype.is_floating_point:
+        problems.append(f"ws: expected float scales, got {ws.dtype}")
+    else:
+        if wp.shape[-2] * 2 != k:
+            problems.append(f"wp rows {wp.shape[-2]} pack K={wp.shape[-2] * 2}, but the "
+                            f"activation has K={k}")
+        if ws.shape[-2] * group != k:
+            problems.append(f"ws has {ws.shape[-2]} scale rows for group={group}, "
+                            f"covering K={ws.shape[-2] * group} != {k}")
+        if wp.shape[-1] != ws.shape[-1]:
+            problems.append(f"wp width {wp.shape[-1]} != ws width {ws.shape[-1]}")
+    if problems:
+        raise ContractError(f"[{kind}] malformed w4a16 pack (K={k}, group={group}):\n  "
+                            + "\n  ".join(problems))
 
 
 # ---------------------------------------------------------------------------

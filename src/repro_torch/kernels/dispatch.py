@@ -18,6 +18,12 @@ which route each call by its flattened M, as the JAX package does:
 Each decision bumps a counter keyed ``<kind>/<path>`` (kinds ``dual`` and
 ``dual_fused``). PyTorch runs eagerly, so that is one bump per call.
 
+The weight-only baseline :func:`w4a16_linear` (kind ``w4a16``) has one
+kernel schedule for every M, so as in the reference a routed call counts
+``w4a16/prefill`` whatever its M; ``ref`` codes ``k_group`` (K not whole
+even groups) and ``prefill_untileable`` (the kernel's contract
+``contracts.validate_w4a16`` refuses the shape).
+
 The attention entries :func:`paged_decode` (kind ``paged_decode``) and
 :func:`ragged_attention` (kind ``ragged``) have one kernel schedule each,
 so their classification is a viability check with the reference's reason
@@ -42,17 +48,19 @@ from typing import Optional, Sequence, Union
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.autotune import DECODE_M_MAX, hopper_blocks
+from repro_torch.kernels.autotune import DECODE_M_MAX, hopper_blocks, w4a16_blocks
 from repro_torch.kernels.contracts import (
     ContractError,
     check_paged_decode_args,
     check_ragged_args,
     check_twinquant_group_pack,
     check_twinquant_pack,
+    check_w4a16_pack,
     validate_dual_gemm_group,
     validate_dual_gemv_group,
     validate_paged_decode,
     validate_ragged_attention,
+    validate_w4a16,
 )
 from repro_torch.kernels.paged_attention import paged_decode_kernel, paged_decode_ref
 from repro_torch.kernels.ragged_attention import ragged_attention_kernel, ragged_attention_ref
@@ -63,6 +71,7 @@ from repro_torch.kernels.ref import (
 )
 from repro_torch.kernels.twinquant_dual_gemm import dual_gemm, dual_gemm_group
 from repro_torch.kernels.twinquant_dual_gemv import dual_gemv, dual_gemv_group
+from repro_torch.kernels.w4a16_gemm import w4a16_gemm
 
 __all__ = [
     "DECODE_M_MAX",
@@ -71,6 +80,7 @@ __all__ = [
     "classify_dual_group",
     "classify_paged_decode",
     "classify_ragged",
+    "classify_w4a16",
     "dispatch_counters",
     "force_ref_enabled",
     "fused_linear",
@@ -81,6 +91,7 @@ __all__ = [
     "reset_dispatch_counters",
     "set_force_ref",
     "set_fusion",
+    "w4a16_linear",
 ]
 
 PATH_PREFILL = "prefill"
@@ -263,6 +274,41 @@ def fused_linear(x: torch.Tensor,
         _finish(yj, batch_shape, nj, bj)
         for yj, nj, bj in zip(gw.split(y), gw.seg_n, biases)
     )
+
+
+def classify_w4a16(m: int, n: int, k: int, group: int) -> Route:
+    """Route a weight-only call: the kernel (path ``prefill``, every M) or,
+    where its contract refuses the shape, the plain version."""
+    if k % group != 0 or group % 2 != 0:
+        return Route(PATH_REF, None, f"K={k} not tileable by group={group}", "k_group")
+    blocks = w4a16_blocks(group)
+    try:
+        validate_w4a16(m, n, k, group, *blocks)
+    except ContractError as e:
+        return Route(PATH_REF, None, str(e), "prefill_untileable")
+    return Route(PATH_PREFILL, blocks, "weight-only kernel schedule")
+
+
+def w4a16_linear(x: torch.Tensor, wp: torch.Tensor, ws: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, *, group: int = 128) -> torch.Tensor:
+    """Weight-only quantized linear: (..., K) -> (..., N) bf16, routed."""
+    k = x.shape[-1]
+    n = wp.shape[-1]
+    check_w4a16_pack(wp, ws, k, group)
+    batch_shape = x.shape[:-1]
+    m = math.prod(batch_shape)
+    x2 = x.reshape(m, k)
+    if _force_ref:
+        route = Route(PATH_REF, None, "set_force_ref(True)", "forced")
+    else:
+        route = classify_w4a16(m, n, k, group)
+    _require_cpu_for_ref("w4a16", route, x)
+    _record("w4a16", route)
+    if route.path == PATH_REF:
+        y = _ref.w4a16_gemm_ref(x2, wp, ws, group)
+    else:
+        y = w4a16_gemm(x2, wp, ws, group=group)
+    return _finish(y, batch_shape, n, bias)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,13 @@ Integer dots run as float32 matmuls of the int values. That is exact: every
 partial sum is an integer below 2**24 (|sum| <= 128 * 127 * 8). TF32 is
 switched off wherever these run, so the card computes the same products.
 
+The weight-only GEMM (``w4a16_gemm_ref``) dequantizes to bf16 and takes each
+scale group's dot of bf16 values in float64, then rounds it to float32: the
+correctly rounded f32 dot, whatever order a matmul sums in. So its bits do not
+depend on the row count, on the CPU as on the card (a float32 matmul's do),
+and greedy tokens of the W4A16 engine hold across its modes on the CPU too.
+Groups still accumulate in f32, ascending, as in the reference.
+
 Packing layout ("group-split rows"): int4 values are packed two per int8
 byte along the contraction axis (axis 0). Within each scale group of ``G``
 rows, packed row ``j`` holds logical row ``j`` (low nibble) and row
@@ -37,6 +44,8 @@ __all__ = [
     "quantize_act_ref",
     "dual_gemm_ref",
     "dual_gemm_group_ref",
+    "w4a16_gemm_f32",
+    "w4a16_gemm_ref",
     "TwinQuantWeights",
     "TwinQuantGroupWeights",
     "as_group",
@@ -341,3 +350,32 @@ def dual_gemm_ref(x: torch.Tensor, w: TwinQuantWeights) -> torch.Tensor:
     with group-wise scales and H requantized at ``w.a_bits``; K groups
     accumulate in ascending order. A single pack is a one-segment group."""
     return dual_gemm_group_ref(x, as_group(w))
+
+
+# ---------------------------------------------------------------------------
+# the weight-only (W4A16) GEMM: plain version
+# ---------------------------------------------------------------------------
+
+
+def w4a16_gemm_f32(x: torch.Tensor, wp: torch.Tensor, ws: torch.Tensor,
+                   group: int = 128) -> torch.Tensor:
+    """:func:`w4a16_gemm_ref` before its final bf16 cast: (M, N) float32."""
+    wq = unpack_rows_groupsplit(wp, group)
+    k, n = wq.shape
+    xb = x.to(torch.bfloat16)
+    acc = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
+    for g in range(k // group):
+        w_deq = (wq[g * group:(g + 1) * group].to(torch.float32) * ws[g:g + 1]).to(torch.bfloat16)
+        xg = xb[:, g * group:(g + 1) * group]
+        p = (xg.to(torch.float64) @ w_deq.to(torch.float64)).to(torch.float32)
+        acc = acc + p
+    return acc
+
+
+def w4a16_gemm_ref(x: torch.Tensor, wp: torch.Tensor, ws: torch.Tensor,
+                   group: int = 128) -> torch.Tensor:
+    """Weight-only quantized GEMM: x (M, K) bf16, wp (K/2, N) packed int4,
+    ws (K/G, N) f32 -> (M, N) bf16. Weights dequantize to bf16 as
+    ``bf16(f32(q) * s)``; each group's dot is added to an f32 accumulator in
+    ascending group order; one bf16 cast at the end."""
+    return w4a16_gemm_f32(x, wp, ws, group).to(torch.bfloat16)

@@ -32,8 +32,10 @@ paged, ragged and speculative modes.
   NaN/Inf (``error="nan_logits"``). Every exit releases the slot's pages
   through ``_release_slot``.
 
-With quantized params the engine pre-merges sibling packs (``fuse_params``)
-when fusion is on, so q/k/v and gate/up each run as one kernel launch.
+With TwinQuant params (W4A4 / W4A8) the engine pre-merges sibling packs
+(``fuse_params``) when fusion is on, so q/k/v and gate/up each run as one
+kernel launch. W4A16 params serve unfused, one weight-only launch per
+projection (seven a layer), as in the reference.
 Preemption is a later slice of the port and raises ``NotImplementedError``.
 """
 

@@ -1,7 +1,7 @@
-"""Shared model substrate of the port: linear modules (bf16 and TwinQuant,
-routed through ``kernels/dispatch``), norms, RoPE, GQA attention with a
-dense per-slot KV cache or paged KV pools, and the serving helpers the
-engine uses.
+"""Shared model substrate of the port: linear modules (bf16, TwinQuant and
+the weight-only W4A16 baseline, routed through ``kernels/dispatch``), norms,
+RoPE, GQA attention with a dense per-slot KV cache or paged KV pools, and the
+serving helpers the engine uses.
 
 The math mirrors ``repro/models/common.py`` function for function, in the
 same layouts (activations (B, S, D), caches (L, B, S, KV, hd)), so the tests
@@ -110,6 +110,23 @@ class TwinQuantLinearGroup(nn.Module):
         return tuple(y.to(x.dtype) for y in dispatch.fused_linear(x, gw, biases))
 
 
+class W4A16Linear(nn.Module):
+    """A weight-only int4 pack (buffers ``wp`` (K/2, N) int8, ``ws`` (K/G, N)
+    f32 and an optional bias ``b``), applied through
+    ``dispatch.w4a16_linear``. The scale group comes from the shapes, as in
+    the reference: ``group = 2 * wp.shape[-2] / ws.shape[-2]``."""
+
+    def __init__(self, wp: torch.Tensor, ws: torch.Tensor, b: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.register_buffer("wp", wp)
+        self.register_buffer("ws", ws)
+        self.register_buffer("b", b)
+        self.group = wp.shape[-2] * 2 // ws.shape[-2]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dispatch.w4a16_linear(x, self.wp, self.ws, self.b, group=self.group).to(x.dtype)
+
+
 def linear(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply a (possibly quantized) linear layer; x: (..., K) -> (..., N)."""
     return p(x)
@@ -122,7 +139,8 @@ def linear_group(p: nn.ModuleDict, names: tuple, fused_key: str, x: torch.Tensor
        launch, or one launch per segment when fusion is switched off;
     2. the siblings are fusable TwinQuant packs and fusion is on: fuse them
        now and launch once;
-    3. otherwise one :func:`linear` per sibling."""
+    3. otherwise one :func:`linear` per sibling (bf16 and W4A16 siblings,
+       which the reference never fuses)."""
     if fused_key in p:
         fp = p[fused_key]
         if not dispatch.fusion_enabled():

@@ -28,7 +28,7 @@ from repro.core.twinquant import fuse_params as j_fuse
 from repro.core.twinquant import quantize_params as j_quant
 from repro.models import dense as JD
 from repro_torch.configs import ModelConfig, QuantSpec, get_config
-from repro_torch.core.twinquant import fuse_params, quantize_params
+from repro_torch.core.twinquant import fuse_params, quantize_params, with_activation_bits
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import ref as T
 from repro_torch.models import dense as TD
@@ -166,9 +166,33 @@ def test_fuse_params_groups_and_forward_identity(pj):
     assert torch.equal(TD.forward(ft, TC, toks), TD.forward(qt, TC, toks))
 
 
-def test_reduced_llama3_shapes_and_bf16_parity():
-    jc = JCfg(**{**get_config("llama3-8b", reduced=True).__dict__, "quant": JQ()}, remat=False)
-    tc = get_config("llama3-8b", reduced=True)
+def test_w4a8_is_the_w4a4_packs_with_a_bits_8(pj):
+    """``quantize_params("w4a8")`` == the W4A4 packs with ``a_bits`` = 8
+    (``with_activation_bits``): the packs do not depend on the activation
+    width, so the card's W4A8 run reuses the W4A4 quantization."""
+    pt = _bridge(pj)
+    q4 = quantize_params(pt, TC, QuantSpec(mode="w4a4", rank=32))
+    q8 = quantize_params(pt, TC, QuantSpec(mode="w4a8", rank=32))
+    d8 = with_activation_bits(q4, 8)
+    for l4, l8, ld in zip(q4.layers, q8.layers, d8.layers):
+        for grp in ("attn", "mlp"):
+            for name, m8 in getattr(l8, grp).items():
+                md, m4 = getattr(ld, grp)[name], getattr(l4, grp)[name]
+                assert m8.a_bits == md.a_bits == 8 and m4.a_bits == 4
+                for key in ("up", "us", "vp", "vs", "rp", "rs"):
+                    assert torch.equal(getattr(md, key), getattr(m8, key)), (grp, name, key)
+                    assert getattr(md, key) is getattr(m4, key)  # shared, not copied
+    toks = torch.as_tensor(np.arange(40)[None] % KW["vocab"], dtype=torch.long)
+    assert torch.equal(TD.forward(fuse_params(d8), TC, toks), TD.forward(fuse_params(q8), TC, toks))
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen3-8b"])
+def test_reduced_llama3_shapes_and_bf16_parity(arch):
+    """Each paper model's reduced config (qwen3-8b: rope theta 1e6) against
+    the reference's, bf16 rel <= 0.03; W4A4 packs only the down projection."""
+    jc = JCfg(**{**get_config(arch, reduced=True).__dict__, "quant": JQ()}, remat=False)
+    tc = get_config(arch, reduced=True)
+    assert tc.rope_theta == jc.rope_theta == get_config(arch).rope_theta
     pj = JD.init_params(jc, jax.random.PRNGKey(1))
     pt = params_from_numpy(jax.tree.map(np.asarray, pj), tc, "cpu")
     toks = np.random.default_rng(1).integers(0, tc.vocab, (2, 16)).astype(np.int32)

@@ -33,7 +33,8 @@ from repro.launch.serve import ContinuousBatchingEngine as JEngine
 from repro.launch.serve import Request as JRequest
 from repro.models import common as JC_
 from repro.models import dense as JD
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import ModelConfig, QuantSpec
+from repro_torch.core.twinquant import quantize_params
 from repro_torch.interop import params_from_numpy, to_torch
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.contracts import ContractError, validate_paged_decode
@@ -369,6 +370,36 @@ def test_paged_interleaving_equals_dense_solo(params):
     assert ra.out == _solo(params, a) and rb.out == _solo(params, b)
     assert eng.compile_stats()["decode_traces"] == 1
     assert eng.routing().get("paged_decode/kernel", 0) > 0
+
+
+@pytest.mark.parametrize("mode", ["w4a4", "w4a16"])
+def test_paged_interleaving_equals_dense_solo_quantized(mode):
+    """test_paged_interleaving_equals_dense_solo's workload through packed
+    linears (d_model 256, so every block linear packs): the paged engine's
+    interleaved tokens equal the bucketed dense-cache engine's solo tokens."""
+    cfg = ModelConfig(name="q", n_layers=1, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                      d_ff=512, vocab=260)
+    qp = quantize_params(TD.init_params(cfg, seed=0, device="cpu"), cfg,
+                         QuantSpec(mode=mode, rank=32))
+    a, b = list(range(10, 22)), list(range(100, 105))
+    eng = ContinuousBatchingEngine(cfg, qp, batch_slots=2, max_len=64, device="cpu", paged=True,
+                                   page_size=16)
+    ra = Request(np.asarray(a), max_new=8)
+    eng.submit(ra)
+    for _ in range(2):
+        eng.step()
+    rb = Request(np.asarray(b), max_new=8)
+    eng.submit(rb)
+    eng.run_until_done()
+    eng.check_page_invariants()
+    routes = eng.routing()  # process-wide counters: read before the solo runs
+    for prompt, r in ((a, ra), (b, rb)):
+        solo = Request(np.asarray(prompt), max_new=8)
+        ContinuousBatchingEngine(cfg, qp, batch_slots=1, max_len=64, device="cpu").serve([solo])
+        assert r.out == solo.out
+    assert routes.get("paged_decode/kernel", 0) > 0 and not any("/ref" in k for k in routes)
+    linear = "w4a16/prefill" if mode == "w4a16" else "dual_fused/decode"
+    assert routes.get(linear, 0) > 0, routes
 
 
 def test_paged_scrambled_pages(params):

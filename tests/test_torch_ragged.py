@@ -30,7 +30,8 @@ from repro.launch.serve import ContinuousBatchingEngine as JEngine
 from repro.launch.serve import Request as JRequest
 from repro.models import common as JC_
 from repro.models import dense as JD
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import ModelConfig, QuantSpec
+from repro_torch.core.twinquant import quantize_params
 from repro_torch.interop import params_from_numpy, to_torch
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.contracts import ContractError, check_ragged_rows
@@ -238,6 +239,40 @@ def test_ragged_interleaved_token_equality(params):
     cs = eng.compile_stats()
     assert cs["ragged_traces"] == 1 and cs["decode_traces"] == 0, cs
     assert set(eng.routing()) == {"ragged/kernel"}
+
+
+@pytest.mark.parametrize("mode", ["w4a4", "w4a16"])
+def test_ragged_interleaved_token_equality_quantized(mode):
+    """test_ragged_interleaved_token_equality's workload through packed
+    linears (d_model 256, so every block linear packs): every ragged step
+    runs the linears at M = token_budget, and the tokens equal the bucketed
+    engine's solo tokens."""
+    cfg = ModelConfig(name="q", n_layers=1, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                      d_ff=512, vocab=260)
+    qp = quantize_params(TD.init_params(cfg, seed=0, device="cpu"), cfg,
+                         QuantSpec(mode=mode, rank=32))
+    prompts = _prompts((5, 23, 17, 9))
+    oracles = []
+    for p in prompts:
+        r = Request(np.asarray(p), max_new=6)
+        ContinuousBatchingEngine(cfg, qp, batch_slots=1, max_len=64, device="cpu").serve([r])
+        oracles.append(r.out)
+    eng = ContinuousBatchingEngine(cfg, qp, batch_slots=3, max_len=64, device="cpu", paged=True,
+                                   ragged=True, token_budget=16)
+    reqs = [Request(np.asarray(p), max_new=6) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+        eng.step()
+    eng.run_until_done()
+    eng.check_page_invariants()
+    for k, (r, o) in enumerate(zip(reqs, oracles)):
+        assert r.out == o, (k, r.out, o)
+    routes = eng.routing()
+    assert not any("/ref" in k for k in routes), routes
+    if mode == "w4a16":
+        steps = eng.stats["decode_steps"]
+        assert routes == {"ragged/kernel": cfg.n_layers * steps,
+                          "w4a16/prefill": 7 * cfg.n_layers * steps}, routes
 
 
 def test_decode_tokens_never_drop_during_admission(params):

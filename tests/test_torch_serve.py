@@ -59,24 +59,30 @@ def test_interleaved_equals_solo(params):
     assert rb.out == _solo(pt, b)
 
 
-def test_interleaved_equals_solo_quantized():
-    """The same invariant through the packed W4A4 path (d_model 256, so
-    every block linear packs; fusion on)."""
+@pytest.mark.parametrize("mode", ["w4a4", "w4a16"])
+def test_interleaved_equals_solo_quantized(mode):
+    """The same invariant through the packed paths (d_model 256, so every
+    block linear packs): W4A4 with fusion on, and the W4A16 baseline, whose
+    seven weight-only linears a layer route ``w4a16/prefill`` at every M."""
     cfg = ModelConfig(name="q", n_layers=1, d_model=256, n_heads=4, n_kv_heads=2,
                       head_dim=64, d_ff=512, vocab=260)
     from repro_torch.models import dense
 
     qp = quantize_params(dense.init_params(cfg, seed=0, device="cpu"), cfg,
-                         QuantSpec(mode="w4a4", rank=32))
+                         QuantSpec(mode=mode, rank=32))
     prompts = [list(range(3, 15)), [9, 8, 7], list(range(40, 60))]
     eng = ContinuousBatchingEngine(cfg, qp, batch_slots=2, max_len=48, device="cpu")
     reqs = [Request(np.asarray(p), max_new=5) for p in prompts]
     eng.serve(reqs)
+    routes = eng.routing()  # process-wide counters: read before the solo runs
     for p, r in zip(prompts, reqs):
         solo = Request(np.asarray(p), max_new=5)
         ContinuousBatchingEngine(cfg, qp, batch_slots=2, max_len=48, device="cpu").serve([solo])
         assert r.out == solo.out
-    routes = eng.routing()
+    if mode == "w4a16":
+        calls = eng.stats["decode_steps"] + eng.compile_stats()["prefill_calls"]
+        assert routes == {"w4a16/prefill": 7 * cfg.n_layers * calls}, routes
+        return
     assert routes["dual_fused/decode"] > 0 and routes["dual/decode"] > 0
     assert routes["dual_fused/prefill"] > 0 and not any("/ref" in k for k in routes)
 

@@ -95,14 +95,17 @@ def test_speculative_greedy_token_equality(params):
     assert cs["spec_traces"] == 1 and cs["decode_traces"] == 0, cs
 
 
-def test_speculative_greedy_equality_quantized():
-    """The same bar through W4A4 packs (d_model 256 so every linear packs):
-    the verify launch runs the linears at M = B * spec_k through the GEMM
-    route, the plain decode at M = B through the GEMV route."""
+@pytest.mark.parametrize("mode", ["w4a4", "w4a16"])
+def test_speculative_greedy_equality_quantized(mode):
+    """The same bar through the packed paths (d_model 256 so every linear
+    packs). W4A4: the verify launch runs the linears at M = B * spec_k
+    through the GEMM route, the plain decode at M = B through the GEMV
+    route. W4A16: one weight-only route at both M, whose rows do not depend
+    on M."""
     cfg = ModelConfig(name="q", n_layers=1, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
                       d_ff=512, vocab=260)
     qp = quantize_params(TD.init_params(cfg, seed=0, device="cpu"), cfg,
-                         QuantSpec(mode="w4a4", rank=32))
+                         QuantSpec(mode=mode, rank=32))
     prompts = [[5, 6, 7, 5, 6, 7, 5, 6], list(range(3, 15))]
     oracles = [_solo(qp, p, max_new=10, max_len=48, cfg=cfg).out for p in prompts]
     eng = _spec(qp, max_len=48, cfg=cfg)
@@ -110,7 +113,13 @@ def test_speculative_greedy_equality_quantized():
     eng.serve(reqs)
     assert [r.out for r in reqs] == oracles
     routes = eng.routing()
-    assert routes["dual_fused/prefill"] > 0 and not any("/ref" in k for k in routes), routes
+    assert not any("/ref" in k for k in routes), routes
+    if mode == "w4a16":
+        calls = eng.stats["spec_launches"] + eng.compile_stats()["prefill_calls"]
+        assert routes["w4a16/prefill"] == 7 * cfg.n_layers * calls, routes
+        assert not any(k.startswith("dual") for k in routes), routes
+    else:
+        assert routes["dual_fused/prefill"] > 0, routes
 
 
 def test_speculative_sampled_slots_keep_rng_stream(params):
