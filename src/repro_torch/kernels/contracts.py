@@ -35,6 +35,9 @@ import numpy as np
 
 import torch
 
+from repro_torch.kernels.autotune import (GEMM_SPLIT_TILE, GEMM_STAGES, GEMM_TEAMS, GEMM_TILE,
+                                          GEMV_STAGES, GEMV_TILE_N, GEMV_WARPS)
+
 __all__ = [
     "ATT_PAGE_MAX",
     "ATT_QV_MAX",
@@ -84,14 +87,30 @@ def divisible(a: int, b: int, what: str, *, kind: str, hint: str = "") -> None:
 
 
 def gemv_smem_bytes() -> int:
-    """Static shared memory of the GEMV block (A slices, scales, terms)."""
-    warps, mmax, bn = 8, 8, 32
-    return warps * mmax * _GMAX + warps * mmax * 4 + warps * mmax * bn * 4
+    """Dynamic shared memory of the GEMV's main block (``tq_gemv_main`` in
+    ``csrc/twinquant_dual_gemv.cu``): each warp's ring of task slots (packed
+    rows, activation rows, both scale vectors) and two rounds of terms."""
+    warps, stages, mmax, bn = GEMV_WARPS, GEMV_STAGES, 8, GEMV_TILE_N
+    slot = (_GMAX // 2) * bn + mmax * (_GMAX + 16) + bn * 4 + mmax * 4
+    return warps * stages * slot + 2 * warps * mmax * bn * 4
+
+
+def _gemm_slot(bm: int, bn: int) -> int:
+    slot = bm * _GMAX + (_GMAX // 2) * bn + (bm + bn) * 4
+    return (slot + 127) // 128 * 128
 
 
 def gemm_smem_bytes() -> int:
-    """Static shared memory of the GEMM block (A and W tiles, scales)."""
-    return 2 * 64 * (_GMAX + 16) + 2 * 64 * 4
+    """Dynamic shared memory of the larger GEMM block (``csrc/
+    twinquant_dual_gemm.cu``): the tile kernel's ring of task slots (A tile,
+    packed rows, scales), two unpacked B tiles and 1 KB to align them to the
+    swizzle's 1024-byte period, or the split kernel's rings and B tiles of
+    its one-warp teams and two rounds of their terms."""
+    (bm, bn), (sm, sn) = GEMM_TILE, GEMM_SPLIT_TILE
+    tile = GEMM_STAGES * _gemm_slot(bm, bn) + 2 * bn * _GMAX + 1024  # + 1024-byte alignment
+    team = GEMM_STAGES * _gemm_slot(sm, sn) + sn * _GMAX
+    split = GEMM_TEAMS * team + 2 * GEMM_TEAMS * sm * sn * 4
+    return max(tile, split)
 
 
 def w4a16_smem_bytes() -> int:

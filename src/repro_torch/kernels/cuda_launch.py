@@ -1,6 +1,7 @@
 """Launch plumbing shared by the kernel wrappers: the ctypes call, its error
 check and the launch counters; for the dual-component kernels also their
-operand checks and scratch allocation.
+operand checks, their per-pack launch arguments (built once) and their
+scratch (one allocation a call).
 
 Every wrapper counts its own launches here (``launch_counts()``), bumped
 exactly where it calls its CUDA entry and nowhere else, so a run can show
@@ -10,12 +11,14 @@ which kernels its main path went through.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
 from repro_torch.kernels.build import load
 
-__all__ = ["device_operand", "launch_counts", "reset_launch_counts", "launch_dual", "run_kernel"]
+__all__ = ["device_operand", "dual_args", "launch_counts", "reset_launch_counts", "launch_dual",
+           "pack_args", "run_kernel", "scratch_layout"]
 
 _counts: dict[str, int] = {}
 
@@ -50,8 +53,12 @@ def run_kernel(name: str, lib_name: str, fn_name: str, argtypes, args,
     (typed by ``argtypes``) and the current stream of ``device``; raise on
     a launch error, else count one launch under ``name``."""
     fn = _entry(lib_name, fn_name, argtypes)
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"[{name}] CUDA launch failed: cudaError {rc}")
     _counts[name] = _counts.get(name, 0) + 1
@@ -77,56 +84,133 @@ def device_operand(kind: str, t: torch.Tensor, dtype, what: str, device: torch.d
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check_operands(x: torch.Tensor, gw, kind: str) -> None:
+def _check_pack(gw, kind: str) -> None:
     from repro_torch.kernels.contracts import ContractError
 
-    if x.dtype != torch.bfloat16 or x.ndim != 2:
-        raise ContractError(f"[{kind}] x must be a 2-D bf16 tensor, got {x.dtype} "
-                            f"{tuple(x.shape)}")
-    if x.device.type != "cuda":
-        raise ContractError(f"[{kind}] the CUDA kernel needs a CUDA tensor, got {x.device}")
     if not 2 <= gw.a_bits <= 8:
         raise ContractError(f"[{kind}] a_bits={gw.a_bits} outside the int8 range [2, 8]")
-    tensors = [gw.up, gw.us, gw.rp, gw.rs, *gw.vps, *gw.vss]
-    for t in tensors:
-        if t.device != x.device:
-            raise ContractError(f"[{kind}] pack tensor on {t.device}, activation on {x.device}")
-        if not t.is_contiguous():
-            raise ContractError(f"[{kind}] pack tensors must be contiguous")
+    dev = gw.up.device
+    for t in (gw.up, gw.us, gw.rp, gw.rs, *gw.vps, *gw.vss):
+        if t.device != dev:
+            raise ContractError(f"[{kind}] pack tensors on {t.device} and {dev}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ContractError(f"[{kind}] pack tensors must be contiguous and 16-byte aligned")
     for t in (gw.us, gw.rs, *gw.vss):
         if t.dtype != torch.float32:
             raise ContractError(f"[{kind}] scales must be float32, got {t.dtype}")
 
 
-def launch_dual(name: str, lib_name: str, fn_name: str, x: torch.Tensor, gw) -> torch.Tensor:
+class _PackArgs:
+    """What a dual launch needs of one pack, built once: the fused group's
+    checks, the segment table and pointer arrays as ctypes objects, and the
+    constant leading arguments. Holds no tensor, so it keeps no pack alive."""
+
+    def __init__(self, w, kind: str):
+        gw = _group_of(w)
+        _check_pack(gw, kind)
+        self.device = gw.up.device
+        self.n, self.r, self.group, self.a_bits = gw.ndim_out, gw.rank, gw.group, gw.a_bits
+        self.hs_cols = sum(rj // gr for rj, gr in zip(gw.seg_r, gw.rgroups))
+        info = []
+        for no, nj, ro, rj, gr in zip(gw.n_offsets, gw.seg_n, gw.r_offsets, gw.seg_r,
+                                      gw.rgroups):
+            info += [no, nj, ro, rj, gr]
+        ns = gw.n_segments
+        # kept alive here: the C entry reads them through the pointers below
+        self._info = (ctypes.c_longlong * len(info))(*info)
+        self._vps = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in gw.vps])
+        self._vss = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in gw.vss])
+        self.head = [gw.up.data_ptr(), gw.us.data_ptr(), gw.rp.data_ptr(), gw.rs.data_ptr()]
+        self.segs = [ns, ctypes.cast(self._info, _P), ctypes.cast(self._vps, _P),
+                     ctypes.cast(self._vss, _P)]
+
+
+def _group_of(w):
+    from repro_torch.kernels.ref import TwinQuantGroupWeights, as_group
+
+    return w if isinstance(w, TwinQuantGroupWeights) else as_group(w)
+
+
+def _tensors(w) -> tuple:
+    if hasattr(w, "vps"):
+        return (w.up, w.us, w.rp, w.rs, *w.vps, *w.vss)
+    return (w.up, w.us, w.rp, w.rs, w.vp, w.vs)
+
+
+# (ids of a pack's tensors, its scalars) -> (weak references to the tensors,
+# its _PackArgs). Keyed by the tensors, not by the pack object: the model's
+# modules build a new pack object around the same buffers at every call.
+_pack_args: dict[tuple, tuple] = {}
+
+
+def pack_args(w, kind: str) -> _PackArgs:
+    """The cached launch arguments of pack ``w`` (a single pack or a fused
+    group): built once for a set of tensors (and a_bits / group sizes), and
+    dropped when any of those tensors is freed. A pack's tensors must not be
+    re-pointed in place (``set_``) while it is in use."""
+    ts = _tensors(w)
+    rgroups = w.rgroups if hasattr(w, "rgroups") else (w.rgroup,)
+    key = (*map(id, ts), w.a_bits, w.group, rgroups)
+    hit = _pack_args.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], ts)):
+        return hit[1]
+    args = _PackArgs(w, kind)
+
+    def drop(_, k=key):
+        _pack_args.pop(k, None)
+
+    _pack_args[key] = (tuple(weakref.ref(t, drop) for t in ts), args)
+    return args
+
+
+def _align(n: int) -> int:
+    return (n + 255) // 256 * 256
+
+
+def scratch_layout(m: int, k: int, pa: _PackArgs, h_planes: int) -> tuple[int, list[int]]:
+    """Bytes of a dual launch's scratch and the offsets of its five buffers
+    in it: xq (M, K) int8, xs (M, K/G) f32, H as ``h_planes`` (M, R) f32
+    planes, hq (M, R) int8, hs (M, hs_cols) f32; each 256-byte aligned."""
+    sizes = (m * k, m * (k // pa.group) * 4, h_planes * m * pa.r * 4, m * pa.r,
+             m * pa.hs_cols * 4)
+    offs, total = [], 0
+    for b in sizes:
+        offs.append(total)
+        total += _align(b)
+    return total, offs
+
+
+def dual_args(x_ptr: int, m: int, k: int, pa: _PackArgs, scratch_ptr: int, offs,
+              out_ptr: int) -> list:
+    """The C entry's argument list (``_DUAL_ARGS``, without the stream)."""
+    return [x_ptr, *pa.head, m, k, pa.n, pa.r, pa.group, pa.a_bits, *pa.segs,
+            *(scratch_ptr + o for o in offs), out_ptr]
+
+
+def launch_dual(name: str, lib_name: str, fn_name: str, x: torch.Tensor, w, *,
+                h_planes: int = 1) -> torch.Tensor:
     """Run the dual-component CUDA entry ``fn_name`` of ``csrc/<lib_name>.cu``
-    on x (M, K) bf16 and the fused group ``gw``; returns (M, sum N) bf16.
-    Counts one launch under ``name``. Raises on a launch error."""
-    _check_operands(x, gw, name)
-    x = x.contiguous()
+    on x (M, K) bf16 and the pack ``w`` (single or fused); returns (M, sum N)
+    bf16. ``h_planes`` is the number of (M, R) f32 planes the entry keeps of
+    H (its per-group terms, or H itself). The pack's constant arguments are
+    built once (:func:`pack_args`); the scratch is one allocation. Counts one
+    launch under ``name``. Raises on a launch error."""
+    from repro_torch.kernels.contracts import ContractError
+
+    if x.dtype != torch.bfloat16 or x.ndim != 2:
+        raise ContractError(f"[{name}] x must be a 2-D bf16 tensor, got {x.dtype} "
+                            f"{tuple(x.shape)}")
+    if x.device.type != "cuda":
+        raise ContractError(f"[{name}] the CUDA kernel needs a CUDA tensor, got {x.device}")
+    pa = pack_args(w, name)
+    if x.device != pa.device:
+        raise ContractError(f"[{name}] pack tensor on {pa.device}, activation on {x.device}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.contiguous().clone()
     m, k = x.shape
-    dev = x.device
-    n, r, G = gw.ndim_out, gw.rank, gw.group
-    hs_cols = sum(rj // gr for rj, gr in zip(gw.seg_r, gw.rgroups))
-    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
-    xs = torch.empty((m, k // G), dtype=torch.float32, device=dev)
-    hf = torch.empty((m, r), dtype=torch.float32, device=dev)
-    hq = torch.empty((m, r), dtype=torch.int8, device=dev)
-    hs = torch.empty((m, hs_cols), dtype=torch.float32, device=dev)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    ns = gw.n_segments
-    info = []
-    for no, nj, ro, rj, gr in zip(gw.n_offsets, gw.seg_n, gw.r_offsets, gw.seg_r, gw.rgroups):
-        info += [no, nj, ro, rj, gr]
-    seg_info = (ctypes.c_longlong * len(info))(*info)
-    vps = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in gw.vps])
-    vss = (ctypes.c_void_p * ns)(*[t.data_ptr() for t in gw.vss])
-    args = [
-        x.data_ptr(), gw.up.data_ptr(), gw.us.data_ptr(), gw.rp.data_ptr(), gw.rs.data_ptr(),
-        m, k, n, r, G, gw.a_bits, ns,
-        ctypes.cast(seg_info, _P), ctypes.cast(vps, _P), ctypes.cast(vss, _P),
-        xq.data_ptr(), xs.data_ptr(), hf.data_ptr(), hq.data_ptr(), hs.data_ptr(),
-        out.data_ptr(),
-    ]
-    run_kernel(name, lib_name, fn_name, _DUAL_ARGS, args, dev)
+    total, offs = scratch_layout(m, k, pa, h_planes)
+    scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
+    out = torch.empty((m, pa.n), dtype=torch.bfloat16, device=x.device)
+    args = dual_args(x.data_ptr(), m, k, pa, scratch.data_ptr(), offs, out.data_ptr())
+    run_kernel(name, lib_name, fn_name, _DUAL_ARGS, args, x.device)
     return out

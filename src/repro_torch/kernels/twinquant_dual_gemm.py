@@ -27,7 +27,7 @@ def dual_gemm(x: torch.Tensor, w: TwinQuantWeights) -> torch.Tensor:
     validate_dual_gemm(m, w.ndim_out, k, w.rank, w.group, w.rgroup, GEMM_BLOCK_N)
     if x.device.type == "cpu":
         return _ref.dual_gemm_ref(x, w)
-    return launch_dual("dual_gemm", "twinquant_dual_gemm", "tq_dual_gemm", x, _ref.as_group(w))
+    return launch_dual("dual_gemm", "twinquant_dual_gemm", "tq_dual_gemm", x, w)
 
 
 def dual_gemm_group(x: torch.Tensor, gw: TwinQuantGroupWeights) -> torch.Tensor:

@@ -27,7 +27,8 @@ def dual_gemv(x: torch.Tensor, w: TwinQuantWeights) -> torch.Tensor:
                        decode_m_max=DECODE_M_MAX)
     if x.device.type == "cpu":
         return _ref.dual_gemm_ref(x, w)
-    return launch_dual("dual_gemv", "twinquant_dual_gemv", "tq_dual_gemv", x, _ref.as_group(w))
+    return launch_dual("dual_gemv", "twinquant_dual_gemv", "tq_dual_gemv", x, w,
+                       h_planes=k // w.group)
 
 
 def dual_gemv_group(x: torch.Tensor, gw: TwinQuantGroupWeights) -> torch.Tensor:
@@ -39,4 +40,5 @@ def dual_gemv_group(x: torch.Tensor, gw: TwinQuantGroupWeights) -> torch.Tensor:
                              decode_m_max=DECODE_M_MAX)
     if x.device.type == "cpu":
         return _ref.dual_gemm_group_ref(x, gw)
-    return launch_dual("dual_gemv_group", "twinquant_dual_gemv", "tq_dual_gemv", x, gw)
+    return launch_dual("dual_gemv_group", "twinquant_dual_gemv", "tq_dual_gemv", x, gw,
+                       h_planes=k // gw.group)

@@ -206,6 +206,113 @@ def test_wrappers_raise_on_wrong_dtype_shape_device():
                             gw.a_bits))
 
 
+# The routes and reason codes the cases above pin, written out: the kernels'
+# redesign (new tiles, new shared-memory layouts) leaves every one as it was.
+PINNED_ROUTES = [
+    ((1, 256, 512, 128, 32, 32), "decode", "ok"),
+    ((8, 256, 512, 128, 32, 32), "decode", "ok"),
+    ((9, 256, 512, 128, 32, 32), "prefill", "ok"),
+    ((64, 384, 512, 128, 64, 64), "prefill", "ok"),
+    ((8, 100, 512, 128, 32, 32), "ref", "decode_untileable"),
+    ((64, 100, 512, 128, 32, 32), "ref", "prefill_untileable"),
+    ((9, 256, 300, 128, 32, 32), "ref", "k_group"),
+    ((4, 256, 512, 128, 32, 12), "ref", "rank_rgroup"),
+    ((512, 4096, 14336, 128, 128, 128), "prefill", "ok"),
+    ((4, 192, 512, 128, 32, 32), "decode", "ok"),
+    ((64, 192, 512, 128, 32, 32), "prefill", "ok"),
+    ((4, 96, 512, 128, 32, 32), "decode", "ok"),
+]
+
+
+@pytest.mark.parametrize("case,path,code", PINNED_ROUTES)
+def test_pinned_routes_and_reason_codes_unchanged(case, path, code):
+    r = TD.classify_dual(*case)
+    assert (r.path, r.code) == (path, code)
+
+
+def _model_dual_shapes(name):
+    """(layer, K, segment widths, segment ranks) of every dual linear of a
+    model at full width, fused as the engine fuses them, rank 128."""
+    from repro_torch.configs import get_config
+
+    c = get_config(name)
+    q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    return [("qkv", c.d_model, (q, kv, kv)), ("o", q, (c.d_model,)),
+            ("gate_up", c.d_model, (c.d_ff, c.d_ff)), ("down", c.d_ff, (c.d_model,))]
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 256, 512])
+@pytest.mark.parametrize("model", ["llama3-8b", "qwen3-8b"])
+def test_model_shapes_fit_smem_and_route_to_their_kernel(model, m):
+    """Every llama3-8b / qwen3-8b dual shape at M in {1, 8, 32, 256, 512}
+    passes its kernel's contract, whose shared memory fits the 227 KB block
+    budget, and routes to the regime's kernel as before (decode up to 8
+    rows, prefill above)."""
+    from repro_torch.kernels.autotune import DECODE_M_MAX, hopper_blocks
+    from repro_torch.kernels.contracts import (SMEM_BUDGET_BYTES, gemm_smem_bytes,
+                                               gemv_smem_bytes, validate_dual_gemm_group,
+                                               validate_dual_gemv_group)
+
+    assert gemv_smem_bytes() <= SMEM_BUDGET_BYTES and gemm_smem_bytes() <= SMEM_BUDGET_BYTES
+    for layer, k, seg_n in _model_dual_shapes(model):
+        seg_r = (128,) * len(seg_n)
+        r = TD.classify_dual_group(m, k, 128, seg_n, seg_r, seg_r)
+        assert (r.path, r.code) == ("decode" if m <= DECODE_M_MAX else "prefill", "ok"), layer
+        bn = hopper_blocks(m, 128)[1]
+        if m <= DECODE_M_MAX:
+            validate_dual_gemv_group(m, k, 128, seg_n, seg_r, seg_r, bn, decode_m_max=DECODE_M_MAX)
+        else:
+            validate_dual_gemm_group(m, k, 128, seg_n, seg_r, seg_r, bn)
+
+
+def test_launch_args_built_once_per_pack():
+    """``launch_dual``'s constant arguments are built once per pack and
+    reused: two calls on one pack give the same argument list (the very
+    same ctypes objects), also when the pack object is rebuilt around the
+    same tensors (as the model's modules do at every call); a pack with
+    another field gets its own; the entry goes when its tensors are freed;
+    the scratch is one allocation whose buffers do not overlap. Two wrapper
+    calls on one pack give equal results."""
+    import dataclasses
+    import gc
+
+    from repro_torch.kernels import cuda_launch as CL
+
+    w = _pack(8, K, 256, 32)
+    ws, gw = _group()
+    pa = CL.pack_args(w, "dual_gemv")
+    assert CL.pack_args(w, "dual_gemv") is pa and CL.pack_args(gw, "dual_gemv_group") is not pa
+    assert CL.pack_args(dataclasses.replace(w), "dual_gemv") is pa
+    regw = T.TwinQuantGroupWeights(gw.up, gw.us, tuple(gw.vps), tuple(gw.vss), gw.rp, gw.rs,
+                                   gw.group, gw.rgroups, gw.a_bits)
+    assert CL.pack_args(regw, "dual_gemv_group") is CL.pack_args(gw, "dual_gemv_group")
+    total, offs = CL.scratch_layout(8, K, pa, K // 128)
+    args = [CL.dual_args(4096, 8, K, pa, 1 << 20, offs, 1 << 30) for _ in range(2)]
+    assert args[0] == args[1] and all(a is b for a, b in zip(args[0], args[1])
+                                      if not isinstance(a, int))
+    assert len(args[0]) == len(CL._DUAL_ARGS)
+    assert args[0][1:5] == [t.data_ptr() for t in (w.up, w.us, w.rp, w.rs)]
+    assert (pa.n, pa.r, pa.group, pa.a_bits, pa.hs_cols) == (256, 32, 128, 4, 1)
+    sizes = [8 * K, 8 * (K // 128) * 4, (K // 128) * 8 * 32 * 4, 8 * 32, 8 * 1 * 4]
+    assert all(o2 - o1 >= sz for o1, o2, sz in zip(offs, offs[1:] + [total], sizes))
+    gpa = CL.pack_args(gw, "dual_gemv_group")
+    info = [gpa._info[i] for i in range(5 * gw.n_segments)]
+    assert info == [v for j in range(3) for v in (gw.n_offsets[j], gw.seg_n[j],
+                                                  gw.r_offsets[j], gw.seg_r[j], gw.rgroups[j])]
+    assert CL.pack_args(dataclasses.replace(w, a_bits=8), "dual_gemv").a_bits == 8
+    w.rp = w.rp.clone()
+    assert CL.pack_args(w, "dual_gemv") is not pa
+    tmp = _pack(9, K, 256, 32)
+    CL.pack_args(tmp, "dual_gemv")
+    n_cached = len(CL._pack_args)
+    del tmp
+    gc.collect()
+    assert len(CL._pack_args) == n_cached - 1
+    x = _x(8)
+    assert torch.equal(dual_gemv(x, w), dual_gemv(x, w))
+    assert torch.equal(dual_gemm_group(_x(16), gw), dual_gemm_group(_x(16), gw))
+
+
 @pytest.mark.gpu
 def test_kernels_bit_equal_to_plain_versions_on_card():
     if not torch.cuda.is_available():
