@@ -22,13 +22,15 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    f32 (relative error <= ``W4A16_REL_MAX``, a check two planted faults must
    fail) and to the bf16 plain version at ``W4A16_TOL``, each row
    ``torch.equal`` to a one-row launch, and timed the same way; then the
-   paged-decode (sq 1 and 4, commit on and off) and ragged (T = 256)
+   paged-decode (sq 1 and 4, commit on and off; device ms from a CUDA
+   graph) and ragged (T = 256)
    attention kernels, held to their plain versions at atol 0.03 / rtol 0.05
    (committed pools ``torch.equal``) and, per row and head, to the plain
    version run in f32 (relative error <= ``ATT_REL_MAX``, a check that
    planted faults at the longest context must fail), timed beside the plain
    version and SDPA over a dense view, and the paged kernel's stacked rows
-   held ``torch.equal`` to sequential one-row launches;
+   held ``torch.equal`` to sequential one-row launches (one slot's rows
+   straddling a chunk boundary of its key split);
 4. serve   — llama3-8b at full width and depth, random weights from seed 0:
    first the bf16 model's ragged-step vs bucketed-prefill logits at several
    depths (gated at full depth), then W4A4 TwinQuant packs (quantized once)
@@ -50,9 +52,13 @@ The line before the last is the kernel table as JSON; the last line is
 
 ``--dual-only`` runs phases 1-2 and the dual kernels' part of phase 3 and
 prints no result line; ``--timing-only`` times the four dual wrappers at
-their table cases (device ms, host µs, and each launch's device µs from
-``torch.profiler``), with ``--src`` naming another tree's ``src`` to time
-(a parent commit unpacked with ``git archive``).
+their table cases, ``w4a16_gemm`` at the four llama3-8b shapes and M in
+``W4A16_MS``, and the paged decode kernel at its table case (sq 1 and 4,
+commit off): device ms from a CUDA graph, host µs, CUDA events ms, each
+launch's device µs from ``torch.profiler``, and for the last two one
+library call's device ms (bf16 ``torch.matmul``, SDPA), with ``--src``
+naming another tree's ``src`` to time (a parent commit unpacked with ``git
+archive``).
 """
 
 from __future__ import annotations
@@ -373,6 +379,22 @@ def _odd_shapes(gen, device) -> None:
               f"M={list(ms_)} a_bits 4 and 8: equal", flush=True)
 
 
+# names of the port's CUDA kernels as the profiler shows them
+KERNEL_PREFIXES = ("tq_", "pd_", "w4a16_", "paged_decode", "ragged_attention", "_Z")
+
+
+def device_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """``graph_ms`` of ``fn``; CUDA events (``cuda_ms``) when it cannot be
+    captured in a CUDA graph."""
+    import torch
+
+    try:
+        return graph_ms(fn, calls, replays)
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return cuda_ms(fn, iters=calls * replays)
+
+
 def profile_split(fn, calls: int = 10) -> dict:
     """Device µs per call of each kernel ``fn`` launches, from
     ``torch.profiler``'s ``key_averages()`` over ``calls`` calls (empty when
@@ -389,16 +411,31 @@ def profile_split(fn, calls: int = 10) -> dict:
     split = {}
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-        if t and e.key.startswith(("tq_", "void tq_", "_Z")) and e.count >= calls:
+        if t and e.key.replace("void ", "").startswith(KERNEL_PREFIXES) and e.count >= calls:
             split[e.key.split("(")[0].replace("void ", "")[:40]] = round(t / calls, 2)
     return split
 
 
+def _time_case(label: str, fn, lib=None) -> None:
+    """One ``--timing-only`` line: device ms (CUDA graph), host µs, CUDA
+    events ms, each launch's device µs (profiler), and one library call's
+    device ms beside it when given."""
+    t_k = graph_ms(fn)
+    t_h = host_us(fn)
+    t_e = cuda_ms(fn, iters=50)
+    split = profile_split(fn)
+    t_lib = f" library_ms={device_ms(lib):.4f}" if lib is not None else ""
+    print(f"timing {label} device_ms={t_k:.4f} host_us={t_h:.1f} events_ms={t_e:.4f} "
+          f"split_us={json.dumps(split)}{t_lib} src={SRC}", flush=True)
+
+
 def timing_phase(device) -> None:
     """Device ms (CUDA graph), host µs and the per-kernel device split
-    (profiler) of the four dual wrappers at their table cases only
-    (``--timing-only``; runs on any tree whose wrappers take ``(x, pack)``,
-    so a parent commit can be timed beside this one)."""
+    (profiler) of the four dual wrappers at their table cases, of
+    ``w4a16_gemm`` at the four llama3-8b shapes and M in ``W4A16_MS``, and of
+    the paged decode kernel at its table case (sq 1 and 4, commit off)
+    (``--timing-only``; runs on any tree whose wrappers take the same
+    arguments, so a parent commit can be timed beside this one)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -411,14 +448,60 @@ def timing_phase(device) -> None:
         copies = _copies(w, gw)
         for m_ in sorted({m, 32 if m > 8 else 1}):
             x = (torch.randn(m_, gw.kdim, generator=gen, device=device) * 2).to(torch.bfloat16)
-            t_k = graph_ms(_rotating(kern, x, copies))
-            t_h = host_us(_rotating(kern, x, copies))
-            t_e = cuda_ms(_rotating(kern, x, copies), iters=50)
-            split = profile_split(_rotating(kern, x, copies))
-            print(f"timing {name:16s} {lname:8s} M={m_:4d} device_ms={t_k:.4f} host_us={t_h:.1f} "
-                  f"events_ms={t_e:.4f} split_us={json.dumps(split)} src={SRC}", flush=True)
+            _time_case(f"{name:16s} {lname:8s} M={m_:4d}", _rotating(kern, x, copies))
         del copies
         torch.cuda.empty_cache()
+    _timing_w4a16(gen, device)
+    _timing_paged(gen, device)
+
+
+def _timing_w4a16(gen, device) -> None:
+    import torch
+
+    from repro_torch.kernels.w4a16_gemm import w4a16_gemm
+
+    for lname, (k, n) in W4A16_SHAPES.items():
+        wp, ws = _w4a16_pack(gen, k, n, device)
+        copies = _w4a16_copies(wp, ws)
+        wb = torch.randn(k, n, generator=gen, device=device).to(torch.bfloat16)
+        for m in W4A16_MS:
+            x = (torch.randn(m, k, generator=gen, device=device) * 2).to(torch.bfloat16)
+            it = [0]
+
+            def run(x=x):
+                it[0] = (it[0] + 1) % len(copies)
+                w4a16_gemm(x, *copies[it[0]])
+
+            _time_case(f"w4a16_gemm       {lname:8s} M={m:4d}", run,
+                       lib=lambda x=x: torch.matmul(x, wb))
+        del copies, wb
+        torch.cuda.empty_cache()
+
+
+def _timing_paged(gen, device) -> None:
+    import torch
+
+    from repro_torch.kernels.paged_attention import paged_decode_kernel
+
+    c = ATT
+    B, H, KV, hd = c["B"], c["H"], c["KV"], c["hd"]
+    cpu_gen = torch.Generator().manual_seed(2)
+    pools = _pools(gen, device, copies=4)
+    pos = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
+    for sq in (1, 4):
+        bt = _tables(DECODE_LENS, [sq if n else 0 for n in DECODE_LENS], cpu_gen, device)
+        q, kt, vt = (torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+                     for shape in ((B, sq, H, hd), (B, sq, KV, hd), (B, sq, KV, hd)))
+        it = [0]
+
+        def run(q=q, kt=kt, vt=vt, bt=bt):
+            it[0] = (it[0] + 1) % len(pools)
+            paged_decode_kernel(q, *pools[it[0]], kt, vt, bt, pos, commit=False)
+
+        sdpa = _sdpa_case(q, *pools[0], kt, vt, bt, pos)
+        _time_case(f"paged_decode     sq={sq}     lens={max(DECODE_LENS)}", run, lib=sdpa)
+    del pools
+    torch.cuda.empty_cache()
 
 
 def _clone(w):
@@ -461,6 +544,13 @@ def _w4a16_pack(gen, k, n, device):
     return pack_rows_groupsplit(wq, 128), ws
 
 
+def _w4a16_copies(wp, ws) -> list:
+    """``(wp, ws)`` and copies of it past the 50 MB L2, so each timed launch
+    reads its weights from device memory as a layer of the real model does."""
+    pack_b = wp.numel() + ws.numel() * 4
+    return [(wp, ws)] + [(wp.clone(), ws.clone()) for _ in range(min(7, 120_000_000 // pack_b))]
+
+
 def _swap_nibbles(wp, g: int, group: int = 128):
     """``wp`` with the two nibbles of every byte of scale group ``g`` swapped
     (rows j and j + G/2 of the group trade places)."""
@@ -489,11 +579,7 @@ def w4a16_phase(device) -> dict:
     worst_err, worst_rel, rep = 0.0, 0.0, None
     for lname, (k, n) in W4A16_SHAPES.items():
         wp, ws = _w4a16_pack(gen, k, n, device)
-        pack_b = wp.numel() + ws.numel() * 4
-        # copies past the 50 MB L2, so each timed launch reads its weights
-        # from device memory as a layer of the real model does
-        copies = [(wp, ws)] + [(wp.clone(), ws.clone())
-                               for _ in range(min(7, 120_000_000 // pack_b))]
+        copies = _w4a16_copies(wp, ws)
         mid = k // 128 // 2  # the planted faults' group
         faults = {"scales of group %d read from group %d" % (mid, mid + 1):
                   (wp, torch.cat([ws[:mid], ws[mid + 1:mid + 2], ws[mid + 1:]])),
@@ -535,10 +621,11 @@ def w4a16_phase(device) -> dict:
                 it[0] = (it[0] + 1) % len(copies)
                 w4a16_gemm(x, *copies[it[0]])
 
-            t_k = cuda_ms(run_k, iters=50)
+            t_k = device_ms(run_k)
             t_p = cuda_ms(lambda: ref.w4a16_gemm_ref(x, wp, ws), iters=3, warmup=1)
             wb = torch.randn(k, n, generator=gen, device=device).to(torch.bfloat16)
-            t_lib = cuda_ms(lambda: torch.matmul(x, wb), iters=50)
+            t_lib = device_ms(lambda: torch.matmul(x, wb))
+            t_lib_ev = cuda_ms(lambda: torch.matmul(x, wb), iters=50)
             del wb
             nbytes = k * n // 2 + (k // 128) * n * 4 + m * k * 2 + m * n * 2
             t_b, t_o = nbytes / HBM_BYTES_S * 1e3, 2 * m * n * k / BF16_OPS_S * 1e3
@@ -546,7 +633,8 @@ def w4a16_phase(device) -> dict:
             print(f"kernel w4a16_gemm       {lname:8s} M={m:4d} K={k:5d} N={n:5d} close "
                   f"max_abs_err={err:.5f} max_rel={rel:.5f} (limit {W4A16_REL_MAX}; bf16 plain "
                   f"{rel_p:.5f}) rows == one-row launches ms={t_k:.4f} plain_ms={t_p:.4f} "
-                  f"bf16_matmul_ms={t_lib:.4f} bound_ms={t_b:.4f} ({by}) share={t_b / t_k:.3f}",
+                  f"bf16_matmul_ms={t_lib:.4f} bf16_matmul_events_ms={t_lib_ev:.4f} "
+                  f"bound_ms={t_b:.4f} ({by}) share={t_b / t_k:.3f}",
                   flush=True)
             if (lname, m) == W4A16_REP:
                 rep = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, bound_ms=t_b, bound_by=by)
@@ -630,17 +718,46 @@ def _spare_page(bt) -> int:
 
 def _tables(lens, extra, gen, device):
     """Block tables mapping each slot's pages for ``lens[b] + extra[b]``
-    rows from a shuffled pool, -1 elsewhere (slot with no rows: all -1)."""
+    rows from a shuffled pool (pages taken in turn), -1 elsewhere (slot with
+    no rows: all -1)."""
     import torch
 
     c = ATT
     perm = torch.randperm(c["B"] * c["maxp"], generator=gen, device="cpu")
-    bt = torch.full((c["B"], c["maxp"]), -1, dtype=torch.int32)
+    bt = torch.full((len(lens), c["maxp"]), -1, dtype=torch.int32)
+    used = 0
     for b, (n, e) in enumerate(zip(lens, extra)):
         if n + e:
             n_pg = (n + e - 1) // c["page"] + 1
-            bt[b, :n_pg] = perm[b * c["maxp"]: b * c["maxp"] + n_pg].to(torch.int32)
+            bt[b, :n_pg] = perm[used:used + n_pg].to(torch.int32)
+            used += n_pg
     return bt.to(device)
+
+
+def _sdpa_case(q, kp, vp, kt, vt, bt, pos):
+    """SDPA over the dense view the plain paged version builds (the draft
+    rows written in, a per-row prefix mask): a function of no arguments,
+    the paged kernel's library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    B, sq, H, hd = q.shape
+    KV, S = kt.shape[2], bt.shape[1] * kp.shape[1]
+    dev = q.device
+    rows = pos.long()[:, None] + torch.arange(sq, device=dev)[None, :]
+    kc = kp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
+    vc = vp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
+    bi = torch.arange(B, device=dev)[:, None].expand(B, sq)
+    kc[bi, rows], vc[bi, rows] = kt, vt
+    mask = (torch.arange(S, device=dev)[None, None, :] <= rows[:, :, None])[:, None]
+    q4, k4, v4 = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    try:
+        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    except TypeError:  # torch without enable_gqa: expand the KV heads first
+        k4 = k4.repeat_interleave(H // KV, dim=1)
+        v4 = v4.repeat_interleave(H // KV, dim=1)
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
 
 def _pools(gen, device, copies: int):
@@ -726,25 +843,14 @@ def attention_phase(device) -> dict:
                 it[0] = (it[0] + 1) % len(pools)
                 paged_decode_kernel(q, *pools[it[0]], kt, vt, bt, pos, commit=commit)
 
-            t_k = cuda_ms(run_k, iters=40)
+            t_k = device_ms(run_k)
             t_p = cuda_ms(lambda: paged_decode_ref(q, kp, vp, kt, vt, bt, pos, commit=commit),
                           iters=3, warmup=1)
-            # SDPA yardstick: one call over the dense view the plain version builds
-            rows = pos.long()[:, None] + torch.arange(sq, device=device)[None, :]
-            kc = kp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
-            vc = vp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
-            bi = torch.arange(B, device=device)[:, None].expand(B, sq)
-            kc[bi, rows], vc[bi, rows] = kt, vt
-            mask = (torch.arange(S, device=device)[None, None, :] <= rows[:, :, None])[:, None]
-            q4, k4, v4 = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-            if sdpa(q4, k4, v4, mask) is None:
-                k4 = k4.repeat_interleave(H // KV, dim=1)
-                v4 = v4.repeat_interleave(H // KV, dim=1)
-                t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
-                                iters=20)
-            else:
-                t_lib = cuda_ms(lambda: sdpa(q4, k4, v4, mask), iters=20)
-            del kc, vc, k4, v4
+            # SDPA yardstick: one call over the dense view the plain version
+            # builds, timed as the kernel is and with CUDA events
+            lib = _sdpa_case(q, kp, vp, kt, vt, bt, pos)
+            t_lib, t_lib_ev = device_ms(lib), cuda_ms(lib, iters=20)
+            del lib
             nbytes = (2 * sum(DECODE_LENS) * KV * hd * 2 + 2 * B * sq * H * hd * 2
                       + (2 + 2 * commit) * B * sq * KV * hd * 2 + bt.numel() * 4 + B * 4)
             flops = sum(4 * hd * H * (n + i + 1) for n in DECODE_LENS for i in range(sq))
@@ -752,33 +858,41 @@ def attention_phase(device) -> dict:
             print(f"kernel paged_decode_kernel sq={sq} commit={int(commit)} B={B} H={H}/{KV} "
                   f"hd={hd} lens={list(DECODE_LENS)} close max_abs_err={err:.5f} "
                   f"max_rel={rel:.5f} ms={t_k:.4f} "
-                  f"plain_ms={t_p:.4f} sdpa_ms={t_lib:.4f} bound_ms={t_b:.4f} ({by}) "
-                  f"share={t_b / t_k:.3f}", flush=True)
+                  f"plain_ms={t_p:.4f} sdpa_ms={t_lib:.4f} sdpa_events_ms={t_lib_ev:.4f} "
+                  f"bound_ms={t_b:.4f} ({by}) share={t_b / t_k:.3f}", flush=True)
             if (sq, commit) == (1, False):
                 rep = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, bound_ms=t_b, bound_by=by)
     table["paged_decode_kernel"] = dict(max_abs_err=worst, **rep)
 
-    # -- stacked sq = 4 rows == four sequential sq = 1 launches, drafts committed between
+    # -- stacked sq = 4 rows == four sequential sq = 1 launches, drafts committed
+    #    between; one more slot's rows straddle a chunk boundary of the kernel's
+    #    key split (positions PAGED_CHUNK - 2 .. PAGED_CHUNK + 1)
+    from repro_torch.kernels.autotune import PAGED_CHUNK
+
     sq = 4
-    bt = _tables(DECODE_LENS, [sq if n else 0 for n in DECODE_LENS], cpu_gen, device)
-    q, kt, vt = rnd(B, sq, H, hd), rnd(B, sq, KV, hd), rnd(B, sq, KV, hd)
-    stacked = paged_decode_kernel(q, kp, vp, kt, vt, bt, pos, commit=False)
+    lens = DECODE_LENS + (PAGED_CHUNK - 2,)
+    nb = len(lens)
+    pos_s = torch.tensor(lens, dtype=torch.int32, device=device)
+    bt = _tables(lens, [sq if n else 0 for n in lens], cpu_gen, device)
+    q, kt, vt = rnd(nb, sq, H, hd), rnd(nb, sq, KV, hd), rnd(nb, sq, KV, hd)
+    stacked = paged_decode_kernel(q, kp, vp, kt, vt, bt, pos_s, commit=False)
     ks, vs = kp.clone(), vp.clone()
     seq = []
     for i in range(sq):
         o, ks, vs = paged_decode_kernel(q[:, i:i + 1].contiguous(), ks, vs,
                                         kt[:, i:i + 1].contiguous(), vt[:, i:i + 1].contiguous(),
-                                        bt, pos + i, commit=True)
+                                        bt, pos_s + i, commit=True)
         seq.append(o)
     torch.cuda.synchronize()
     seq = torch.cat(seq, dim=1)
     # slots whose draft pages are mapped (the idle slot's drafts commit nowhere)
-    mapped = pos > 0
+    mapped = pos_s > 0
     if not torch.equal(stacked[mapped], seq[mapped]):
         fail(f"paged_decode stacked sq=4 rows != sequential launches "
              f"({int((stacked[mapped] != seq[mapped]).sum())} of {seq[mapped].numel()} differ)")
     print(f"kernel paged_decode_kernel stacked sq=4 == 4 sequential sq=1 launches: equal "
-          f"({int(mapped.sum())} mapped slots)", flush=True)
+          f"({int(mapped.sum())} mapped slots, lens {list(lens)}, chunk {PAGED_CHUNK})",
+          flush=True)
     del ks, vs
 
     # -- ragged: T = 256 rows, decode rows + a chunk behind committed pages +
@@ -1381,7 +1495,8 @@ def main() -> None:
     ap.add_argument("--dual-only", action="store_true",
                     help="build, then run the dual kernels' phase alone (no result line)")
     ap.add_argument("--timing-only", action="store_true",
-                    help="build, then time the dual wrappers at their table cases alone")
+                    help="build, then time the dual, w4a16 and paged wrappers at their "
+                         "table cases alone")
     ap.add_argument("--src", metavar="DIR",
                     help="import repro_torch from DIR (another tree's src) instead")
     args = ap.parse_args()

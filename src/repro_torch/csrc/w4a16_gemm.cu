@@ -14,27 +14,50 @@
 //   * y = bf16_rn(acc).
 // Only the order of the sum inside a group differs from the plain version.
 //
-// Row independence: one K schedule for every M (no split-K, nothing keyed
-// on M), rows past M are never loaded (their shared rows stay zero) and
-// never stored, and an MMA row only ever meets its own row of x. So the
-// bits of an output row depend on that row of x alone, not on M or on the
-// row's place in the launch: the speculative verify at M = B * spec_k gives
-// the decode step's bits at M = B, and the ragged step a row's bits however
-// it is batched.
+// Row independence: every regime computes each p_g by the same instruction
+// sequence (mma.sync.m16n8k16 bf16 with the row's x as A, k16 steps
+// ascending from zero, the weight as B) and adds it to the output's one
+// chain in ascending g; rows past M are never loaded (their shared rows
+// stay zero) and never stored, and an MMA row only ever meets its own row
+// of x. So the bits of an output row depend on that row of x alone, not on
+// M, the regime or the row's place in the launch: the speculative verify at
+// M = B * spec_k gives the decode step's bits at M = B, and the ragged step
+// a row's bits however it is batched.
 //
 // What bounds it: bytes at decode M (the packed weights, K*N/2, dominate:
 // about 2 flops a byte at M = 8), bf16 MMA operations from M of a few
 // hundred on.
 //
-// Design. A 64 x 64 output tile per block of 4 warps (2 x 2, 32 x 32 each),
-// one scale group a K step. A two-stage cp.async pipeline copies group
-// g + 1's x tile (64 x G bf16, only rows < M), packed weight rows (G/2 x 64
-// bytes) and scales (64 f32) into shared memory while group g is unpacked
-// and multiplied. Unpacking writes the dequantized group k-major (row k,
-// 64 columns) in bf16; ldmatrix.trans turns it into B fragments for
-// mma.sync.m16n8k16. The TPU kernel's sequential K grid axis with its f32
-// VMEM accumulator becomes the in-block group loop with the accumulator in
-// registers. wgmma, TMA and a deeper pipeline are left for later work.
+// Decode regime (M <= W4D_M_MAX = 32). For N < W4D_COL_N
+// (w4a16_decode_kernel) a block takes 16 output columns (one 16-byte chunk
+// of a packed row) and splits K over its 8 warps: warp w takes groups w,
+// w + 8, ... through its own ring of cp.async slots (x rows < M, the packed
+// rows of its 16 columns, their scales), so the grid is N / 16 blocks (256
+// at N = 4096). The packed rows go through ldmatrix.trans as 8 x 8
+// matrices of byte pairs: lane (g, t) then holds packed rows 2t, 2t + 1 of
+// columns 2g and 2g + 1, exactly the k pairs of an m16n8k16 B fragment, so
+// the nibbles are dequantized in registers (sign via a 2^23 float bias, one
+// f32 multiply by the scale, one bf16x2 rounding) straight into two B
+// fragments: even columns as one n8 tile, odd columns as another. Each
+// round every warp parks its group's p_g in shared memory; after one
+// barrier one thread per output adds the round's terms in ascending g
+// (double-buffered, so one barrier a round). For N >= W4D_COL_N
+// (w4a16_col_kernel) a block of 4 warps takes 64 columns, one warp each 16,
+// and walks all of K with one shared ring, so x is read once per 64 columns
+// and no term is parked. The group size and the row count (8, 16 or 32)
+// are template arguments, so a group's loads, dequantization and MMAs
+// unroll without guards.
+//
+// Prefill regime (M > 32; w4a16_gemm_kernel). A 64 x 64 output tile per
+// block of 4 warps (2 x 2, 32 x 32 each), one scale group a K step. A
+// two-stage cp.async pipeline copies group g + 1's x tile (64 x G bf16,
+// only rows < M), packed weight rows (G/2 x 64 bytes) and scales (64 f32)
+// into shared memory while group g is unpacked and multiplied. Unpacking
+// writes the dequantized group k-major (row k, 64 columns) in bf16;
+// ldmatrix.trans turns it into B fragments for mma.sync.m16n8k16. The TPU
+// kernel's sequential K grid axis with its f32 VMEM accumulator becomes the
+// in-block group loop with the accumulator in registers. wgmma and TMA are
+// left for later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -220,17 +243,441 @@ w4a16_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict_
       }
 }
 
+// ---------------------------------------------------------------------------
+// decode regime
+// ---------------------------------------------------------------------------
+
+#define W4D_STAGES 2  // ring slots a warp (two gave the shortest times of 2, 3, 4)
+#define W4D_WARPS 8   // the K split of a block
+#define W4D_M_MAX 32    // largest M of the decode regime
+
+// x rows a slot holds for M (8, 16 or 32)
+inline int w4d_rows(int M) { return M <= 8 ? 8 : M <= 16 ? 16 : 32; }
+// One slot of a warp's ring: group g's x rows (rm x (G + 8) bf16, rows >= M
+// zero), the packed rows of the block's 16 columns (G/2 x 16 bytes), their
+// 16 scales.
+__host__ __device__ constexpr int w4d_slot_bytes(int rm, int G) {
+  return rm * (G + 8) * 2 + (G / 2) * 16 + 16 * 4;
+}
+// at most 189,440 bytes (32 rows, G = 128)
+inline size_t w4d_smem_bytes(int rm, int G) {
+  return (size_t)W4D_WARPS * W4D_STAGES * w4d_slot_bytes(rm, G) +
+         (size_t)2 * W4D_WARPS * rm * 16 * sizeof(float);  // two rounds of parked terms
+}
+
+__device__ __forceinline__ void w4_ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void w4_ldsm_x2(unsigned& r0, unsigned& r1, const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(a));
+}
+__device__ __forceinline__ void w4_ldsm_x4_t(unsigned* r, const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void w4_ldsm_x1_t(unsigned* r, const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.trans.shared.b16 {%0}, [%1];\n"
+               : "=r"(r[0])
+               : "r"(a));
+}
+
+// (float)q of the nibble at bits [0, 4) of v: bits 2^23 + (q + 8) as a float
+// (q + 8 = nibble ^ 8), less 2^23 + 8; exact.
+__device__ __forceinline__ float w4_nib(unsigned v) {
+  return __fsub_rn(__uint_as_float((v & 0xFu) ^ 0x4B000008u), 8388616.f);
+}
+
+// r holds packed bytes {(2t, 2g), (2t, 2g + 1), (2t + 1, 2g), (2t + 1, 2g +
+// 1)} (packed row, column) from ldmatrix.trans; `sh` = 0 takes the low
+// nibbles (group rows j), 4 the high ones (rows j + G/2). Returns the B
+// fragment words bf16_rn((float)q * s) for the even column 2g and the odd
+// column 2g + 1 (k = 2t in the low half, 2t + 1 in the high half).
+__device__ __forceinline__ void w4_deq(unsigned r, int sh, float se, float so, unsigned& be,
+                                       unsigned& bo) {
+  const unsigned v = r >> sh;
+  const __nv_bfloat162 e =
+      __floats2bfloat162_rn(__fmul_rn(w4_nib(v), se), __fmul_rn(w4_nib(v >> 16), se));
+  const __nv_bfloat162 o =
+      __floats2bfloat162_rn(__fmul_rn(w4_nib(v >> 8), so), __fmul_rn(w4_nib(v >> 24), so));
+  be = *reinterpret_cast<const unsigned*>(&e);
+  bo = *reinterpret_cast<const unsigned*>(&o);
+}
+
+// RM: x rows of a slot (8, 16 or 32; M <= RM); KS: k16 steps a group (G =
+// 16 KS), both compile-time, so a group's loads, dequantization and MMAs
+// unroll without guards and overlap.
+template <int RM, int KS>
+__global__ void __launch_bounds__(256)
+w4a16_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wp,
+                    const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int M, int N,
+                    int K) {
+  constexpr int G = 16 * KS, HALF = G / 2, LDX = G + 8, VPR = G / 8;
+  constexpr int S = W4D_STAGES, SLOT = w4d_slot_bytes(RM, G);
+  constexpr int MT = RM >= 16 ? RM / 16 : 1;  // m16 tiles (RM = 8: one, rows 8-15 zero)
+  constexpr int OPT = (RM * 16 + 127) / 128;  // outputs a thread adds (>= 4 warps)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warps = blockDim.x >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  unsigned char* ring = smem_raw + (size_t)warp * S * SLOT;
+  float* park = reinterpret_cast<float*>(smem_raw + (size_t)warps * S * SLOT);  // [2][warps][RM][16]
+  const int n0 = blockIdx.x * 16, n_groups = K / G;
+  auto xs = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(ring + st * SLOT); };
+  auto wsl = [&](int st) { return reinterpret_cast<int8_t*>(ring + st * SLOT + RM * LDX * 2); };
+  auto ssl = [&](int st) {
+    return reinterpret_cast<float*>(ring + st * SLOT + RM * LDX * 2 + HALF * 16);
+  };
+
+  for (int st = 0; st < S; ++st)
+    for (int i = lane; i < (RM - M) * (LDX / 8); i += 32) {
+      const int r = M + i / (LDX / 8), v = i % (LDX / 8);
+      *reinterpret_cast<uint4*>(xs(st) + r * LDX + v * 8) = make_uint4(0, 0, 0, 0);
+    }
+
+  // the lane's x chunks: (row, 16-byte chunk) from (lane / VPR, lane % VPR)
+  // in steps of 32 chunks (DR rows and DV chunks, carried)
+  constexpr int DR = 32 / VPR, DV = 32 % VPR;
+  auto stage = [&](int st, int g) {
+    const __nv_bfloat16* xg = x + (size_t)g * G;
+    for (int r = lane / VPR, v = lane % VPR; r < M;) {
+      w4_cp16(xs(st) + r * LDX + v * 8, xg + (size_t)r * K + v * 8);
+      v += DV;
+      r += DR;
+      if (v >= VPR) {
+        v -= VPR;
+        ++r;
+      }
+    }
+    for (int j = lane; j < HALF; j += 32)
+      w4_cp16(wsl(st) + j * 16, wp + (size_t)(g * HALF + j) * N + n0);
+    if (lane < 4) w4_cp16(ssl(st) + lane * 4, ws + (size_t)g * N + n0 + lane * 4);
+  };
+
+  const int rounds = (n_groups + warps - 1) / warps;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s * warps + warp < n_groups) stage(s, s * warps + warp);
+    w4_commit();
+  }
+  float acc[OPT];
+#pragma unroll
+  for (int i = 0; i < OPT; ++i) acc[i] = 0.f;
+
+  for (int r = 0; r < rounds; ++r) {
+    const int g = r * warps + warp;
+    {
+      const int rn = r + S - 1;
+      __syncwarp();  // every lane is done with the slot of round r - 1
+      if (rn * warps + warp < n_groups) stage(rn % S, rn * warps + warp);
+      w4_commit();
+    }
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(S - 1));
+    __syncwarp();  // round r's slot has landed for every lane
+    float* pk = park + ((r & 1) * warps + warp) * RM * 16;
+    if (g < n_groups) {
+      const int st = r % S;
+      const float se = ssl(st)[2 * gid], so = ssl(st)[2 * gid + 1];
+      // the G/16 packed 8-row blocks, each once: block i's low nibbles are
+      // k rows 8i + [0, 8), its high ones k rows G/2 + 8i + [0, 8)
+      unsigned raw[KS];
+      const int8_t* wb = wsl(st);
+      constexpr int K4 = KS / 4 * 4;  // blocks loaded four at a time
+#pragma unroll
+      for (int i = 0; i < K4; i += 4) w4_ldsm_x4_t(raw + i, wb + (8 * i + lane) * 16);
+#pragma unroll
+      for (int i = K4; i < KS; ++i) w4_ldsm_x1_t(raw + i, wb + (8 * i + (lane & 7)) * 16);
+      unsigned be[2 * KS], bo[2 * KS];
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        w4_deq(raw[i], 0, se, so, be[i], bo[i]);
+        w4_deq(raw[i], 4, se, so, be[KS + i], bo[KS + i]);
+      }
+      // the group's dot from zero: k16 steps ascending; even / odd columns
+      float p[MT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[mt][t][e] = 0.f;
+      const __nv_bfloat16* xb = xs(st);
+#pragma unroll
+      for (int s16 = 0; s16 < KS; ++s16) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          unsigned a[4];
+          if (RM == 8) {
+            w4_ldsm_x2(a[0], a[2], xb + (lane & 7) * LDX + 16 * s16 + ((lane >> 3) & 1) * 8);
+            a[1] = a[3] = 0u;
+          } else {
+            w4_ldsm_x4(a, xb + (16 * mt + (lane & 15)) * LDX + 16 * s16 + (lane >> 4) * 8);
+          }
+          mma_bf16(p[mt][0], a, be[2 * s16], be[2 * s16 + 1]);
+          mma_bf16(p[mt][1], a, bo[2 * s16], bo[2 * s16 + 1]);
+        }
+      }
+      // park p_g: tile t, MMA column 2 tig + (e & 1) is column 4 tig + 2 (e & 1) + t
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = 16 * mt + gid + 8 * (e >> 1);
+            if (row < M) pk[row * 16 + 4 * tig + 2 * (e & 1) + t] = p[mt][t][e];
+          }
+    }
+    __syncthreads();  // the round's terms are parked
+    // one thread per output adds the round's terms in ascending g
+    const int nk = min(warps, n_groups - r * warps);
+    const float* pr = park + (r & 1) * warps * RM * 16;
+#pragma unroll
+    for (int i = 0; i < OPT; ++i) {
+      const int o = tid + i * blockDim.x;
+      if (o < M * 16)
+        for (int k = 0; k < nk; ++k) acc[i] = __fadd_rn(acc[i], pr[k * RM * 16 + o]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < OPT; ++i) {
+    const int o = tid + i * blockDim.x;
+    if (o < M * 16) out[(size_t)(o >> 4) * N + n0 + (o & 15)] = __float2bfloat16_rn(acc[i]);
+  }
+}
+
+// Wide N (N >= W4D_COL_N): a block of 4 warps takes 64 columns, warp w the
+// 16 columns n0 + 16 w, and walks every group itself (no K split): the
+// block's ring of W4C_STAGES slots holds each group's x rows once for all
+// four warps and the packed rows 64 bytes wide (whole sectors; 16-byte
+// chunks XOR-swizzled by row pair so ldmatrix.trans reads hit 32 banks).
+// Each output's chain stays in one thread's registers, so no term is
+// parked; one barrier a group. Same per-group MMA sequence and ascending
+// chain as w4a16_decode_kernel, so the same bits.
+#define W4D_COL_N 8192  // from this N on, the column-split schedule
+#define W4C_STAGES 4    // ring slots of a column-split block
+__host__ __device__ constexpr int w4c_slot_bytes(int rm, int G) {
+  return rm * (G + 8) * 2 + (G / 2) * 64 + 64 * 4;
+}
+inline size_t w4c_smem_bytes(int rm, int G) { return (size_t)W4C_STAGES * w4c_slot_bytes(rm, G); }
+
+template <int RM, int KS>
+__global__ void __launch_bounds__(128)
+w4a16_col_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wp,
+                 const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int M, int N,
+                 int K) {
+  constexpr int G = 16 * KS, HALF = G / 2, LDX = G + 8, VPR = G / 8;
+  constexpr int S = W4C_STAGES, SLOT = w4c_slot_bytes(RM, G);
+  constexpr int MT = RM >= 16 ? RM / 16 : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * 64, n_groups = K / G;
+  auto xs = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(smem_raw + st * SLOT); };
+  auto wsl = [&](int st) { return reinterpret_cast<int8_t*>(smem_raw + st * SLOT + RM * LDX * 2); };
+  auto ssl = [&](int st) {
+    return reinterpret_cast<float*>(smem_raw + st * SLOT + RM * LDX * 2 + HALF * 64);
+  };
+  for (int st = 0; st < S; ++st)
+    for (int i = tid; i < (RM - M) * (LDX / 8); i += 128) {
+      const int r = M + i / (LDX / 8), v = i % (LDX / 8);
+      *reinterpret_cast<uint4*>(xs(st) + r * LDX + v * 8) = make_uint4(0, 0, 0, 0);
+    }
+  // the thread's x chunks from (tid / VPR, tid % VPR) in steps of 128 chunks
+  constexpr int DR = 128 / VPR, DV = 128 % VPR;
+  auto stage = [&](int st, int g) {
+    const __nv_bfloat16* xg = x + (size_t)g * G;
+    for (int r = tid / VPR, v = tid % VPR; r < M;) {
+      w4_cp16(xs(st) + r * LDX + v * 8, xg + (size_t)r * K + v * 8);
+      v += DV;
+      r += DR;
+      if (v >= VPR) {
+        v -= VPR;
+        ++r;
+      }
+    }
+    // packed row j, 16-byte chunk c at chunk c ^ ((j >> 1) & 3)
+    for (int i = tid; i < HALF * 4; i += 128) {
+      const int j = i >> 2, c = i & 3;
+      w4_cp16(wsl(st) + j * 64 + ((c ^ ((j >> 1) & 3)) << 4),
+              wp + (size_t)(g * HALF + j) * N + n0 + c * 16);
+    }
+    if (tid < 16) w4_cp16(ssl(st) + tid * 4, ws + (size_t)g * N + n0 + tid * 4);
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n_groups) stage(s, s);
+    w4_commit();
+  }
+  float acc[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
+
+  for (int g = 0; g < n_groups; ++g) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(S - 2));
+    __syncthreads();  // group g visible to all; group g - 1 fully consumed
+    if (g + S - 1 < n_groups) stage((g + S - 1) % S, g + S - 1);
+    w4_commit();
+    const int st = g % S;
+    const float se = ssl(st)[16 * warp + 2 * gid], so = ssl(st)[16 * warp + 2 * gid + 1];
+    unsigned raw[KS];
+    const int8_t* wb = wsl(st);
+    // lane's row of packed block i: 8 i + (lane & 7) (x4: + 8 (lane >> 3)),
+    // its 16 bytes at chunk warp ^ ((row >> 1) & 3)
+    constexpr int K4 = KS / 4 * 4;
+#pragma unroll
+    for (int i = 0; i < K4; i += 4) {
+      const int row = 8 * i + lane;
+      w4_ldsm_x4_t(raw + i, wb + row * 64 + ((warp ^ ((row >> 1) & 3)) << 4));
+    }
+#pragma unroll
+    for (int i = K4; i < KS; ++i) {
+      const int row = 8 * i + (lane & 7);
+      w4_ldsm_x1_t(raw + i, wb + row * 64 + ((warp ^ ((row >> 1) & 3)) << 4));
+    }
+    unsigned be[2 * KS], bo[2 * KS];
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      w4_deq(raw[i], 0, se, so, be[i], bo[i]);
+      w4_deq(raw[i], 4, se, so, be[KS + i], bo[KS + i]);
+    }
+    float p[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[mt][t][e] = 0.f;
+    const __nv_bfloat16* xb = xs(st);
+#pragma unroll
+    for (int s16 = 0; s16 < KS; ++s16) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        unsigned a[4];
+        if (RM == 8) {
+          w4_ldsm_x2(a[0], a[2], xb + (lane & 7) * LDX + 16 * s16 + ((lane >> 3) & 1) * 8);
+          a[1] = a[3] = 0u;
+        } else {
+          w4_ldsm_x4(a, xb + (16 * mt + (lane & 15)) * LDX + 16 * s16 + (lane >> 4) * 8);
+        }
+        mma_bf16(p[mt][0], a, be[2 * s16], be[2 * s16 + 1]);
+        mma_bf16(p[mt][1], a, bo[2 * s16], bo[2 * s16 + 1]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][t][e] = __fadd_rn(acc[mt][t][e], p[mt][t][e]);
+  }
+  // tile t, MMA column 2 tig + (e & 1) is column 4 tig + 2 (e & 1) + t
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * mt + gid + 8 * (e >> 1);
+        if (row < M)
+          out[(size_t)row * N + n0 + 16 * warp + 4 * tig + 2 * (e & 1) + t] =
+              __float2bfloat16_rn(acc[mt][t][e]);
+      }
+}
+
+template <int RM, int KS>
+static int launch_col(const void* x, const void* wp, const void* ws, void* out, int M, int N,
+                      int K, cudaStream_t st) {
+  const size_t smem = w4c_smem_bytes(RM, 16 * KS);
+  cudaError_t e = cudaFuncSetAttribute(w4a16_col_kernel<RM, KS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(w4a16_col_kernel<RM, KS>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (e != cudaSuccess) return (int)e;
+  w4a16_col_kernel<RM, KS><<<N / 64, 128, smem, st>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)wp, (const float*)ws, (__nv_bfloat16*)out, M, N,
+      K);
+  return (int)cudaGetLastError();
+}
+
+template <int RM, int KS>
+static int launch_decode(const void* x, const void* wp, const void* ws, void* out, int M, int N,
+                         int K, cudaStream_t st) {
+  const size_t smem = w4d_smem_bytes(RM, 16 * KS);
+  cudaError_t e = cudaFuncSetAttribute(w4a16_decode_kernel<RM, KS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // all of the SM's shared memory as such: as many blocks an SM as fit
+  e = cudaFuncSetAttribute(w4a16_decode_kernel<RM, KS>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (e != cudaSuccess) return (int)e;
+  w4a16_decode_kernel<RM, KS><<<N / 16, 32 * W4D_WARPS, smem, st>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)wp, (const float*)ws, (__nv_bfloat16*)out, M, N,
+      K);
+  return (int)cudaGetLastError();
+}
+
+template <int RM>
+static int launch_rows(const void* x, const void* wp, const void* ws, void* out, int M, int N,
+                       int K, int G, cudaStream_t st) {
+  if (N >= W4D_COL_N) {
+    switch (G / 16) {
+      case 1: return launch_col<RM, 1>(x, wp, ws, out, M, N, K, st);
+      case 2: return launch_col<RM, 2>(x, wp, ws, out, M, N, K, st);
+      case 3: return launch_col<RM, 3>(x, wp, ws, out, M, N, K, st);
+      case 4: return launch_col<RM, 4>(x, wp, ws, out, M, N, K, st);
+      case 5: return launch_col<RM, 5>(x, wp, ws, out, M, N, K, st);
+      case 6: return launch_col<RM, 6>(x, wp, ws, out, M, N, K, st);
+      case 7: return launch_col<RM, 7>(x, wp, ws, out, M, N, K, st);
+      default: return launch_col<RM, 8>(x, wp, ws, out, M, N, K, st);
+    }
+  }
+  switch (G / 16) {
+    case 1: return launch_decode<RM, 1>(x, wp, ws, out, M, N, K, st);
+    case 2: return launch_decode<RM, 2>(x, wp, ws, out, M, N, K, st);
+    case 3: return launch_decode<RM, 3>(x, wp, ws, out, M, N, K, st);
+    case 4: return launch_decode<RM, 4>(x, wp, ws, out, M, N, K, st);
+    case 5: return launch_decode<RM, 5>(x, wp, ws, out, M, N, K, st);
+    case 6: return launch_decode<RM, 6>(x, wp, ws, out, M, N, K, st);
+    case 7: return launch_decode<RM, 7>(x, wp, ws, out, M, N, K, st);
+    default: return launch_decode<RM, 8>(x, wp, ws, out, M, N, K, st);
+  }
+}
+
+// Dynamic shared memory of the launch for (M, N, G); the contract mirrors it.
+extern "C" int w4a16_smem_bytes(int M, int N, int G) {
+  if (M > W4D_M_MAX) return (int)sizeof(W4Smem);
+  const int rm = w4d_rows(M);
+  if (N >= W4D_COL_N) return (int)w4c_smem_bytes(rm, G);
+  return (int)w4d_smem_bytes(rm, G);
+}
+
 // x (M, K) bf16, wp (K/2, N) int8, ws (K/G, N) f32, out (M, N) bf16, all
 // contiguous and 16-byte aligned; N % 64 == 0, K % G == 0, G % 16 == 0,
 // G <= 128 (contracts.validate_w4a16). Returns the cudaError of the launch.
 extern "C" int w4a16_gemm(const void* x, const void* wp, const void* ws, void* out, int M,
                           int N, int K, int G, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (M <= 8) return launch_rows<8>(x, wp, ws, out, M, N, K, G, st);
+  if (M <= 16) return launch_rows<16>(x, wp, ws, out, M, N, K, G, st);
+  if (M <= W4D_M_MAX) return launch_rows<32>(x, wp, ws, out, M, N, K, G, st);
   const size_t smem = sizeof(W4Smem);
   cudaError_t e = cudaFuncSetAttribute(w4a16_gemm_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(N / W4_BN, (M + W4_BM - 1) / W4_BM);
-  w4a16_gemm_kernel<<<grid, W4_THREADS, smem, (cudaStream_t)stream>>>(
+  w4a16_gemm_kernel<<<grid, W4_THREADS, smem, st>>>(
       (const __nv_bfloat16*)x, (const int8_t*)wp, (const float*)ws, (__nv_bfloat16*)out, M, N,
       K, G);
   return (int)cudaGetLastError();

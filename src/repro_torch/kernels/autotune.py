@@ -1,4 +1,4 @@
-"""Shape regimes and block choice for the Hopper dual-component kernels.
+"""Shape regimes and block choice for the Hopper kernels.
 
 * :data:`DECODE_M_MAX` splits the two regimes, as in the JAX package:
   M <= 8 runs the decode-shaped GEMV, larger M the prefill GEMM.
@@ -19,10 +19,27 @@
   ``GEMM_SPLIT_M`` rows. Either gives every output the same f32 chain (K
   groups, then V groups, ascending), so an output row's bits never depend
   on how many rows share its launch.
-* :func:`w4a16_blocks` is the weight-only kernel's tile: 64 x 64 outputs,
-  one scale group a K step, the same for every M. There is no split-K or
-  other schedule keyed on M, so an output row's bits never depend on how
-  many rows share its launch (``contracts.validate_w4a16`` judges tiling).
+* :func:`w4a16_blocks` is what the weight-only kernel's contract judges a
+  shape by: 64-column units of N, one scale group a K step, for every M.
+  Its schedule has three shapes. Up to ``W4A16_DECODE_M`` rows and N below
+  ``W4A16_DECODE_COL_N``, a block takes ``W4A16_DECODE_N`` = 16 columns and
+  splits K over its ``W4A16_DECODE_WARPS`` = 8 warps, each warp taking
+  every 8th scale group through its own ring of ``W4A16_DECODE_STAGES``
+  slots; the warps park each group's f32 term and one
+  thread per output adds them in ascending group order. Wider N (gate /
+  up): a block of four warps takes 64 columns, one warp each 16, and walks
+  all groups with one ring of ``W4A16_COL_STAGES`` slots, each output's
+  chain in one thread's registers. Larger M runs the 64 x 64 tile, one
+  block walking all groups. All three take each group's term by the same
+  MMA sequence (x as A, k16 steps ascending from zero) and add the terms to
+  one f32 chain per output in ascending order, so an output row's bits
+  never depend on M or on which schedule ran it.
+* :data:`PAGED_CHUNK` is the paged decode kernel's split of the key range:
+  one block per chunk of 256 absolute positions (four 64-key tiles), a
+  fixed grid that never depends on the row, sq or the launch, so stacked
+  draft rows keep the bits of sequential one-row launches. At llama3-8b's
+  decode batch (8 slots of up to 2048 keys) it gives about 200 working
+  blocks for 132 SMs.
 
 A measured, persisted tune cache waits for a later change; when it comes it
 keeps its own directory, apart from the reference's ``artifacts/tune/``.
@@ -32,8 +49,9 @@ from __future__ import annotations
 
 __all__ = ["DECODE_M_MAX", "GEMM_BLOCK_M", "GEMM_BLOCK_N", "GEMM_SPLIT_M", "GEMM_SPLIT_TILE",
            "GEMM_STAGES", "GEMM_TEAMS", "GEMM_TILE", "GEMV_BLOCK_N", "GEMV_STAGES", "GEMV_TILE_N",
-           "GEMV_WARPS", "W4A16_BLOCK_M", "W4A16_BLOCK_N", "hopper_blocks", "regime",
-           "w4a16_blocks"]
+           "GEMV_WARPS", "PAGED_CHUNK", "PAGED_TILE", "W4A16_BLOCK_M", "W4A16_BLOCK_N",
+           "W4A16_COL_STAGES", "W4A16_DECODE_COL_N", "W4A16_DECODE_M", "W4A16_DECODE_N",
+           "W4A16_DECODE_STAGES", "W4A16_DECODE_WARPS", "hopper_blocks", "regime", "w4a16_blocks"]
 
 DECODE_M_MAX = 8
 GEMV_BLOCK_N = 32
@@ -49,6 +67,14 @@ GEMM_STAGES = 4
 GEMM_SPLIT_M = 64
 W4A16_BLOCK_M = 64
 W4A16_BLOCK_N = 64
+W4A16_DECODE_M = 32
+W4A16_DECODE_N = 16
+W4A16_DECODE_STAGES = 2
+W4A16_DECODE_WARPS = 8
+W4A16_DECODE_COL_N = 8192
+W4A16_COL_STAGES = 4
+PAGED_TILE = 64
+PAGED_CHUNK = 256
 
 
 def regime(m: int) -> str:
@@ -64,5 +90,7 @@ def hopper_blocks(m: int, group: int) -> tuple[int, int, int]:
 
 
 def w4a16_blocks(group: int) -> tuple[int, int, int]:
-    """(block_m, block_n, block_k) of the weight-only CUDA launch, any M."""
+    """(block_m, block_n, block_k) the weight-only launch's contract judges
+    any M by."""
     return (W4A16_BLOCK_M, W4A16_BLOCK_N, group)
+

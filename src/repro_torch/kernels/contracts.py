@@ -14,14 +14,17 @@
 * :func:`check_w4a16_pack` — the same for a weight-only (``wp``, ``ws``)
   pair; :func:`validate_w4a16` — what the weight-only CUDA kernel tiles: N
   in whole 64-column blocks, groups that are whole 16-deep MMA steps and fit
-  its shared tile, and its shared memory against the budget (M is covered by
-  a guarded grid, so any M >= 1 launches).
+  its shared tile, and its shared memory against the budget for the regime
+  M selects (:func:`w4a16_launch`; M is covered by a guarded grid, so any
+  M >= 1 launches).
 * :func:`check_paged_decode_args` / :func:`check_ragged_args` — shape
   consistency of a block-table attention call, run at its dispatch entry.
 * :func:`validate_paged_decode` / :func:`validate_ragged_attention` — what
   the CUDA attention kernels take: GQA grouping, head dims in whole 16-byte
   loads, at most ``ATT_QV_MAX`` query vectors a block, pages of at most
-  ``ATT_PAGE_MAX`` rows, and their shared memory against the budget.
+  ``ATT_PAGE_MAX`` rows, and each kernel's shared memory against the
+  budget; for the paged kernel also its key-range chunk (whole 64-key
+  tiles) and its scratch (:func:`paged_scratch_floats`).
 * :func:`check_ragged_rows` — the ragged kernel's row contract (each slot
   one contiguous run of consecutive positions from its ``ctx``), checked on
   the host while the metadata is still numpy.
@@ -36,7 +39,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.autotune import (GEMM_SPLIT_TILE, GEMM_STAGES, GEMM_TEAMS, GEMM_TILE,
-                                          GEMV_STAGES, GEMV_TILE_N, GEMV_WARPS)
+                                          GEMV_STAGES, GEMV_TILE_N, GEMV_WARPS, PAGED_CHUNK,
+                                          PAGED_TILE, W4A16_COL_STAGES, W4A16_DECODE_COL_N,
+                                          W4A16_DECODE_M, W4A16_DECODE_N,
+                                          W4A16_DECODE_STAGES, W4A16_DECODE_WARPS)
 
 __all__ = [
     "ATT_PAGE_MAX",
@@ -54,6 +60,8 @@ __all__ = [
     "divisible",
     "gemm_smem_bytes",
     "gemv_smem_bytes",
+    "paged_scratch_floats",
+    "paged_smem_bytes",
     "validate_dual_gemm",
     "validate_dual_gemm_group",
     "validate_dual_gemv",
@@ -61,6 +69,7 @@ __all__ = [
     "validate_paged_decode",
     "validate_ragged_attention",
     "validate_w4a16",
+    "w4a16_launch",
     "w4a16_smem_bytes",
 ]
 
@@ -113,12 +122,37 @@ def gemm_smem_bytes() -> int:
     return max(tile, split)
 
 
-def w4a16_smem_bytes() -> int:
-    """Dynamic shared memory of the weight-only GEMM block (``W4Smem`` in
-    ``csrc/w4a16_gemm.cu``): two x tiles and two groups of packed rows and
-    scales in flight, one dequantized bf16 group."""
+def _w4a16_decode_smem(rows: int, group: int, warps: int) -> int:
+    slot = rows * (group + 8) * 2 + (group // 2) * W4A16_DECODE_N + W4A16_DECODE_N * 4
+    return warps * W4A16_DECODE_STAGES * slot + 2 * warps * rows * W4A16_DECODE_N * 4
+
+
+def w4a16_launch(m: int, n: int, group: int) -> tuple[int, int]:
+    """(warps, dynamic shared memory bytes) of the weight-only GEMM launch
+    for (M, N, G), as ``csrc/w4a16_gemm.cu`` picks them. Decode regime (M <=
+    ``W4A16_DECODE_M``), N >= ``W4A16_DECODE_COL_N``: four warps sharing one
+    ring of ``W4A16_COL_STAGES`` slots (x rows, 64 columns of packed rows,
+    their scales). Narrower N: slots of 8, 16 or 32 x rows, each of the
+    ``W4A16_DECODE_WARPS`` warps a ring of ``W4A16_DECODE_STAGES`` slots of x
+    rows, the block's 16 columns of packed rows and their scales, and two
+    rounds of parked terms. Prefill: the 64 x 64
+    tile's ``W4Smem`` (two x tiles, two groups of packed rows and scales, one
+    dequantized bf16 group)."""
+    if m <= W4A16_DECODE_M:
+        rows = 8 if m <= 8 else 16 if m <= 16 else 32
+        if n >= W4A16_DECODE_COL_N:  # 64 columns a block, one warp per 16, no K split
+            slot = rows * (group + 8) * 2 + (group // 2) * 64 + 64 * 4
+            return 4, W4A16_COL_STAGES * slot
+        return W4A16_DECODE_WARPS, _w4a16_decode_smem(rows, group, W4A16_DECODE_WARPS)
     bm, bn = 64, 64
-    return 2 * bm * (_GMAX + 8) * 2 + 2 * (_GMAX // 2) * bn + 2 * bn * 4 + _GMAX * (bn + 8) * 2
+    return 4, (2 * bm * (_GMAX + 8) * 2 + 2 * (_GMAX // 2) * bn + 2 * bn * 4
+               + _GMAX * (bn + 8) * 2)
+
+
+def w4a16_smem_bytes(m: int, n: int, group: int) -> int:
+    """Dynamic shared memory of the weight-only GEMM launch for (M, N, G)
+    (``w4a16_smem_bytes`` in ``csrc/w4a16_gemm.cu``)."""
+    return w4a16_launch(m, n, group)[1]
 
 
 def _smem(kind: str, nbytes: int) -> None:
@@ -192,7 +226,8 @@ def validate_w4a16(m: int, n: int, k: int, group: int, block_m: int, block_n: in
     covers M with guarded tiles (any M >= 1, no padding), N in whole
     ``block_n`` tiles, K in whole ``block_k`` steps of whole scale groups;
     groups are whole 16-deep MMA steps and fit the kernel's shared tile; the
-    block's shared memory fits the 227 KB budget."""
+    block's shared memory (decode or prefill regime, by M) fits the 227 KB
+    budget."""
     if m < 1:
         raise ContractError(f"[{kind}] M={m} must be positive")
     hint = "the grid's tiles must cover the operand exactly"
@@ -204,7 +239,7 @@ def validate_w4a16(m: int, n: int, k: int, group: int, block_m: int, block_n: in
               hint="a group is whole 16-deep MMA steps (and pairs its nibble rows)")
     if group > _GMAX:
         raise ContractError(f"[{kind}] group={group} exceeds the kernel's largest group {_GMAX}")
-    _smem(kind, w4a16_smem_bytes())
+    _smem(kind, w4a16_smem_bytes(m, n, group))
 
 
 # ---------------------------------------------------------------------------
@@ -315,10 +350,41 @@ def check_w4a16_pack(wp, ws, k: int, group: int, *, kind: str = "w4a16") -> None
 
 
 def attn_smem_bytes(page: int, hd: int) -> int:
-    """Dynamic shared memory of an attention block: the f32 query panel,
-    two buffers of a K and a V tile in bf16, and the tiles' key flags
+    """Dynamic shared memory of a ragged-attention block: the f32 query
+    panel, two buffers of a K and a V tile in bf16, and the tiles' key flags
     (``attn_smem_bytes`` in ``csrc/attention_common.cuh``)."""
     return ATT_QV_MAX * hd * 4 + 2 * 2 * page * hd * 2 + 2 * page * 4
+
+
+_PAGED_CHUNK_MAX = 512  # longest key chunk the paged kernel's shared block table spans
+_SM_SMEM_BYTES = 233_472  # shared memory of one H100 SM (1 KB reserved a block)
+
+
+def _paged_smem(hd: int, nt: int, stages: int) -> int:
+    ld = (hd + 15) // 16 * 16 + 8  # bf16 row of the K, V and query tiles
+    tile = PAGED_TILE
+    return (stages * 2 * tile * ld * 2 + 8 * nt * ld * 2 + 8 * nt * (tile + 4) * 4
+            + 2 * 8 * nt * (tile + 8) * 2 + stages * tile * 4 + ATT_QV_MAX * 4 + 516 * 4)
+
+
+def paged_smem_bytes(hd: int, nqv: int) -> int:
+    """Dynamic shared memory of a paged-decode split block for head dim
+    ``hd`` and ``nqv`` query vectors (``paged_decode_smem_bytes`` in
+    ``csrc/paged_attention.cu``): a ring of K and V tiles (three stages where
+    two such blocks fit an SM, else two), the bf16 query tile, f32 scores
+    and bf16 hi / lo probabilities of ``ceil(nqv / 8)`` n8 tiles of vectors,
+    key flags, the per-vector factors and the chunk's block-table entries."""
+    nt = (nqv + 7) // 8
+    three = _paged_smem(hd, nt, 3)
+    return three if 2 * (three + 1024) <= _SM_SMEM_BYTES else _paged_smem(hd, nt, 2)
+
+
+def paged_scratch_floats(b: int, sq: int, h: int, kvh: int, hd: int, maxp: int, page: int,
+                         chunk: int = PAGED_CHUNK) -> int:
+    """f32 scratch of a paged-decode launch: each (slot, KV head, chunk,
+    query vector)'s partial accumulator (hd) and its (m, l)."""
+    nc = -(-maxp * page // chunk)
+    return b * kvh * nc * sq * (h // kvh) * (hd + 2)
 
 
 def _attn_common(kind: str, h: int, kvh: int, hd: int, page: int, maxp: int) -> None:
@@ -336,15 +402,17 @@ def _attn_common(kind: str, h: int, kvh: int, hd: int, page: int, maxp: int) -> 
         raise ContractError(f"[{kind}] page_size={page} outside [1, {ATT_PAGE_MAX}]")
     if maxp < 1:
         raise ContractError(f"[{kind}] max_pages={maxp} must be positive")
-    _smem(kind, attn_smem_bytes(page, hd))
 
 
 def validate_paged_decode(b: int, sq: int, h: int, kvh: int, hd: int, maxp: int, page: int,
-                          *, decode_m_max: int = 8, kind: str = "paged_decode") -> None:
-    """Contract for the paged decode-attention launch: one block per (slot,
-    KV head) holds all ``sq`` rows of its ``h // kvh`` query heads, so
-    ``sq`` is bounded by the decode panel and ``sq * h // kvh`` by the
-    block's query vectors; the sequence length never enters."""
+                          *, decode_m_max: int = 8, chunk: int = PAGED_CHUNK,
+                          kind: str = "paged_decode") -> None:
+    """Contract for the paged decode-attention launch: a split block per
+    (chunk of ``chunk`` key positions, KV head, slot) holds all ``sq`` rows
+    of its ``h // kvh`` query heads, so ``sq`` is bounded by the decode
+    panel and ``sq * h // kvh`` by the block's query vectors; the chunk is
+    whole 64-key tiles; the block's shared memory fits the budget. The
+    sequence length sets only the grid and the scratch."""
     if b < 1:
         raise ContractError(f"[{kind}] B={b} slots must be positive")
     if not 1 <= sq <= decode_m_max:
@@ -356,6 +424,12 @@ def validate_paged_decode(b: int, sq: int, h: int, kvh: int, hd: int, maxp: int,
     if sq * (h // kvh) > ATT_QV_MAX:
         raise ContractError(f"[{kind}] sq * H/KV = {sq * (h // kvh)} query vectors exceed "
                             f"the block's {ATT_QV_MAX}")
+    if not PAGED_TILE <= chunk <= _PAGED_CHUNK_MAX:
+        raise ContractError(f"[{kind}] chunk={chunk} outside [{PAGED_TILE}, {_PAGED_CHUNK_MAX}] "
+                            "keys (one tile .. the block table a block stages)")
+    divisible(chunk, PAGED_TILE, "chunk % tile", kind=kind,
+              hint="a chunk is whole 64-key tiles at fixed absolute positions")
+    _smem(kind, paged_smem_bytes(hd, sq * (h // kvh)))
 
 
 def validate_ragged_attention(t: int, h: int, kvh: int, hd: int, b: int, maxp: int, page: int,
@@ -366,6 +440,7 @@ def validate_ragged_attention(t: int, h: int, kvh: int, hd: int, b: int, maxp: i
     if t < 1 or b < 1:
         raise ContractError(f"[{kind}] T={t} rows and B={b} slots must be positive")
     _attn_common(kind, h, kvh, hd, page, maxp)
+    _smem(kind, attn_smem_bytes(page, hd))
 
 
 def check_paged_decode_args(q, kp, vp, kt, vt, bt, pos, *, kind: str = "paged_decode") -> None:

@@ -15,11 +15,14 @@ stack. With ``commit=True`` the rows are also written into their tail pages.
   dense-cache decode (``models/common.attention_decode_ro``) bit for bit
   and row ``i`` of a stack equals a sequential launch at ``pos + i``.
 * :func:`paged_decode_kernel` launches the kernel for CUDA tensors and runs
-  the plain version for CPU tensors. The kernel accumulates in f32 with an
-  online softmax, so it agrees with the plain version to bf16 tolerance,
-  and its own stacked rows equal its sequential launches bit for bit. Its
-  commit updates the caller's pools in place; the plain version returns
-  updated copies.
+  the plain version for CPU tensors. The kernel splits each slot's keys
+  into chunks of ``PAGED_CHUNK`` absolute positions (one block each, f32
+  partials in a scratch this wrapper allocates) and folds the chunks in
+  ascending order, then the self term, in a second launch. It accumulates
+  in f32 with an online softmax, so it agrees with the plain version to
+  bf16 tolerance, and its own stacked rows equal its sequential launches
+  bit for bit. Its commit updates the caller's pools in place; the plain
+  version returns updated copies.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.autotune import DECODE_M_MAX
-from repro_torch.kernels.contracts import validate_paged_decode
+from repro_torch.kernels.autotune import DECODE_M_MAX, PAGED_CHUNK
+from repro_torch.kernels.contracts import paged_scratch_floats, validate_paged_decode
 from repro_torch.kernels.cuda_launch import device_operand, run_kernel
 
 __all__ = ["gather_pages", "paged_decode_kernel", "paged_decode_ref", "pool_rows",
@@ -37,8 +40,9 @@ __all__ = ["gather_pages", "paged_decode_kernel", "paged_decode_ref", "pool_rows
 
 _NEG = -1e30
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# (q, kp, vp, kt, vt, bt, pos, out, B, sq, H, KV, hd, maxp, page, scale, commit)
-_ARGS = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I]
+# (q, kp, vp, kt, vt, bt, pos, out, scratch, B, sq, H, KV, hd, maxp, page, chunk, scale,
+#  commit)
+_ARGS = [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I]
 
 
 def pool_rows(bt: torch.Tensor, slot: torch.Tensor, pos: torch.Tensor, page: int,
@@ -147,8 +151,10 @@ def paged_decode_kernel(q, kp, vp, kt, vt, bt, pos, *, commit: bool = True):
     bt_, pos_ = (device_operand("paged_decode", x.to(torch.int32), torch.int32, n, dev)
                  for x, n in ((bt, "bt"), (pos, "pos")))
     out = torch.empty((b, sq, h, hd), dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(paged_scratch_floats(b, sq, h, kv, hd, maxp, page, PAGED_CHUNK),
+                          dtype=torch.float32, device=dev)
     args = [q_.data_ptr(), kp.data_ptr(), vp.data_ptr(), kt_.data_ptr(), vt_.data_ptr(),
-            bt_.data_ptr(), pos_.data_ptr(), out.data_ptr(),
-            b, sq, h, kv, hd, maxp, page, float(hd ** -0.5), int(commit)]
+            bt_.data_ptr(), pos_.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            b, sq, h, kv, hd, maxp, page, PAGED_CHUNK, float(hd ** -0.5), int(commit)]
     run_kernel("paged_decode_kernel", "paged_attention", "paged_decode", _ARGS, args, dev)
     return (out, kp, vp) if commit else out

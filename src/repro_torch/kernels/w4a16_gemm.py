@@ -4,8 +4,12 @@ CUDA kernel in ``csrc/w4a16_gemm.cu``.
 For a CUDA tensor :func:`w4a16_gemm` launches the kernel (or raises); for a
 CPU tensor it runs the plain version ``ref.w4a16_gemm_ref``, which the
 kernel follows but for the order of the sum inside a scale group. The kernel
-guards the ragged M edge itself, so no padding copy is made, and it runs one
-K schedule for every M. Launches are counted under ``w4a16_gemm``.
+guards the ragged M edge itself, so no padding copy is made. It picks its
+schedule by M and N (``autotune.W4A16_DECODE_M``, ``W4A16_DECODE_COL_N``):
+decode-sized M splits K across a block's warps, or, for wide N, gives each
+warp 16 columns of a 64-column block; larger M runs 64 x 64 tiles. All give
+a row the same bits. Launches are counted under ``w4a16_gemm``, one per
+call.
 """
 
 from __future__ import annotations

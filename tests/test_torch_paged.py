@@ -269,6 +269,37 @@ def test_validate_paged_decode_contract():
         validate_paged_decode(8, 1, 32, 8, 512, 128, 16)
 
 
+@pytest.mark.parametrize("model", ["llama3-8b", "qwen3-8b"])
+def test_paged_decode_contract_chunk_smem_and_scratch(model):
+    """The split-KV kernel's contract: every decode (sq = 1) and verify (sq
+    up to 8) shape of llama3-8b / qwen3-8b passes, with the split block's
+    shared memory inside the budget (three stages where two blocks fit an
+    SM: sq = 1; two for the wider query tiles) and a scratch of one f32
+    partial (hd + 2) per (slot, KV head, chunk, query vector); the chunk is
+    whole 64-key tiles, one tile at least, at most the block table a block
+    stages."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.autotune import PAGED_CHUNK, PAGED_TILE
+    from repro_torch.kernels.contracts import (SMEM_BUDGET_BYTES, paged_scratch_floats,
+                                               paged_smem_bytes)
+
+    c = get_config(model)
+    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    assert PAGED_CHUNK % PAGED_TILE == 0
+    for sq in range(1, 9):
+        validate_paged_decode(8, sq, h, kv, hd, 128, 16)
+        assert paged_smem_bytes(hd, sq * h // kv) <= SMEM_BUDGET_BYTES
+    assert 2 * (paged_smem_bytes(hd, h // kv) + 1024) <= 233_472  # two decode blocks an SM
+    nc = 128 * 16 // PAGED_CHUNK
+    assert paged_scratch_floats(8, 4, h, kv, hd, 128, 16) == 8 * kv * nc * 4 * (h // kv) * (hd + 2)
+    for chunk, ok in ((PAGED_TILE, True), (512, True), (96, False), (32, False), (576, False)):
+        if ok:
+            validate_paged_decode(8, 1, h, kv, hd, 128, 16, chunk=chunk)
+        else:
+            with pytest.raises(ContractError, match="chunk"):
+                validate_paged_decode(8, 1, h, kv, hd, 128, 16, chunk=chunk)
+
+
 # ---------------------------------------------------------------------------
 # one model step against the reference
 # ---------------------------------------------------------------------------

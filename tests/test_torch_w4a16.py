@@ -226,6 +226,40 @@ def test_validate_w4a16_contract():
             validate_w4a16(*args)
 
 
+@pytest.mark.parametrize("m", [1, 8, 32, 256, 512])
+@pytest.mark.parametrize("model", ["llama3-8b", "qwen3-8b"])
+def test_w4a16_model_shapes_route_and_fit(model, m):
+    """Every W4A16 linear of llama3-8b / qwen3-8b at M in {1, 8, 32, 256,
+    512} routes to the kernel (path ``prefill``, code ``ok``) as before, and
+    the launch the kernel picks for it fits the 227 KB block budget: up to
+    32 rows the K-split schedule (8 warps) below 8192 columns and the
+    column-split one (4 warps) from there, above 32 rows the 64 x 64 tile."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.autotune import W4A16_DECODE_COL_N, W4A16_DECODE_M
+    from repro_torch.kernels.contracts import SMEM_BUDGET_BYTES, w4a16_launch
+
+    c = get_config(model)
+    q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    for k, n in ((c.d_model, q), (c.d_model, kv), (q, c.d_model), (c.d_model, c.d_ff),
+                 (c.d_ff, c.d_model)):
+        rt = TDisp.classify_w4a16(m, n, k, 128)
+        assert (rt.path, rt.code) == ("prefill", "ok"), (k, n)
+        warps, smem = w4a16_launch(m, n, 128)
+        assert smem <= SMEM_BUDGET_BYTES
+        if m <= W4A16_DECODE_M:
+            assert warps == (4 if n >= W4A16_DECODE_COL_N else 8), (k, n)
+
+
+@pytest.mark.parametrize("group", [16, 48, 128])
+def test_validate_w4a16_admits_every_m_and_64_column_n(group):
+    """The contract admits what it did before the decode schedules: any M
+    >= 1 (each regime's edge included), N in whole 64-column units, a group
+    of whole 16-deep steps up to 128; each launch's shared memory fits."""
+    for m in (1, 7, 8, 9, 16, 17, 31, 32, 33, 64, 1000):
+        for n in (64, 192, 1024, 8128, 8192, 14336):
+            validate_w4a16(m, n, 4 * group, group, 64, 64, group)
+
+
 def test_malformed_w4a16_pack_raises():
     rng = np.random.default_rng(5)
     wp, ws = (_t(a) for a in _pack(rng, 512, 256))
