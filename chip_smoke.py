@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--spec-probe N]
     python3 chip_smoke.py --dual-only      # build + the dual kernels' phase
     python3 chip_smoke.py --timing-only [--src OTHER_TREE/src]
+    python3 chip_smoke.py --ragged-serve [--src OTHER_TREE/src]
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -22,15 +23,19 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    f32 (relative error <= ``W4A16_REL_MAX``, a check two planted faults must
    fail) and to the bf16 plain version at ``W4A16_TOL``, each row
    ``torch.equal`` to a one-row launch, and timed the same way; then the
-   paged-decode (sq 1 and 4, commit on and off; device ms from a CUDA
-   graph) and ragged (T = 256)
-   attention kernels, held to their plain versions at atol 0.03 / rtol 0.05
+   paged-decode (sq 1 and 4, commit on and off) and ragged (T = 256)
+   attention kernels, each split block's shared memory checked against its
+   contract, held to their plain versions at atol 0.03 / rtol 0.05
    (committed pools ``torch.equal``) and, per row and head, to the plain
    version run in f32 (relative error <= ``ATT_REL_MAX``, a check that
-   planted faults at the longest context must fail), timed beside the plain
-   version and SDPA over a dense view, and the paged kernel's stacked rows
-   held ``torch.equal`` to sequential one-row launches (one slot's rows
-   straddling a chunk boundary of its key split);
+   planted faults at the longest context must fail), timed (device ms from
+   a CUDA graph) beside the plain version and SDPA over a dense view; the
+   paged kernel's stacked rows held ``torch.equal`` to sequential one-row
+   launches (one slot's rows straddling a chunk boundary of its key
+   split), and the ragged kernel's rows ``torch.equal`` to two launches
+   with one slot's 200-row chunk cut in two (the first part committed into
+   its pages between them), its decode rows to a launch without the
+   chunks;
 4. serve   — llama3-8b at full width and depth, random weights from seed 0:
    first the bf16 model's ragged-step vs bucketed-prefill logits at several
    depths (gated at full depth), then W4A4 TwinQuant packs (quantized once)
@@ -51,12 +56,14 @@ The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
 
 ``--dual-only`` runs phases 1-2 and the dual kernels' part of phase 3 and
-prints no result line; ``--timing-only`` times the four dual wrappers at
+prints no result line, as does ``--ragged-serve`` (phases 1-2, then
+llama3-8b's W4A16 and W4A4 ragged-mode runs of phase 4 alone); ``--timing-only`` times the four dual wrappers at
 their table cases, ``w4a16_gemm`` at the four llama3-8b shapes and M in
-``W4A16_MS``, and the paged decode kernel at its table case (sq 1 and 4,
-commit off): device ms from a CUDA graph, host µs, CUDA events ms, each
-launch's device µs from ``torch.profiler``, and for the last two one
-library call's device ms (bf16 ``torch.matmul``, SDPA), with ``--src``
+``W4A16_MS``, the paged decode kernel at its table case (sq 1 and 4,
+commit off) and the ragged kernel at its (T = 256): device ms from a CUDA
+graph, host µs, CUDA events ms, each launch's device µs from
+``torch.profiler``, and for the last three one library call's device ms
+(bf16 ``torch.matmul``, SDPA), with ``--src``
 naming another tree's ``src`` to time (a parent commit unpacked with ``git
 archive``).
 """
@@ -380,7 +387,8 @@ def _odd_shapes(gen, device) -> None:
 
 
 # names of the port's CUDA kernels as the profiler shows them
-KERNEL_PREFIXES = ("tq_", "pd_", "w4a16_", "paged_decode", "ragged_attention", "_Z")
+KERNEL_PREFIXES = ("tq_", "pd_", "rg_", "w4a16_", "paged_decode", "ragged_attention",
+                   "_Z")
 
 
 def device_ms(fn, calls: int = 20, replays: int = 5) -> float:
@@ -453,6 +461,7 @@ def timing_phase(device) -> None:
         torch.cuda.empty_cache()
     _timing_w4a16(gen, device)
     _timing_paged(gen, device)
+    _timing_ragged(gen, device)
 
 
 def _timing_w4a16(gen, device) -> None:
@@ -647,6 +656,28 @@ def w4a16_phase(device) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase 3b: the block-table attention kernels at llama3-8b shapes
+def _timing_ragged(gen, device) -> None:
+    import torch
+
+    from repro_torch.kernels.ragged_attention import ragged_attention_kernel
+
+    rc = _ragged_case(gen, torch.Generator().manual_seed(2), device)
+    pools = _pools(gen, device, copies=4)
+    args = [rc[k] for k in ("kt", "vt", "bt", "slot", "pos", "ctx")]
+    it = [0]
+
+    def run():
+        it[0] = (it[0] + 1) % len(pools)
+        ragged_attention_kernel(rc["q"], *pools[it[0]], *args)
+
+    sdpa = _sdpa_ragged(rc, *pools[0])
+    t_b, by = _bound_ragged(rc)
+    _time_case(f"ragged_attention T={rc['T']}   ctx={max(rc['ctx_l'])} bound_ms={t_b:.4f} ({by})",
+               run, lib=sdpa)
+    del pools, sdpa
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 
 ATT = dict(B=8, H=32, KV=8, hd=128, page=16, maxp=128)  # llama3-8b, max_len 2048
@@ -776,20 +807,181 @@ def _bound_attn(nbytes: int, flops: int) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def attention_phase(device) -> dict:
-    """The paged-decode and ragged kernels against their plain versions at
-    llama3-8b shapes, timed beside the plain version and SDPA over a dense
-    view; plus the stacked-vs-sequential identity of the paged kernel."""
+RAGGED_CTX = [1, 250, 777, 1500, 2000, 512, 0, 0]
+RAGGED_RUNS = [1, 1, 1, 1, 1, 200, 40, 0]  # slot 7 idle; 11 pad rows
+RAGGED_CUT = 77  # slot 5's chunk cut for the two-launch check (mid-tile: 8 rows a tile)
+
+
+def _ragged_rows(ctx_l, runs, T):
+    """slot and pos lists of a ragged batch: each slot's run of ``runs[s]``
+    rows from ``ctx_l[s]`` in slot order, then pad rows (slot B)."""
+    B = len(ctx_l)
+    slot_l, pos_l = [], []
+    for s_i, (n0, r) in enumerate(zip(ctx_l, runs)):
+        slot_l += [s_i] * r
+        pos_l += list(range(n0, n0 + r))
+    n_real = len(slot_l)
+    return slot_l + [B] * (T - n_real), pos_l + [0] * (T - n_real), n_real
+
+
+def _ragged_case(gen, cpu_gen, device, T: int = 256) -> dict:
+    """The ragged table case: T = 256 rows of decode rows behind {1 .. 2000}
+    keys, a 200-row chunk behind 512 committed keys, a cold 40-row chunk and
+    pad rows, at llama3-8b's heads; block tables from ``cpu_gen``."""
+    import torch
+
+    from repro_torch.kernels.contracts import check_ragged_rows
+
+    c = ATT
+    B, H, KV, hd = c["B"], c["H"], c["KV"], c["hd"]
+    slot_l, pos_l, n_real = _ragged_rows(RAGGED_CTX, RAGGED_RUNS, T)
+    check_ragged_rows(slot_l, pos_l, RAGGED_CTX)  # (no s_max: a parent tree's takes none)
+
+    def t32(x):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+
+    q, kt, vt = (torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+                 for shape in ((T, H, hd), (T, KV, hd), (T, KV, hd)))
+    return dict(T=T, n_real=n_real, ctx_l=RAGGED_CTX, runs=RAGGED_RUNS, slot_l=slot_l,
+                pos_l=pos_l, q=q, kt=kt, vt=vt, bt=_tables(RAGGED_CTX, RAGGED_RUNS, cpu_gen, device),
+                slot=t32(slot_l), pos=t32(pos_l), ctx=t32(RAGGED_CTX))
+
+
+def _ragged_chunking(rc, kp, vp, y_whole) -> None:
+    """The kernel's rows do not depend on the chunking: the table case
+    launched whole equals, row for row and bit for bit, two launches with
+    slot 5's 200-row chunk cut at ``RAGGED_CUT`` (its first part, with
+    every other row, in the first launch, committed into its pages before
+    the second); its decode rows equal a launch without the chunks."""
+    import torch
+
+    from repro_torch.kernels.contracts import check_ragged_rows
+    from repro_torch.kernels.paged_attention import pool_rows, write_page_rows
+    from repro_torch.kernels.ragged_attention import ragged_attention_kernel
+
+    B = ATT["B"]
+    T, q, kt, vt, bt, slot, pos, ctx = (rc[k] for k in ("T", "q", "kt", "vt", "bt", "slot",
+                                                      "pos", "ctx"))
+    dev = q.device
+    r5 = sum(RAGGED_RUNS[:5])  # slot 5's first row
+    n5 = RAGGED_RUNS[5]
+
+    def launch(rows, ctx_, kp_, vp_):
+        """The kernel on rows ``rows`` of the table case (then pad rows)."""
+        idx = torch.tensor(rows, dtype=torch.long, device=dev)
+        pad = T - len(rows)
+
+        def fill(x, v):
+            return torch.cat([x[idx], torch.full((pad, *x.shape[1:]), v, dtype=x.dtype,
+                                                 device=dev)])
+
+        sl, ps = fill(slot, B), fill(pos, 0)
+        check_ragged_rows(sl.cpu().numpy(), ps.cpu().numpy(), ctx_.cpu().numpy(),
+                          s_max=ATT["maxp"] * ATT["page"])
+        return ragged_attention_kernel(fill(q, 0), kp_, vp_, fill(kt, 0), fill(vt, 0), bt, sl,
+                                       ps, ctx_)
+
+    first = list(range(r5 + RAGGED_CUT)) + list(range(r5 + n5, rc["n_real"]))
+    second = list(range(r5 + RAGGED_CUT, r5 + n5))
+    y1 = launch(first, ctx, kp, vp)
+    kc, vc = kp.clone(), vp.clone()
+    done = torch.arange(r5, r5 + RAGGED_CUT, device=dev)
+    where = pool_rows(bt, slot[done], pos[done], kp.shape[1], kp.shape[0])
+    write_page_rows(kc[None], kt[done][None], where)
+    write_page_rows(vc[None], vt[done][None], where)
+    ctx2 = ctx.clone()
+    ctx2[5] += RAGGED_CUT
+    y2 = launch(second, ctx2, kc, vc)
+    decode = list(range(r5))
+    y3 = launch(decode, ctx, kp, vp)
+    torch.cuda.synchronize()
+    two = torch.empty_like(y_whole[:rc["n_real"]])
+    two[first] = y1[:len(first)]
+    two[second] = y2[:len(second)]
+    one = y_whole[:rc["n_real"]]
+    if not torch.equal(one, two):
+        bad_rows = int((one != two).flatten(1).any(dim=1).sum())
+        fail(f"ragged one launch != two launches with slot 5's chunk cut at {RAGGED_CUT} "
+             f"({bad_rows} of {rc['n_real']} rows differ)")
+    if not torch.equal(y_whole[:r5], y3[:r5]):
+        fail("ragged decode rows differ between the table case and a launch without the chunks")
+    print(f"kernel ragged_attention_kernel one launch == two launches (slot 5's {n5}-row chunk "
+          f"cut at {RAGGED_CUT}, the first part committed between): equal ({rc['n_real']} rows); "
+          f"decode rows == a launch without the chunks: equal ({r5} rows)", flush=True)
+    del kc, vc
+
+
+def _sdpa_ragged(rc, kp, vp):
+    """SDPA over every slot's dense view with the in-batch rows written in,
+    one call with a (T, B*S) mask: a function of no arguments, the ragged
+    kernel's library yardstick."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.contracts import check_ragged_rows
+    c = ATT
+    B, H, KV, hd = c["B"], c["H"], c["KV"], c["hd"]
+    S = c["maxp"] * c["page"]
+    q, kt, vt, bt, slot, pos = (rc[k] for k in ("q", "kt", "vt", "bt", "slot", "pos"))
+    dev = q.device
+    real = slot < B
+    kc = kp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
+    vc = vp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
+    kc[slot.long()[real], pos.long()[real]] = kt[real]
+    vc[slot.long()[real], pos.long()[real]] = vt[real]
+    key_slot = torch.arange(B, device=dev).repeat_interleave(S)
+    key_pos = torch.arange(S, device=dev).repeat(B)
+    mask = (key_slot[None, :] == slot.long()[:, None]) & (key_pos[None, :] <= pos.long()[:, None])
+    q4 = q.transpose(0, 1)[None]
+    k4 = kc.reshape(B * S, KV, hd).transpose(0, 1)[None]
+    v4 = vc.reshape(B * S, KV, hd).transpose(0, 1)[None]
+    try:
+        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    except TypeError:  # torch without enable_gqa: expand the KV heads first
+        k4 = k4.repeat_interleave(H // KV, dim=1)
+        v4 = v4.repeat_interleave(H // KV, dim=1)
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+
+def _bound_ragged(rc) -> tuple[float, str]:
+    """The ragged table case's bound: the committed keys and values of the
+    slots with rows, the rows' q, k, v and output, the metadata, read or
+    written once; the score and P.V operations of every real row."""
+    c = ATT
+    B, H, KV, hd = c["B"], c["H"], c["KV"], c["hd"]
+    T = rc["T"]
+    keys_ctx = sum(n0 for n0, r in zip(rc["ctx_l"], rc["runs"]) if r)
+    nbytes = (2 * keys_ctx * KV * hd * 2 + T * (2 * H + 2 * KV) * hd * 2 + rc["bt"].numel() * 4
+              + T * 8 + B * 4)
+    flops = sum(4 * hd * H * (p + 1) for p, s_i in zip(rc["pos_l"], rc["slot_l"]) if s_i < B)
+    return _bound_attn(nbytes, flops)
+
+
+def attention_phase(device) -> dict:
+    """The paged-decode and ragged kernels against their plain versions at
+    llama3-8b shapes, timed beside the plain version and SDPA over a dense
+    view; plus the stacked-vs-sequential identity of the paged kernel and
+    the one-vs-two-launch identity of the ragged kernel."""
+    import torch
+
+    from repro_torch.kernels import build, contracts
     from repro_torch.kernels.paged_attention import paged_decode_kernel, paged_decode_ref
     from repro_torch.kernels.ragged_attention import ragged_attention_kernel, ragged_attention_ref
 
     c = ATT
-    B, H, KV, hd, page, maxp = c["B"], c["H"], c["KV"], c["hd"], c["page"], c["maxp"]
-    S = maxp * page
+    B, H, KV, hd = c["B"], c["H"], c["KV"], c["hd"]
+    for lib, fn, args, want in (
+            ("paged_attention", "paged_decode_smem_bytes", (hd, H // KV),
+             contracts.paged_smem_bytes(hd, H // KV)),
+            ("paged_attention", "paged_decode_smem_bytes", (hd, 4 * H // KV),
+             contracts.paged_smem_bytes(hd, 4 * H // KV)),
+            ("ragged_attention", "ragged_attention_smem_bytes", (hd,),
+             contracts.ragged_smem_bytes(hd))):
+        got = getattr(build.load(lib), fn)(*args)
+        print(f"kernel {lib} split block dynamic shared memory {got} B at {args}, contracts "
+              f"say {want} B", flush=True)
+        if got != want:
+            fail(f"{lib}: the kernel's shared memory {got} B != the contract's {want} B")
     gen = torch.Generator(device=device).manual_seed(2)
     cpu_gen = torch.Generator().manual_seed(2)
     pools = _pools(gen, device, copies=4)
@@ -798,12 +990,6 @@ def attention_phase(device) -> dict:
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
-
-    def sdpa(q4, k4, v4, mask):
-        try:
-            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
-        except TypeError:  # torch without enable_gqa: expand the KV heads first
-            return None
 
     # -- paged decode: sq = 1 (decode) and 4 (speculative verify), commit on/off
     pos = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
@@ -897,22 +1083,9 @@ def attention_phase(device) -> dict:
 
     # -- ragged: T = 256 rows, decode rows + a chunk behind committed pages +
     #    a cold chunk + pad rows
-    T = 256
-    ctx_l = [1, 250, 777, 1500, 2000, 512, 0, 0]
-    runs = [1, 1, 1, 1, 1, 200, 40, 0]  # slot 7 idle; 11 pad rows
-    slot_l, pos_l = [], []
-    for s_i, (n0, r) in enumerate(zip(ctx_l, runs)):
-        slot_l += [s_i] * r
-        pos_l += list(range(n0, n0 + r))
-    n_real = len(slot_l)
-    slot_l += [B] * (T - n_real)
-    pos_l += [0] * (T - n_real)
-    check_ragged_rows(slot_l, pos_l, ctx_l)
-    slot = torch.tensor(slot_l, dtype=torch.int32, device=device)
-    rpos = torch.tensor(pos_l, dtype=torch.int32, device=device)
-    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=device)
-    bt = _tables(ctx_l, runs, cpu_gen, device)
-    q, kt, vt = rnd(T, H, hd), rnd(T, KV, hd), rnd(T, KV, hd)
+    rc = _ragged_case(gen, cpu_gen, device)
+    q, kt, vt, bt, slot, rpos, ctx = (rc[k] for k in ("q", "kt", "vt", "bt", "slot", "pos", "ctx"))
+    T, n_real = rc["T"], rc["n_real"]
     y_k = ragged_attention_kernel(q, kp, vp, kt, vt, bt, slot, rpos, ctx)
     y_p = ragged_attention_ref(q, kp, vp, kt, vt, bt, slot, rpos, ctx)
     torch.cuda.synchronize()
@@ -930,43 +1103,26 @@ def attention_phase(device) -> dict:
     _planted("ragged: slot 5 reads one wrong page",
              ragged_attention_kernel(q, kp, vp, kt, vt, bad, slot, rpos, ctx), y_p, y32, real)
     del y32
+    _ragged_chunking(rc, kp, vp, y_k)
     it = [0]
 
     def run_r():
         it[0] = (it[0] + 1) % len(pools)
         ragged_attention_kernel(q, *pools[it[0]], kt, vt, bt, slot, rpos, ctx)
 
-    t_k = cuda_ms(run_r, iters=40)
+    t_k = device_ms(run_r)
     t_p = cuda_ms(lambda: ragged_attention_ref(q, kp, vp, kt, vt, bt, slot, rpos, ctx),
                   iters=2, warmup=1)
     # SDPA yardstick: every slot's dense view, in-batch rows written in, one
-    # call over all of them with a (T, B*S) mask
-    kc = kp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
-    vc = vp[bt.long().clamp(min=0)].reshape(B, S, KV, hd).clone()
-    kc[slot.long()[real], rpos.long()[real]] = kt[real]
-    vc[slot.long()[real], rpos.long()[real]] = vt[real]
-    key_slot = torch.arange(B, device=device).repeat_interleave(S)
-    key_pos = torch.arange(S, device=device).repeat(B)
-    mask = (key_slot[None, :] == slot.long()[:, None]) & (key_pos[None, :] <= rpos.long()[:, None])
-    q4 = q.transpose(0, 1)[None]
-    k4 = kc.reshape(B * S, KV, hd).transpose(0, 1)[None]
-    v4 = vc.reshape(B * S, KV, hd).transpose(0, 1)[None]
-    if sdpa(q4, k4, v4, mask) is None:
-        k4 = k4.repeat_interleave(H // KV, dim=1)
-        v4 = v4.repeat_interleave(H // KV, dim=1)
-        t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
-                        iters=10)
-    else:
-        t_lib = cuda_ms(lambda: sdpa(q4, k4, v4, mask), iters=10)
-    del kc, vc, k4, v4, mask
-    keys_ctx = sum(n0 for n0, r in zip(ctx_l, runs) if r)
-    nbytes = (2 * keys_ctx * KV * hd * 2 + T * (2 * H + 2 * KV) * hd * 2 + bt.numel() * 4
-              + T * 8 + B * 4)
-    flops = sum(4 * hd * H * (p + 1) for p, s_i in zip(pos_l, slot_l) if s_i < B)
-    t_b, by = _bound_attn(nbytes, flops)
-    print(f"kernel ragged_attention_kernel T={T} rows={n_real} runs={runs} ctx={ctx_l} close "
-          f"max_abs_err={err:.5f} max_rel={rel:.5f} ms={t_k:.4f} plain_ms={t_p:.4f} "
-          f"sdpa_ms={t_lib:.4f} "
+    # call over all of them with a (T, B*S) mask; timed as the kernel is,
+    # and with CUDA events
+    lib = _sdpa_ragged(rc, kp, vp)
+    t_lib, t_lib_ev = device_ms(lib), cuda_ms(lib, iters=10)
+    del lib
+    t_b, by = _bound_ragged(rc)
+    print(f"kernel ragged_attention_kernel T={T} rows={n_real} runs={rc['runs']} "
+          f"ctx={rc['ctx_l']} close max_abs_err={err:.5f} max_rel={rel:.5f} ms={t_k:.4f} "
+          f"plain_ms={t_p:.4f} sdpa_ms={t_lib:.4f} sdpa_events_ms={t_lib_ev:.4f} "
           f"bound_ms={t_b:.4f} ({by}) share={t_b / t_k:.3f}", flush=True)
     table["ragged_attention_kernel"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
                                             library_ms=t_lib, bound_ms=t_b, bound_by=by)
@@ -1446,6 +1602,68 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
     return launches
 
 
+def ragged_serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2048,
+                       rank: int = 128) -> None:
+    """``cfg`` served in ragged mode alone, W4A16 then W4A4 (the serve
+    phase's runs and checks), so that two trees' ragged steps can be timed
+    in one call (``--ragged-serve``, with ``--src`` for the other tree)."""
+    import numpy as np
+
+    from repro_torch.configs import QuantSpec
+    from repro_torch.core.twinquant import fuse_params, quantize_params
+    from repro_torch.models import dense
+
+    print(f"serve config {cfg.name} n_layers={cfg.n_layers} card=\"{card}\" src={SRC}", flush=True)
+    params = dense.init_params(cfg, seed=0, device=device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
+    w16 = Served("w4a16", cfg, quantize_params(params, cfg, QuantSpec("w4a16")), "w4a16",
+                 prompts, device, max_len)
+    w16.serve("ragged")
+    _profile_ragged(w16)
+    del w16
+    qp = fuse_params(quantize_params(params, cfg, QuantSpec("w4a4", rank=rank, group_size=128)))
+    del params
+    w4 = Served("w4a4", cfg, qp, "w4a4", prompts, device, max_len)
+    w4.serve("ragged")
+    _profile_ragged(w4)
+
+
+# kernel groups of a ragged step's device time (profiler key prefixes)
+STEP_GROUPS = {"attention": ("rg_", "ragged_attention"), "linears": ("tq_", "w4a16_")}
+
+
+def _profile_ragged(served) -> None:
+    """The same ragged-mode run once more under ``torch.profiler``: device
+    time per engine step of the attention kernel, of the quantized linears
+    and of every kernel (the rest: PyTorch's own), from ``key_averages()``
+    (not printed off the card, or when the profiler shows no device
+    time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if served.device.type != "cuda":
+        return
+    eng, reqs = served.engine("ragged"), served.requests()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+    steps = eng.stats["decode_steps"]
+    total, groups = 0.0, dict.fromkeys(STEP_GROUPS, 0.0)
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if not t or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        total += t
+        key = e.key.replace("void ", "")
+        for g, prefixes in STEP_GROUPS.items():
+            if key.startswith(prefixes):
+                groups[g] += t
+    per = {g: round(t / steps / 1e3, 4) for g, t in groups.items()}
+    print(f"serve {served.tag} ragged profiled device ms per step: {json.dumps(per)} "
+          f"all_kernels={total / steps / 1e3:.4f} steps={steps}", flush=True)
+
+
 def qwen_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2048,
                rank: int = 128) -> None:
     """The paper's second model at full width and ``cfg``'s (cut) depth, in
@@ -1497,6 +1715,8 @@ def main() -> None:
     ap.add_argument("--timing-only", action="store_true",
                     help="build, then time the dual, w4a16 and paged wrappers at their "
                          "table cases alone")
+    ap.add_argument("--ragged-serve", action="store_true",
+                    help="build, then serve llama3-8b in ragged mode alone (W4A16, W4A4)")
     ap.add_argument("--src", metavar="DIR",
                     help="import repro_torch from DIR (another tree's src) instead")
     args = ap.parse_args()
@@ -1528,6 +1748,11 @@ def main() -> None:
     if args.dual_only:
         kernel_phase(device)
         print("dual kernel phase ok", flush=True)
+        return
+    if args.ragged_serve:
+        from repro_torch.configs import get_config
+
+        ragged_serve_phase(device, card, get_config("llama3-8b").replace(n_layers=SERVE_LAYERS))
         return
 
     secs = {}

@@ -34,12 +34,15 @@
   MMA sequence (x as A, k16 steps ascending from zero) and add the terms to
   one f32 chain per output in ascending order, so an output row's bits
   never depend on M or on which schedule ran it.
-* :data:`PAGED_CHUNK` is the paged decode kernel's split of the key range:
-  one block per chunk of 256 absolute positions (four 64-key tiles), a
-  fixed grid that never depends on the row, sq or the launch, so stacked
-  draft rows keep the bits of sequential one-row launches. At llama3-8b's
+* :data:`PAGED_CHUNK` is both attention kernels' split of the key range
+  (``paged_decode_kernel`` and ``ragged_attention_kernel`` share one tile
+  body, ``csrc/attention_common.cuh``): one block per chunk of 256
+  absolute positions (four ``PAGED_TILE`` = 64-key tiles), a fixed grid
+  that never depends on the row, sq, the chunking or the launch, so
+  stacked draft rows keep the bits of sequential one-row launches and a
+  prompt row keeps its bits however the prompt was chunked. At llama3-8b's
   decode batch (8 slots of up to 2048 keys) it gives about 200 working
-  blocks for 132 SMs.
+  blocks for 132 SMs; at the ragged table case (T = 256) about 800.
 
 A measured, persisted tune cache waits for a later change; when it comes it
 keeps its own directory, apart from the reference's ``artifacts/tune/``.

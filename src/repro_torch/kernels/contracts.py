@@ -22,9 +22,9 @@
 * :func:`validate_paged_decode` / :func:`validate_ragged_attention` — what
   the CUDA attention kernels take: GQA grouping, head dims in whole 16-byte
   loads, at most ``ATT_QV_MAX`` query vectors a block, pages of at most
-  ``ATT_PAGE_MAX`` rows, and each kernel's shared memory against the
-  budget; for the paged kernel also its key-range chunk (whole 64-key
-  tiles) and its scratch (:func:`paged_scratch_floats`).
+  ``ATT_PAGE_MAX`` rows, each kernel's key-range chunk (whole 64-key
+  tiles) and shared memory against the budget, and their scratch
+  (:func:`paged_scratch_floats`, :func:`ragged_scratch_floats`).
 * :func:`check_ragged_rows` — the ragged kernel's row contract (each slot
   one contiguous run of consecutive positions from its ``ctx``), checked on
   the host while the metadata is still numpy.
@@ -50,7 +50,6 @@ __all__ = [
     "ContractError",
     "SMEM_BUDGET_BYTES",
     "MAX_SEGMENTS",
-    "attn_smem_bytes",
     "check_paged_decode_args",
     "check_ragged_args",
     "check_ragged_rows",
@@ -62,6 +61,8 @@ __all__ = [
     "gemv_smem_bytes",
     "paged_scratch_floats",
     "paged_smem_bytes",
+    "ragged_scratch_floats",
+    "ragged_smem_bytes",
     "validate_dual_gemm",
     "validate_dual_gemm_group",
     "validate_dual_gemv",
@@ -349,15 +350,9 @@ def check_w4a16_pack(wp, ws, k: int, group: int, *, kind: str = "w4a16") -> None
 # ---------------------------------------------------------------------------
 
 
-def attn_smem_bytes(page: int, hd: int) -> int:
-    """Dynamic shared memory of a ragged-attention block: the f32 query
-    panel, two buffers of a K and a V tile in bf16, and the tiles' key flags
-    (``attn_smem_bytes`` in ``csrc/attention_common.cuh``)."""
-    return ATT_QV_MAX * hd * 4 + 2 * 2 * page * hd * 2 + 2 * page * 4
-
-
-_PAGED_CHUNK_MAX = 512  # longest key chunk the paged kernel's shared block table spans
+_PAGED_CHUNK_MAX = 512  # longest key chunk an attention block's shared block table spans
 _SM_SMEM_BYTES = 233_472  # shared memory of one H100 SM (1 KB reserved a block)
+_GRID_Y_MAX = 65_535  # a launch grid's y extent
 
 
 def _paged_smem(hd: int, nt: int, stages: int) -> int:
@@ -385,6 +380,41 @@ def paged_scratch_floats(b: int, sq: int, h: int, kvh: int, hd: int, maxp: int, 
     query vector)'s partial accumulator (hd) and its (m, l)."""
     nc = -(-maxp * page // chunk)
     return b * kvh * nc * sq * (h // kvh) * (hd + 2)
+
+
+def _ragged_tiles(t: int, b: int, h: int, kvh: int) -> int:
+    """The most tiles a ragged launch can have: tiles of ``ATT_QV_MAX // g``
+    rows, at most B + ceil(T / rows) of them."""
+    return b + -(-t // (ATT_QV_MAX // (h // kvh)))
+
+
+def ragged_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of a ragged split block for head dim ``hd``
+    (``ragged_attention_smem_bytes`` in ``csrc/ragged_attention.cu``): the
+    paged split block's for ``ATT_QV_MAX`` query vectors, whatever a
+    tile's height (one compiled body)."""
+    return paged_smem_bytes(hd, ATT_QV_MAX)
+
+
+def ragged_scratch_floats(t: int, b: int, h: int, kvh: int, hd: int, maxp: int, page: int,
+                          chunk: int = PAGED_CHUNK) -> int:
+    """f32 scratch of a ragged launch: each (tile, KV head, chunk, query
+    vector)'s partial accumulator (hd) and its (m, l), ``ATT_QV_MAX`` vectors
+    a tile, over the chunks of positions below ``maxp * page + t`` (the most
+    a row can see while every slot's ``ctx <= maxp * page``), rounded up to
+    whole 16 bytes; then the plan (ints): the work-item count and 3 spare, 8
+    per tile, the work list."""
+    nc = -(-(maxp * page + t) // chunk)
+    z = _ragged_tiles(t, b, h, kvh)
+    return -(-z * kvh * nc * ATT_QV_MAX * (hd + 2) // 4) * 4 + 4 + 8 * z + z * nc
+
+
+def _attn_chunk(kind: str, chunk: int) -> None:
+    if not PAGED_TILE <= chunk <= _PAGED_CHUNK_MAX:
+        raise ContractError(f"[{kind}] chunk={chunk} outside [{PAGED_TILE}, {_PAGED_CHUNK_MAX}] "
+                            "keys (one tile .. the block table a block stages)")
+    divisible(chunk, PAGED_TILE, "chunk % tile", kind=kind,
+              hint="a chunk is whole 64-key tiles at fixed absolute positions")
 
 
 def _attn_common(kind: str, h: int, kvh: int, hd: int, page: int, maxp: int) -> None:
@@ -424,23 +454,30 @@ def validate_paged_decode(b: int, sq: int, h: int, kvh: int, hd: int, maxp: int,
     if sq * (h // kvh) > ATT_QV_MAX:
         raise ContractError(f"[{kind}] sq * H/KV = {sq * (h // kvh)} query vectors exceed "
                             f"the block's {ATT_QV_MAX}")
-    if not PAGED_TILE <= chunk <= _PAGED_CHUNK_MAX:
-        raise ContractError(f"[{kind}] chunk={chunk} outside [{PAGED_TILE}, {_PAGED_CHUNK_MAX}] "
-                            "keys (one tile .. the block table a block stages)")
-    divisible(chunk, PAGED_TILE, "chunk % tile", kind=kind,
-              hint="a chunk is whole 64-key tiles at fixed absolute positions")
+    _attn_chunk(kind, chunk)
     _smem(kind, paged_smem_bytes(hd, sq * (h // kvh)))
 
 
 def validate_ragged_attention(t: int, h: int, kvh: int, hd: int, b: int, maxp: int, page: int,
-                              *, kind: str = "ragged") -> None:
-    """Contract for the ragged-attention launch: one block per (slot, KV
-    head, tile of ``ATT_QV_MAX // (h // kvh)`` of the slot's rows), so the
-    token budget T only sets the grid, never a block's memory."""
+                              *, chunk: int = PAGED_CHUNK, kind: str = "ragged") -> None:
+    """Contract for the ragged-attention launch: a split block per (chunk of
+    ``chunk`` key positions, KV head, tile of ``ATT_QV_MAX // (h // kvh)``
+    of a slot's rows) holds at most ``ATT_QV_MAX`` query vectors, so the
+    token budget T sets only the grid and the scratch
+    (:func:`ragged_scratch_floats`), within the split launch's grid; the
+    chunk is whole 64-key tiles; the split block's shared memory fits the
+    budget, and so does the plan launch's (the slots' run table)."""
     if t < 1 or b < 1:
         raise ContractError(f"[{kind}] T={t} rows and B={b} slots must be positive")
     _attn_common(kind, h, kvh, hd, page, maxp)
-    _smem(kind, attn_smem_bytes(page, hd))
+    _attn_chunk(kind, chunk)
+    _smem(kind, ragged_smem_bytes(hd))
+    z = _ragged_tiles(t, b, h, kvh)
+    nc = -(-(maxp * page + t) // chunk)
+    if z * nc > _GRID_Y_MAX:
+        raise ContractError(f"[{kind}] {z} tiles x {nc} chunks = {z * nc} work items exceed "
+                            f"the split launch's grid ({_GRID_Y_MAX})")
+    _smem(f"{kind} plan", (3 * (b + 1) + 2 * (z + 1)) * 4)
 
 
 def check_paged_decode_args(q, kp, vp, kt, vt, bt, pos, *, kind: str = "paged_decode") -> None:
@@ -511,12 +548,16 @@ def check_ragged_args(q, kp, vp, kt, vt, bt, slot, pos, ctx, *, kind: str = "rag
         raise ContractError(f"[{kind}] malformed ragged call:\n  " + "\n  ".join(problems))
 
 
-def check_ragged_rows(slot, pos, ctx, *, kind: str = "ragged") -> None:
+def check_ragged_rows(slot, pos, ctx, *, s_max: int | None = None,
+                      kind: str = "ragged") -> None:
     """The ragged kernel's row contract, on host (numpy) metadata: every
     row's slot lies in [0, B] (B marks padding), and each slot's rows form
     ONE contiguous run whose positions are ctx[slot], ctx[slot] + 1, ...
     The kernel finds a slot's run by its first row and row count and takes
-    each key's place from that, so a broken batch would attend wrong keys."""
+    each key's place from that, so a broken batch would attend wrong keys.
+    With ``s_max`` (the block table's ``maxp * page`` positions), also
+    ``ctx <= s_max``: the kernel's chunk grid and scratch cover the
+    positions below ``s_max + T`` only."""
     slot = np.asarray(slot)
     pos = np.asarray(pos)
     ctx = np.asarray(ctx)
@@ -524,6 +565,9 @@ def check_ragged_rows(slot, pos, ctx, *, kind: str = "ragged") -> None:
     if slot.shape != pos.shape or slot.ndim != 1:
         raise ContractError(f"[{kind}] slot/pos must be matching 1-D arrays, got "
                             f"{slot.shape} / {pos.shape}")
+    if s_max is not None and ctx.size and ctx.max() > s_max:
+        raise ContractError(f"[{kind}] ctx {int(ctx.max())} exceeds the block table's "
+                            f"{s_max} positions")
     if slot.size and (slot.min() < 0 or slot.max() > b):
         raise ContractError(f"[{kind}] slot ids must lie in [0, {b}] ({b} = pad), got "
                             f"{sorted(set(slot.tolist()))[:8]}")

@@ -15,10 +15,17 @@ pages ``[0, ctx[slot])`` through ``bt`` plus the rows of the same slot with
   and one rounding, as the prefill attention does. Pad rows give zeros.
 * :func:`ragged_attention_kernel` launches the kernel for CUDA tensors and
   runs the plain version for CPU tensors. The kernel needs each slot's rows
-  as one contiguous run of consecutive positions from ``ctx`` (the engine's
-  schedule; ``contracts.check_ragged_rows`` checks it on the host). It
-  accumulates in f32, agrees with the plain version to bf16 tolerance, and
-  gives a row the same bits however its prompt was chunked.
+  as one contiguous run of consecutive positions from ``ctx``, and ``ctx <=
+  maxp * page`` (the engine's schedule; ``contracts.check_ragged_rows``
+  checks it on the host). It cuts each slot's run into tiles of
+  ``ATT_QV_MAX // g`` rows and each row's keys into chunks of
+  ``PAGED_CHUNK`` absolute positions: a one-block launch lists on the
+  device the (tile, chunk) pairs that hold keys; one block per pair and KV
+  head folds its chunk into f32 partials in a scratch this wrapper
+  allocates; a last launch folds each row's chunks in ascending order, the
+  self term last, as the paged decode kernel does. It accumulates in f32,
+  agrees with the plain version to bf16 tolerance, and gives a row the same
+  bits however its prompt was chunked and whichever slots share the call.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.contracts import validate_ragged_attention
+from repro_torch.kernels.autotune import PAGED_CHUNK
+from repro_torch.kernels.contracts import ragged_scratch_floats, validate_ragged_attention
 from repro_torch.kernels.cuda_launch import device_operand, run_kernel
 from repro_torch.kernels.paged_attention import gather_pages
 
@@ -35,8 +43,9 @@ __all__ = ["ragged_attention_kernel", "ragged_attention_ref"]
 
 _NEG = -1e30
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# (q, kp, vp, kt, vt, bt, slot, ctx, out, T, B, H, KV, hd, maxp, page, scale)
-_ARGS = [_P] * 9 + [_I] * 7 + [ctypes.c_float]
+# (q, kp, vp, kt, vt, bt, slot, ctx, out, scratch, T, B, H, KV, hd, maxp, page, chunk,
+#  scale)
+_ARGS = [_P] * 10 + [_I] * 8 + [ctypes.c_float]
 
 
 def ragged_attention_ref(q, kp, vp, kt, vt, bt, slot, pos, ctx) -> torch.Tensor:
@@ -86,8 +95,8 @@ def ragged_attention_ref(q, kp, vp, kt, vt, bt, slot, pos, ctx) -> torch.Tensor:
 def ragged_attention_kernel(q, kp, vp, kt, vt, bt, slot, pos, ctx) -> torch.Tensor:
     """Ragged attention through the CUDA kernel (the plain version for CPU
     tensors). The kernel reads positions from ``ctx`` and each slot's run
-    of rows, so ``pos`` must follow the row contract (not re-checked on the
-    card: that would synchronise)."""
+    of rows, so ``pos`` and ``ctx`` must follow the row contract (not
+    re-checked on the card: that would synchronise)."""
     t, h, hd = q.shape
     kv = kt.shape[1]
     b, maxp = bt.shape
@@ -103,9 +112,11 @@ def ragged_attention_kernel(q, kp, vp, kt, vt, bt, slot, pos, ctx) -> torch.Tens
     bt_, slot_, ctx_ = (device_operand("ragged", x.to(torch.int32), torch.int32, n, dev)
                         for x, n in ((bt, "bt"), (slot, "slot"), (ctx, "ctx")))
     out = torch.empty((t, h, hd), dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(ragged_scratch_floats(t, b, h, kv, hd, maxp, page, PAGED_CHUNK),
+                          dtype=torch.float32, device=dev)
     args = [q_.data_ptr(), kp_.data_ptr(), vp_.data_ptr(), kt_.data_ptr(), vt_.data_ptr(),
             bt_.data_ptr(), slot_.data_ptr(), ctx_.data_ptr(), out.data_ptr(),
-            t, b, h, kv, hd, maxp, page, float(hd ** -0.5)]
+            scratch.data_ptr(), t, b, h, kv, hd, maxp, page, PAGED_CHUNK, float(hd ** -0.5)]
     run_kernel("ragged_attention_kernel", "ragged_attention", "ragged_attention", _ARGS, args,
                dev)
     return out

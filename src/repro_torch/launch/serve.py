@@ -974,7 +974,7 @@ class ContinuousBatchingEngine:
             self._admit()
             return len(active)
         ctx = self._pos_host.copy()
-        check_ragged_rows(slot, pos, ctx)
+        check_ragged_rows(slot, pos, ctx, s_max=self._max_pages * self.page_size)
         dev = self.device
         t0 = time.monotonic()
         logits, self.state = self.model.ragged_step(

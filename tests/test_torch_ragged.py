@@ -158,6 +158,52 @@ def test_check_ragged_rows():
         check_ragged_rows(bad, pos, ctx)
 
 
+def test_check_ragged_rows_table_bound():
+    """With the block table's size, the row contract also holds ``ctx <=
+    maxp * page``: the kernel's chunk grid and scratch cover positions
+    below ``maxp * page + T`` only."""
+    args, _ = _mixed_batch()
+    slot, pos, ctx = (np.asarray(a) for a in args[6:])
+    check_ragged_rows(slot, pos, ctx, s_max=32)  # maxp 4 x page 8
+    with pytest.raises(ContractError, match="exceeds the block table"):
+        check_ragged_rows(slot, pos, ctx, s_max=12)
+
+
+@pytest.mark.parametrize("model", ["llama3-8b", "qwen3-8b", "tiny"])
+def test_ragged_contract_smem_and_scratch(model):
+    """The split-KV ragged kernel's contract: the model's heads at any
+    token budget pass, with the split block (the tile body for 32 query
+    vectors) inside the budget, two blocks an SM at the models' widths,
+    and a scratch of one f32 partial (hd + 2) per (tile, KV head, chunk, 32
+    query vectors) over positions below maxp * page + T, then the plan: a
+    count, 8 ints a tile and the work list; the chunk is whole 64-key
+    tiles, and the work items fit the split launch's grid."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.autotune import PAGED_CHUNK, PAGED_TILE
+    from repro_torch.kernels.contracts import (SMEM_BUDGET_BYTES, ragged_scratch_floats,
+                                               ragged_smem_bytes, validate_ragged_attention)
+
+    c = CFG if model == "tiny" else get_config(model)
+    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    for t in (1, 16, 256, 2048):
+        validate_ragged_attention(t, h, kv, hd, 8, 128, 16)
+    assert ragged_smem_bytes(hd) <= SMEM_BUDGET_BYTES
+    assert 2 * (ragged_smem_bytes(hd) + 1024) <= 233_472  # two blocks an SM
+    nc = -(-(128 * 16 + 256) // PAGED_CHUNK)
+    z = 8 + -(-256 // (32 // (h // kv)))  # B + ceil(T / rows a tile)
+    parts = z * kv * nc * 32 * (hd + 2)
+    assert parts % 4 == 0
+    assert ragged_scratch_floats(256, 8, h, kv, hd, 128, 16) == parts + 4 + 8 * z + z * nc
+    for chunk, ok in ((PAGED_TILE, True), (512, True), (96, False), (576, False)):
+        if ok:
+            validate_ragged_attention(256, h, kv, hd, 8, 128, 16, chunk=chunk)
+        else:
+            with pytest.raises(ContractError, match="chunk"):
+                validate_ragged_attention(256, h, kv, hd, 8, 128, 16, chunk=chunk)
+    with pytest.raises(ContractError, match="grid"):
+        validate_ragged_attention(16384, h, kv, hd, 8, 4096, 16)
+
+
 def test_dispatch_records_ragged_kind():
     args, _ = _mixed_batch()
     ta = tuple(_t(a) for a in args)
