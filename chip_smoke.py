@@ -42,11 +42,22 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    and the W4A16 baseline through ``ContinuousBatchingEngine`` four times
    each: bucketed dense cache, paged (prefix cache on), paged with
    speculation (spec_k 4) and ragged (token budget 256); W4A8 (the W4A4
-   packs at a_bits 8) paged. Checks every request finishes, every run routes
-   its kernels and no plain-version route, each kernel launches as often as
-   the engine's steps say (attention once a layer, ``w4a16_gemm`` seven
-   times), kernel-vs-plain logits, solo-vs-interleaved greedy tokens, and
-   speculative == paged tokens. A speculative W4A4 run with the norms and
+   packs at a_bits 8) paged. Every engine runs its step as one CUDA graph
+   (the engine's default on the card). Checks every request finishes,
+   every run routes its kernels and no plain-version route, each kernel
+   launches as often as the engine's steps say (attention once a layer,
+   ``w4a16_gemm`` seven times; a replay counts its graph's launches), one
+   capture per engine, kernel-vs-plain logits, solo-vs-interleaved greedy
+   tokens, and speculative == paged tokens. For W4A4 and W4A16 in each
+   mode: after step ``CHECK_STEP`` one step replayed from the graph and run
+   eagerly from one state (logits and every state tensor ``torch.equal``),
+   and an eager run (``step_graphs=False``) with the same tokens, launches
+   and routes; for ``STEP_TIMED`` also eager vs graph host-clock step ms,
+   device ms per step (profiler kernel sums, CUDA events around replays)
+   and the device's busy share of a step. W4A16 paged and W4A4 ragged are
+   served once more under the port's sanitizers (``guarded_decode``,
+   ``no_recompiles``, ``page_invariant_checks``, ``lifecycle_checks``,
+   ``assert_compile_budget``). A speculative W4A4 run with the norms and
    head over the whole draft stack reports which of them gave a row other
    bits (``--spec-probe N``: every variant, N times);
 5. qwen3-8b — the paper's second model at full width, depth cut to
@@ -1212,21 +1223,25 @@ def _spec_run(variant: str, engine, reqs, want, cfg, device) -> None:
     both ways on its real input, so the line names the ops that gave a
     verify row other bits stacked on this run's data; the tokens are
     compared with the paged run's ``want``. Not gated: spec == paged as
-    shipped is the gate."""
+    shipped is the gate. The patches are in place before the engine's first
+    step, so its step graph captures them; the rows are counted on the
+    device, in place, so every replay counts too."""
+    import torch
+
     from repro_torch.models import common as C
     from repro_torch.models import dense
 
     per_column, unembed = C.per_draft_row, dense._unembed
     cols = SPEC_VARIANTS[variant]
-    calls, moved = [0], {}
+    calls, counts = [0], {}
 
     def both(name, fn, x, per_col):
         if x.shape[1] == 1:
             return fn(x)
         y_stk, y_col = fn(x), per_column(fn, x)
-        rows = int((y_stk != y_col).any(dim=-1).sum())
-        if rows:
-            moved[name] = moved.get(name, 0) + rows
+        if name not in counts:
+            counts[name] = torch.zeros((), dtype=torch.long, device=x.device)
+        counts[name] += (y_stk != y_col).any(dim=-1).sum()
         return y_col if per_col else y_stk
 
     def norm(fn, x):
@@ -1242,6 +1257,7 @@ def _spec_run(variant: str, engine, reqs, want, cfg, device) -> None:
         _drive(f"spec probe {variant}", engine, reqs, device, cfg.n_layers)
     finally:
         C.per_draft_row, dense._unembed = per_column, unembed
+    moved = {k: int(v) for k, v in counts.items() if int(v)}
     diff = [i for i, (a, b) in enumerate(zip(reqs, want)) if a.out != b.out]
     norms = sum(v for k, v in moved.items() if k != "head")
     print(f"serve spec probe variant={variant} (per column: {list(cols) or 'none'}) tokens == "
@@ -1347,16 +1363,187 @@ def _w4a16_f32_order(x, wp, ws, group=128):
     return acc.to(torch.bfloat16)
 
 
+# the graph run's engine step after which one step is replayed from the
+# graph and run eagerly from the same state (all 8 slots live in every mode)
+CHECK_STEP = 6
+# (setting, mode) pairs whose eager and graph steps are timed, and how many
+# steps each reading takes
+STEP_TIMED = {("w4a16", "paged"), ("w4a4", "paged"), ("w4a4", "ragged")}
+STEP_REPS = 10
+# profiler name prefixes of the hand-written kernels (csrc/*.cu)
+HANDWRITTEN = ("tq_", "pd_", "rg_", "w4a16_")
+GRAPH_KEY = {"bucketed": "decode_graphs", "paged": "decode_graphs", "spec": "spec_graphs",
+             "ragged": "ragged_graphs"}
+
+
+def _clone_state(state) -> dict:
+    return {k: v.clone() for k, v in state.items()}
+
+
+def _restore_state(state, snap) -> None:
+    for k, v in snap.items():
+        state[k].copy_(v)
+
+
+def _kernel_us(prof):
+    """(kernel name, device µs, launches) of every device event in a
+    profile."""
+    import torch
+
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if t and e.device_type == torch.autograd.DeviceType.CUDA:
+            yield e.key.replace("void ", ""), t, e.count
+
+
+def _after_step(eng, n: int, fn) -> None:
+    """Run ``fn()`` once, right after the engine's ``n``-th step."""
+    step, done = eng.step, [0]
+
+    def wrapped(*args, **kwargs):
+        out = step(*args, **kwargs)
+        done[0] += 1
+        if done[0] == n:
+            fn()
+        return out
+
+    eng.step = wrapped
+
+
+def _step_times(eng, snap) -> dict:
+    """Device time per step, each reading over ``STEP_REPS`` steps run from
+    ``snap`` (the state and the static inputs of one steady step, put back
+    before each reading): the replays between CUDA events (and the host ms
+    a replay takes to enqueue), and the kernel time (``torch.profiler``'s
+    device events summed) of replays and of eager steps. Zero where the
+    profiler shows no device time. The engine must be idle; its state is
+    put back as it was."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import cuda_launch, dispatch
+
+    sg = eng.step_graph
+    launches, routes = cuda_launch.launch_counts(), dispatch.dispatch_counters()
+    was = _clone_state(eng.state)
+    _restore_state(sg.buffers, snap["buffers"])
+    _restore_state(eng.state, snap["state"])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(STEP_REPS):
+        sg.graph.replay()
+    host = (time.perf_counter() - t0) / STEP_REPS * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    out = {"replay_events_ms": start.elapsed_time(end) / STEP_REPS, "replay_host_ms": host}
+    for way, fn in (("graph", sg.graph.replay), ("eager", lambda: sg.fn(**sg.buffers))):
+        _restore_state(eng.state, snap["state"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEP_REPS):
+                fn()
+            torch.cuda.synchronize()
+        events = list(_kernel_us(prof))
+        out[f"{way}_kernel_ms"] = sum(t for _, t, _ in events) / STEP_REPS / 1e3
+        out[f"{way}_handwritten_ms"] = sum(t for k, t, _ in events
+                                           if k.startswith(HANDWRITTEN)) / STEP_REPS / 1e3
+        out[f"{way}_launches"] = sum(n for _, _, n in events) / STEP_REPS
+    _restore_state(eng.state, was)
+    cuda_launch.reset_launch_counts()
+    cuda_launch.add_launch_counts(launches)
+    dispatch.reset_dispatch_counters()
+    dispatch.add_dispatch_counts(routes)
+    return out
+
+
+def _step_check(name: str, eng, keep: bool) -> dict:
+    """At a steady step of a graph run, the engine's last step replayed
+    from its graph and run eagerly (the step function on the same static
+    inputs) from one state: the logits and every state tensor (caches or
+    pools, block table, positions) must be ``torch.equal``. The state is put
+    back and the eager step's launch and route counts taken back, so the
+    run goes on as if none of it ran. ``keep`` returns that state and the
+    static inputs (for ``_step_times`` once the run is over)."""
+    import torch
+
+    from repro_torch.kernels import cuda_launch, dispatch
+
+    sg = eng.step_graph
+    if sg.graph is None:
+        print(f"serve {name} step graph == eager step: not checked (eager on {eng.device})",
+              flush=True)
+        return {}
+    launches, routes = cuda_launch.launch_counts(), dispatch.dispatch_counters()
+    snap = _clone_state(eng.state)
+    sg.graph.replay()
+    out_g = sg.out.clone()
+    after_g = _clone_state(eng.state)
+    _restore_state(eng.state, snap)
+    out_e = sg.fn(**sg.buffers)
+    torch.cuda.synchronize()
+    differ = [k for k in snap if not torch.equal(after_g[k], eng.state[k])]
+    if not torch.equal(out_g, out_e) or differ:
+        fail(f"{name}: a step replayed from the graph != the same step run eagerly (logits "
+             f"equal: {torch.equal(out_g, out_e)}, state tensors that differ: {differ})")
+    del after_g, out_g, out_e
+    _restore_state(eng.state, snap)
+    kept = {"state": snap, "buffers": _clone_state(sg.buffers)} if keep else {}
+    del snap
+    cuda_launch.reset_launch_counts()
+    cuda_launch.add_launch_counts(launches)
+    dispatch.reset_dispatch_counters()
+    dispatch.add_dispatch_counts(routes)
+    print(f"serve {name} step graph == eager step: logits and state {sorted(eng.state)} "
+          f"equal (step {eng.stats['decode_steps']}, replayed and run eagerly from one state)",
+          flush=True)
+    return kept
+
+
+def _step_ms(eng, mode: str) -> float:
+    """Host-clock ms per model step, as the engine accounts it (a ragged
+    step's time is split between its decode and prefill rows)."""
+    st = eng.stats
+    busy = st["decode_s"] + (st["prefill_s"] if mode == "ragged" else 0.0)
+    return busy / max(st["decode_steps"], 1) * 1e3
+
+
+def _submit_order(prompts, batch: int, max_len: int) -> list:
+    """Request indices with one prompt of every prefill bucket among the
+    first ``batch`` (admitted at once), so no later admission adds a
+    prefill shape."""
+    from repro_torch.launch.serve import ContinuousBatchingEngine
+
+    seen, first, rest = set(), [], []
+    for i, p in enumerate(prompts):
+        b = ContinuousBatchingEngine._bucket(len(p), max_len)
+        (rest if b in seen else first).append(i)
+        seen.add(b)
+    if len(first) > batch:
+        fail(f"{len(first)} prefill buckets do not fit the first {batch} slots")
+    return first + rest
+
+
 class Served:
     """One quantized model served in several engine modes on the same 12
     requests: ``serve(mode)`` runs and checks a mode; ``launches`` holds each
-    kernel's count from the run whose main path it is."""
+    kernel's count from the run whose main path it is. Engines run their
+    steps as CUDA graphs (the engine's default on the card); the eager path
+    runs where a check asks for it."""
 
     def __init__(self, tag: str, cfg, qp, kind: str, prompts, device, max_len: int = 2048):
+        import inspect
+
+        from repro_torch.launch.serve import ContinuousBatchingEngine
+
         self.tag, self.cfg, self.qp, self.kind = tag, cfg, qp, kind
         self.prompts, self.device, self.max_len = prompts, device, max_len
         self.outs: dict = {}
         self.launches: dict = {}
+        self.step_times: dict = {}
+        # a tree before step graphs (``--src`` of a parent) serves eagerly
+        self.graphs = "step_graphs" in inspect.signature(ContinuousBatchingEngine).parameters
         print(f"serve {tag} param_bytes={_param_bytes(qp)}", flush=True)
 
     def request(self, i):
@@ -1369,11 +1556,15 @@ class Served:
     def requests(self):
         return [self.request(i) for i in range(len(self.prompts))]
 
-    def engine(self, mode):
+    def engine(self, mode, **kw):
+        """An engine in ``mode``; ``kw`` (``step_graphs``) only where the tree
+        has step graphs."""
         from repro_torch.launch.serve import ContinuousBatchingEngine
 
+        if not self.graphs:
+            kw.pop("step_graphs", None)
         return ContinuousBatchingEngine(self.cfg, self.qp, batch_slots=8, max_len=self.max_len,
-                                        device=self.device, **MODES[mode])
+                                        device=self.device, **MODES[mode], **kw)
 
     def prefill_logits(self) -> None:
         """Kernel vs plain logits on one prompt through the model entry point:
@@ -1469,17 +1660,79 @@ class Served:
         if mode != "spec":
             self.launches.setdefault(kernel, got.get(kernel, 0))
 
-    def serve(self, mode) -> list:
-        """Serve the 12 requests in ``mode`` and check the run."""
+    def _graph(self, mode, eng) -> None:
+        """One capture per engine: the mode's step graph, replayed at every
+        later step (eager off the card)."""
+        if not self.graphs:
+            return
+        cs, cuda = eng.compile_stats(), self.device.type == "cuda"
+        steps = eng.step_graph.steps
+        want = {key: 0 for key in set(GRAPH_KEY.values())}
+        want[GRAPH_KEY[mode]] = 1 if cuda else 0
+        got = {key: cs[key] for key in want}
+        replays = steps - 1 if cuda else 0
+        if got != want or cs["graph_replays"] != replays:
+            fail(f"{self.tag} {mode}: step graphs {got} replays {cs['graph_replays']}, want "
+                 f"{want} and {replays} replays of {steps} steps")
+        print(f"serve {self.tag} {mode} step graph captures={got[GRAPH_KEY[mode]]} "
+              f"replays={cs['graph_replays']} of {steps} steps", flush=True)
+
+    def _against_eager(self, mode, reqs, got, routes, eng) -> None:
+        """The same run with ``step_graphs=False``: the same tokens for all
+        12 requests, the same launch and route counts."""
+        name = f"{self.tag} {mode}"
+        eager = self.engine(mode, step_graphs=False)
+        reqs_e = self.requests()
+        got_e, routes_e = _drive(f"{name} eager", eager, reqs_e, self.device, self.cfg.n_layers)
+        diff = [i for i, (a, b) in enumerate(zip(reqs, reqs_e)) if a.out != b.out]
+        if diff:
+            fail(f"{name}: graph-run tokens != eager-run tokens for requests {diff}")
+        if got_e != got or routes_e != routes:
+            fail(f"{name}: graph run launches {got} routes {routes} != eager run launches "
+                 f"{got_e} routes {routes_e}")
+        print(f"serve {name} graph == eager: tokens equal ({len(reqs)} requests), launches and "
+              f"routes equal", flush=True)
+        times = self.step_times.get(mode)
+        if times is None:
+            return
+        ms_e, ms_g = _step_ms(eager, mode), _step_ms(eng, mode)
+        dev_g = times["graph_kernel_ms"] or times["replay_events_ms"]
+        times.update(host_step_ms_eager=ms_e, host_step_ms_graph=ms_g,
+                     busy_share_eager=times["eager_kernel_ms"] / ms_e, busy_share_graph=dev_g / ms_g)
+        t = times
+        print(f"serve {name} step eager vs graph: host_step_ms eager={ms_e:.3f} graph={ms_g:.3f} "
+              f"({ms_e / ms_g:.2f}x); device_ms_per_step (profiler kernel sum) eager="
+              f"{t['eager_kernel_ms']:.3f} graph={t['graph_kernel_ms']:.3f}, of it hand-written "
+              f"kernels eager={t['eager_handwritten_ms']:.3f} graph={t['graph_handwritten_ms']:.3f}; "
+              f"device launches a step eager={t['eager_launches']:.0f} "
+              f"graph={t['graph_launches']:.0f}; replay (CUDA events) ms={t['replay_events_ms']:.3f} "
+              f"enqueue host ms={t['replay_host_ms']:.3f}; busy_share eager="
+              f"{t['busy_share_eager']:.3f} graph={t['busy_share_graph']:.3f} (graph from "
+              f"{'profiler' if t['graph_kernel_ms'] else 'events'})", flush=True)
+
+    def serve(self, mode, against_eager: bool = False) -> list:
+        """Serve the 12 requests in ``mode`` and check the run; with
+        ``against_eager`` also check one graph step against the eager step
+        and the whole run against an eager run."""
         L, cuda = self.cfg.n_layers, self.device.type == "cuda"
         name = f"{self.tag} {mode}"
         reqs = self.requests()
         eng = self.engine(mode)
+        kept = {}
+        if against_eager and self.graphs:
+            timed = (self.tag, mode) in STEP_TIMED
+            _after_step(eng, CHECK_STEP, lambda: kept.update(_step_check(name, eng, timed)))
         got, routes = _drive(name, eng, reqs, self.device, L)
+        if kept:  # timed once the run is over, so its TTFT and wall clock are its own
+            self.step_times[mode] = _step_times(eng, kept)
+            del kept
         self._linears(mode, eng, got, routes)
+        self._graph(mode, eng)
         if mode != "bucketed":
             self._attention(mode, eng, got, routes)
             eng.check_page_invariants()
+        if against_eager and self.graphs:
+            self._against_eager(mode, reqs, got, routes, eng)
         if mode == "paged":
             print(f"serve {name} memory {json.dumps(eng.memory(), sort_keys=True)} prefix_hits="
                   f"{eng.stats['prefix_hits']} prefix_hit_tokens={eng.stats['prefix_hit_tokens']}",
@@ -1513,6 +1766,41 @@ class Served:
         print(f"serve {name} solo == interleaved: equal (prompts of "
               f"{[len(self.prompts[i]) for i in held]} tokens)", flush=True)
         return reqs
+
+    def sanitized(self, mode) -> None:
+        """The 12 requests once more in ``mode``, submitted so that every
+        prefill bucket is among the first 8, under the port's sanitizers:
+        the allocator audit and the lifecycle audit after every step, and
+        from the third step on (after the warm-up and the capture)
+        ``guarded_decode`` (any host sync outside a ``# sync-point`` raises)
+        and ``no_recompiles``; then ``assert_compile_budget``."""
+        from repro_torch.analysis.sanitizers import (
+            assert_compile_budget,
+            guarded_decode,
+            lifecycle_checks,
+            no_recompiles,
+            page_invariant_checks,
+        )
+
+        name = f"{self.tag} {mode}"
+        eng = self.engine(mode)
+        reqs = self.requests()
+        with page_invariant_checks(eng), lifecycle_checks(eng):
+            for i in _submit_order(self.prompts, eng.batch, self.max_len):
+                eng.submit(reqs[i])
+            eng.step()
+            eng.step()
+            with guarded_decode(), no_recompiles(eng):
+                eng.run_until_done()
+        cs = assert_compile_budget(eng)
+        bad = [(r.request_id, r.status) for r in reqs if r.status != "DONE"]
+        if bad or any(len(r.out) != r.max_new for r in reqs):
+            fail(f"{name} sanitized: requests not DONE or short: {bad}")
+        same = [a.out == b.out for a, b in zip(reqs, self.outs[mode])]
+        print(f"serve {name} sanitized (guarded_decode, no_recompiles, page_invariant_checks, "
+              f"lifecycle_checks, assert_compile_budget): ok, steps={eng.stats['decode_steps']} "
+              f"compile_stats={json.dumps(cs)} tokens == the first run's: {sum(same)} of "
+              f"{len(reqs)} requests (not gated)", flush=True)
 
 
 def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2048,
@@ -1562,7 +1850,7 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
     w4 = Served("w4a4", cfg, qp, "w4a4", prompts, device, max_len)
     w4.prefill_logits()
     for mode in ("bucketed", "paged", "spec"):
-        w4.serve(mode)
+        w4.serve(mode, against_eager=True)
     paged = w4.outs["paged"]
     for rep in range(max(spec_probe, 1)):
         if spec_probe:
@@ -1572,7 +1860,8 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
                   f"{all(a.out == b.out for a, b in zip(again, paged))}", flush=True)
         for variant in SPEC_VARIANTS if spec_probe else ("stacked",):
             _spec_run(variant, w4.engine("spec"), w4.requests(), paged, cfg, device)
-    ragged = w4.serve("ragged")
+    ragged = w4.serve("ragged", against_eager=True)
+    w4.sanitized("ragged")
     agree = sum(a == b for r, q in zip(ragged, paged) for a, b in zip(r.out, q.out))
     w4a4_rows = _ragged_vs_prefill(qp, cfg, prompts[5], device, depths)
     print(f"serve w4a4 ragged tokens agreeing with paged: {agree} of {32 * len(ragged)}, first "
@@ -1581,6 +1870,7 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
           f"prompt) {_depth_line(w4a4_rows)} (not gated) "
           f"ttft_1024_s={ragged[-1].t_first_token - ragged[-1].t_submit:.4f}", flush=True)
     launches = dict(w4.launches)
+    w4_times = dict(w4.step_times)
 
     # -- W4A8: the same packs at a_bits 8, paged
     t5 = time.perf_counter()
@@ -1594,8 +1884,13 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
     w16 = Served("w4a16", cfg, qp16, "w4a16", prompts, device, max_len)
     w16.prefill_logits()
     for mode in MODES:
-        w16.serve(mode)
+        w16.serve(mode, against_eager=True)
+    w16.sanitized("paged")
     launches["w4a16_gemm"] = w16.launches["w4a16_gemm"]
+    for tag, served in (("w4a4", w4_times), ("w4a16", w16.step_times)):
+        for mode, times in served.items():
+            print(f"serve step times {json.dumps({'setting': tag, 'mode': mode, **times})}",
+                  flush=True)
     t7 = time.perf_counter()
     print(f"serve phase seconds: w4a4 {t5 - t4:.1f} w4a8 {t6 - t5:.1f} w4a16 {t7 - t6:.1f}",
           flush=True)
@@ -1634,28 +1929,24 @@ STEP_GROUPS = {"attention": ("rg_", "ragged_attention"), "linears": ("tq_", "w4a
 
 
 def _profile_ragged(served) -> None:
-    """The same ragged-mode run once more under ``torch.profiler``: device
-    time per engine step of the attention kernel, of the quantized linears
-    and of every kernel (the rest: PyTorch's own), from ``key_averages()``
-    (not printed off the card, or when the profiler shows no device
-    time)."""
+    """The same ragged-mode run once more under ``torch.profiler``, with
+    eager steps (the same kernels as the graph's, and a tree before step
+    graphs runs them so too): device time per engine step of the attention
+    kernel, of the quantized linears and of every kernel (the rest:
+    PyTorch's own), from ``key_averages()`` (not printed off the card)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if served.device.type != "cuda":
         return
-    eng, reqs = served.engine("ragged"), served.requests()
+    eng, reqs = served.engine("ragged", step_graphs=False), served.requests()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.serve(reqs)
         torch.cuda.synchronize()
     steps = eng.stats["decode_steps"]
     total, groups = 0.0, dict.fromkeys(STEP_GROUPS, 0.0)
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        if not t or e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for key, t, _ in _kernel_us(prof):
         total += t
-        key = e.key.replace("void ", "")
         for g, prefixes in STEP_GROUPS.items():
             if key.startswith(prefixes):
                 groups[g] += t

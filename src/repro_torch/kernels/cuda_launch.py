@@ -5,7 +5,9 @@ scratch (one allocation a call).
 
 Every wrapper counts its own launches here (``launch_counts()``), bumped
 exactly where it calls its CUDA entry and nowhere else, so a run can show
-which kernels its main path went through.
+which kernels its main path went through. A captured step graph
+(``launch/step_graph.py``) takes its capture's counts back and adds them
+once per replay (``add_launch_counts``), since a replay runs no wrapper.
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ import torch
 
 from repro_torch.kernels.build import load
 
-__all__ = ["device_operand", "dual_args", "launch_counts", "reset_launch_counts", "launch_dual",
-           "pack_args", "run_kernel", "scratch_layout"]
+__all__ = ["add_counts", "add_launch_counts", "device_operand", "dual_args", "launch_counts",
+           "reset_launch_counts", "launch_dual", "pack_args", "run_kernel", "scratch_layout"]
 
 _counts: dict[str, int] = {}
 
@@ -37,6 +39,22 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     """Zero every wrapper's launch count."""
     _counts.clear()
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (launches per wrapper name, negative to take some back)
+    to the launch counts; a name whose count reaches 0 is dropped."""
+    add_counts(_counts, delta)
+
+
+def add_counts(counts: dict[str, int], delta: dict[str, int]) -> None:
+    """``counts += delta`` per key, in place, dropping keys that reach 0."""
+    for k, v in delta.items():
+        n = counts.get(k, 0) + v
+        if n:
+            counts[k] = n
+        else:
+            counts.pop(k, None)
 
 
 def _entry(lib_name: str, fn_name: str, argtypes):

@@ -16,7 +16,8 @@ which route each call by its flattened M, as the JAX package does:
   code, so nothing on the card falls back to the plain version.
 
 Each decision bumps a counter keyed ``<kind>/<path>`` (kinds ``dual`` and
-``dual_fused``). PyTorch runs eagerly, so that is one bump per call.
+``dual_fused``), one bump per call; a captured step graph adds its
+capture's decisions once per replay (``add_dispatch_counts``).
 
 The weight-only baseline :func:`w4a16_linear` (kind ``w4a16``) has one
 kernel schedule for every M, so as in the reference a routed call counts
@@ -62,6 +63,7 @@ from repro_torch.kernels.contracts import (
     validate_ragged_attention,
     validate_w4a16,
 )
+from repro_torch.kernels.cuda_launch import add_counts
 from repro_torch.kernels.paged_attention import paged_decode_kernel, paged_decode_ref
 from repro_torch.kernels.ragged_attention import ragged_attention_kernel, ragged_attention_ref
 from repro_torch.kernels.ref import (
@@ -76,6 +78,7 @@ from repro_torch.kernels.w4a16_gemm import w4a16_gemm
 __all__ = [
     "DECODE_M_MAX",
     "Route",
+    "add_dispatch_counts",
     "classify_dual",
     "classify_dual_group",
     "classify_paged_decode",
@@ -154,6 +157,12 @@ def dispatch_counters() -> dict[str, int]:
 def reset_dispatch_counters() -> None:
     """Zero the routing counters."""
     _counters.clear()
+
+
+def add_dispatch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (decisions per ``<kind>/<path>`` key, negative to take
+    some back) to the routing counters; a key that reaches 0 is dropped."""
+    add_counts(_counters, delta)
 
 
 def _record(kind: str, route: Route) -> None:

@@ -47,29 +47,43 @@ _ARGS = [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I]
 
 def pool_rows(bt: torch.Tensor, slot: torch.Tensor, pos: torch.Tensor, page: int,
               n_pages: int):
-    """Where flat rows land in a pool: row ``i`` in page ``bt[slot_i, pos_i //
-    page]`` at offset ``pos_i % page``. Pad rows (slot >= B), rows past the
-    block table and rows into unmapped pages take the ``n_pages``
-    out-of-range sentinel (NOT -1, which would wrap into the last page) and
-    are dropped. Returns (rows kept, their page ids, their offsets); on the
-    card the selection synchronises once."""
+    """Where flat rows land in a pool, at a fixed shape and with no host sync
+    (so a CUDA graph can hold it): row ``i`` goes to page ``bt[slot_i, pos_i
+    // page]`` at offset ``pos_i % page``. Pad rows (slot >= B), rows past
+    the block table and rows into unmapped pages (or page ids past
+    ``n_pages``) are dropped, as the reference's ``mode="drop"`` drops them:
+    a dropped row repeats the first kept row's place and value, so the
+    writes that land together are identical and the result does not depend
+    on their order; with no row kept, the rows write page 0 offset 0's own
+    value back. Returns (source row per row, flat place ``page_id * page +
+    offset`` per row, whether any row is kept) for :func:`write_page_rows`."""
     b, maxp = bt.shape
     slot, pos = slot.long(), pos.long()
+    rows = torch.arange(slot.shape[0], device=slot.device)
+    if slot.shape[0] == 0:
+        return rows, rows, torch.zeros((), dtype=torch.bool, device=slot.device)
     pi = torch.div(pos, page, rounding_mode="floor")
     page_id = bt.long()[slot.clamp(0, b - 1), pi.clamp(0, maxp - 1)]
-    ok = (slot >= 0) & (slot < b) & (pi < maxp) & (page_id >= 0)
-    page_id = torch.where(ok, page_id, n_pages)
-    keep = torch.nonzero(page_id < n_pages).flatten()
-    return keep, page_id[keep], (pos % page)[keep]
+    ok = (slot >= 0) & (slot < b) & (pi < maxp) & (page_id >= 0) & (page_id < n_pages)
+    place = page_id * page + pos % page
+    # the first kept row (0 when none is), kept 1-D: indexing with a 0-d
+    # tensor reads it on the host
+    first = torch.argmax(ok.to(torch.int32), dim=0, keepdim=True)
+    kept = ok.any()
+    src = torch.where(ok, rows, first)
+    place = torch.where(ok, place, torch.where(kept, place[first], 0))
+    return src, place, kept
 
 
 def write_page_rows(pool: torch.Tensor, t: torch.Tensor, where) -> None:
     """In place: pool (lead, P, page, ...) gets rows t (lead, R, ...) at the
-    places :func:`pool_rows` gave (the engine computes them once, before the
-    layers launch, as that synchronises on the card). The one row writer of
-    the port: every other page write goes through it."""
-    keep, page_id, off = where
-    pool[:, page_id, off] = t[:, keep].to(pool.dtype)
+    places :func:`pool_rows` gave (the steps compute them once, before their
+    layers launch). The one row writer of the port: every other page write
+    goes through it. Fixed shapes, no host sync."""
+    src, place, kept = where
+    flat = pool.view(pool.shape[0], -1, *pool.shape[3:])  # raises rather than copy
+    rows = torch.where(kept, t[:, src].to(pool.dtype), flat[:, place[:1]])
+    flat[:, place] = rows
 
 
 def gather_pages(pool_l: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,18 @@ paged, ragged and speculative modes.
   lock-step.
 * Admission runs the model's prefill once on a batch-1 state, the prompt
   padded to a power-of-two bucket (at least 8); the ``length`` argument
-  keeps the padded math exact. ``compile_stats()`` reports the launch-shape
-  inventory (PyTorch runs eagerly, so a "trace" is a distinct launch shape).
+  keeps the padded math exact. Prefill runs eagerly, so a prefill "trace"
+  in ``compile_stats()`` is a distinct launch shape.
+* Every mode has one step shape: the bucketed or paged decode ``(B, 1)``,
+  the speculative verify ``(B, spec_k)``, the ragged step
+  ``(token_budget,)``. On the card that step runs as one captured CUDA
+  graph, replayed once per step (``launch/step_graph.py``, the reference's
+  jitted step): the first step warms up eagerly, the second captures, every
+  later one replays. ``step_graphs=False`` runs every step eagerly, as the
+  CPU does. Host inputs reach the device through pinned staging with no
+  host sync; the engine syncs only at its ``# sync-point`` lines (position
+  read, logits download, the capture), which ``analysis.sanitizers.
+  guarded_decode`` allows.
 * **Paged mode** (``paged=True``): the KV cache lives in page pools shared
   by all slots (``models.common.init_paged_state``); a host-side
   :class:`PageAllocator` owns the free list and refcounts, admission gates
@@ -52,6 +62,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
+from repro_torch.launch.step_graph import StepGraph, sync_point, upload
 from repro_torch.models import common as C
 from repro_torch.models.registry import get_model
 
@@ -364,7 +375,7 @@ def _ngram_draft(hist: list, k: int) -> list:
     return [hist[-1]] * k
 
 
-_LATER = {"preemption": "ROADMAP Queue 1 item 8 (lifecycle, faults)"}
+_LATER = {"preemption": "ROADMAP Queue 1 item 3 (lifecycle, faults)"}
 
 
 class ContinuousBatchingEngine:
@@ -381,14 +392,20 @@ class ContinuousBatchingEngine:
     at ``max_chunk_share`` of it. ``speculation=True`` (needs paged, not
     ragged) verifies ``spec_k`` rows per slot per launch, drafted by
     ``draft_fn(req, k)`` when given, else by the n-gram self-draft. Ragged
-    or speculation without their prerequisites warn and serve bucketed."""
+    or speculation without their prerequisites warn and serve bucketed.
+
+    ``step_graphs`` (default: on for a CUDA device, off elsewhere) runs the
+    mode's step as one captured CUDA graph; ``False`` runs it eagerly, and
+    ``True`` off a CUDA device raises. A failed capture raises; it never
+    falls back to the eager step."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int = 4, max_len: int = 128,
                  *, device=None, on_truncation: str = "warn", paged: bool = False,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  prefix_caching: bool = True, ragged: bool = False, token_budget: int = 64,
                  max_chunk_share: float = 1.0, speculation: bool = False, spec_k: int = 4,
-                 draft_fn: Optional[Callable] = None, preemption: bool = False):
+                 draft_fn: Optional[Callable] = None, preemption: bool = False,
+                 step_graphs: Optional[bool] = None):
         if preemption:
             raise NotImplementedError(
                 f"preemption=True is not ported yet: it comes with {_LATER['preemption']}")
@@ -400,6 +417,11 @@ class ContinuousBatchingEngine:
         from repro_torch.kernels.dispatch import DECODE_M_MAX, dispatch_counters, fusion_enabled
 
         self.device = resolve_device(device)
+        if step_graphs is None:
+            step_graphs = self.device.type == "cuda"
+        elif step_graphs and self.device.type != "cuda":
+            raise ValueError(f"step_graphs=True captures CUDA graphs; the engine runs on "
+                             f"{self.device}")
         if params.embed.device != self.device:
             raise ValueError(f"params live on {params.embed.device}, engine on {self.device}")
         self.cfg = cfg
@@ -476,6 +498,32 @@ class ContinuousBatchingEngine:
             "spec_launches": 0, "spec_slot_steps": 0, "spec_drafted": 0, "spec_accepted": 0,
         }
         self._dispatch0 = dispatch_counters()
+        self.step_graph = self._build_step_graph(bool(step_graphs))
+
+    def _build_step_graph(self, capture: bool) -> StepGraph:
+        """The mode's one step over static input buffers; the step function
+        holds the model, params and state, not the engine."""
+        model, params, cfg, state, dev = self.model, self.params, self.cfg, self.state, self.device
+        i32, i64 = torch.int32, torch.long
+        if self.ragged:
+            t, b = self.token_budget, self.batch
+
+            def ragged(tokens, slot, pos, ctx, logit_idx):
+                return model.ragged_step(params, cfg, state, tokens, slot, pos, ctx, logit_idx)[0]
+
+            buffers = {"tokens": torch.zeros(t, dtype=i64, device=dev),
+                       "slot": torch.zeros(t, dtype=i32, device=dev),
+                       "pos": torch.zeros(t, dtype=i32, device=dev),
+                       "ctx": torch.zeros(b, dtype=i32, device=dev),
+                       "logit_idx": torch.zeros(b, dtype=i64, device=dev)}
+            return StepGraph(ragged, buffers, dev, capture=capture)
+
+        def decode(tokens):
+            return model.decode_step(params, cfg, state, tokens)[0]
+
+        sq = self.spec_k if self.speculation else 1
+        return StepGraph(decode, {"tokens": torch.zeros((self.batch, sq), dtype=i64, device=dev)},
+                         dev, capture=capture)
 
     # -- admission ----------------------------------------------------------
 
@@ -541,7 +589,7 @@ class ContinuousBatchingEngine:
         toks[0, :s_real] = tokens
         prefix = None
         if off:
-            ids = torch.as_tensor(shared_pages, dtype=torch.long, device=self.device)
+            ids = upload(np.asarray(shared_pages, np.int64), self.device)
             prefix = {k: self.state[k][:, ids].reshape(self.state[k].shape[0], 1,
                                                        off, *self.state[k].shape[3:])
                       for k in self._pool_keys}
@@ -549,11 +597,11 @@ class ContinuousBatchingEngine:
         self._prefill_shapes[key] = self._prefill_shapes.get(key, 0) + 1
         t0 = time.monotonic()
         logits, sub = self.model.prefill(
-            self.params, self.cfg, torch.as_tensor(toks, device=self.device),
-            self._sub_template, length=torch.tensor([s_real], device=self.device),
-            prefix=prefix,
+            self.params, self.cfg, upload(toks, self.device), self._sub_template,
+            length=upload(np.array([s_real], np.int64), self.device), prefix=prefix,
         )
-        last = logits[0, -1].float().cpu().numpy()  # sync-point
+        with sync_point(self.device):
+            last = logits[0, -1].float().cpu().numpy()  # sync-point
         self.stats["prefill_s"] += time.monotonic() - t0
         self.stats["prefill_tokens"] += s_real
         return last, sub, bucket
@@ -571,7 +619,7 @@ class ContinuousBatchingEngine:
         pages ``page_ids``, zero-padded or cut to whole pages; rows past the
         prompt inside a page are hidden behind ``pos`` until decode
         overwrites them."""
-        ids = torch.as_tensor(page_ids, dtype=torch.long, device=self.device)
+        ids = upload(np.asarray(page_ids, np.int64), self.device)
         n, ps = len(page_ids), self.page_size
         for k in self._pool_keys:
             pool = self.state[k]
@@ -583,7 +631,7 @@ class ContinuousBatchingEngine:
             pool[:, ids] = rows.reshape(rows.shape[0], n, ps, *rows.shape[2:]).to(pool.dtype)
 
     def _upload_bt(self) -> None:
-        self.state["bt"].copy_(torch.as_tensor(self._bt))
+        upload(self._bt, self.device, out=self.state["bt"])
 
     def _admit(self) -> None:
         while self.queue:
@@ -733,7 +781,7 @@ class ContinuousBatchingEngine:
         if self.allocator is not None:
             self.allocator.release([int(p) for p in self._bt[i] if p >= 0])
             self._map_row(i, [])
-            self.state["pos"][i] = 0
+            self.state["pos"][i].zero_()  # a fill: item assignment would upload a host scalar
         if self.ragged:
             self._pos_host[i] = 0
 
@@ -809,7 +857,9 @@ class ContinuousBatchingEngine:
             self._admit()
             return len(active)
         tok = np.zeros((self.batch, 1), np.int64)
-        pos = self.state["pos"].cpu().numpy()  # sync-point: next write offset per slot
+        with sync_point(self.device):
+            # a copy, since the step advances pos in place
+            pos = self.state["pos"].cpu().numpy().copy()  # sync-point: next write offset per slot
         live = []
         for i in active:
             req = self.slots[i]
@@ -824,9 +874,9 @@ class ContinuousBatchingEngine:
                 live.append(i)
         if live:
             t0 = time.monotonic()
-            logits, self.state = self.model.decode_step(
-                self.params, self.cfg, self.state, torch.as_tensor(tok, device=self.device))
-            last = logits[:, -1].float().cpu().numpy()  # sync-point
+            logits = self.step_graph(tokens=tok)
+            with sync_point(self.device):
+                last = logits[:, -1].float().cpu().numpy()  # sync-point
             self.stats["decode_s"] += time.monotonic() - t0
             self.stats["decode_steps"] += 1
             self.stats["decode_tokens"] += len(live)
@@ -851,7 +901,9 @@ class ContinuousBatchingEngine:
         they are overwritten."""
         k = self.spec_k
         tok = np.zeros((self.batch, k), np.int64)
-        pos = self.state["pos"].cpu().numpy()  # sync-point: next write offset per slot
+        with sync_point(self.device):
+            # a copy, since the step advances pos in place
+            pos = self.state["pos"].cpu().numpy().copy()  # sync-point: next write offset per slot
         live: list[int] = []
         drafts: dict[int, list] = {}
         for i in active:
@@ -870,9 +922,9 @@ class ContinuousBatchingEngine:
         if not live:
             return
         t0 = time.monotonic()
-        logits, self.state = self.model.decode_step(
-            self.params, self.cfg, self.state, torch.as_tensor(tok, device=self.device))
-        last = logits.float().cpu().numpy()  # sync-point: (B, k, V) verify download
+        logits = self.step_graph(tokens=tok)
+        with sync_point(self.device):
+            last = logits.float().cpu().numpy()  # sync-point: (B, k, V) verify download
         dt = time.monotonic() - t0
         self._spec_shapes[(self.batch, k)] = self._spec_shapes.get((self.batch, k), 0) + 1
         bad = {f // k for f in C.nonfinite_rows(last, self.cfg.vocab)}  # row b*k+j -> slot b
@@ -894,7 +946,7 @@ class ContinuousBatchingEngine:
             committed[i] = 1 + n_acc
             delta[i] = k - committed[i]
         # rewind before any exit: the release path zeroes pos
-        self.state["pos"] -= torch.as_tensor(delta, device=self.device)
+        self.state["pos"] -= upload(delta, self.device)
         self.stats["decode_s"] += dt
         self.stats["decode_steps"] += 1
         self.stats["decode_tokens"] += sum(committed.values())
@@ -975,13 +1027,10 @@ class ContinuousBatchingEngine:
             return len(active)
         ctx = self._pos_host.copy()
         check_ragged_rows(slot, pos, ctx, s_max=self._max_pages * self.page_size)
-        dev = self.device
         t0 = time.monotonic()
-        logits, self.state = self.model.ragged_step(
-            self.params, self.cfg, self.state, torch.as_tensor(tokens, device=dev),
-            torch.as_tensor(slot, device=dev), torch.as_tensor(pos, device=dev),
-            torch.as_tensor(ctx, device=dev), torch.as_tensor(logit_idx, device=dev))
-        last = logits.float().cpu().numpy()  # sync-point: per-slot logits
+        logits = self.step_graph(tokens=tokens, slot=slot, pos=pos, ctx=ctx, logit_idx=logit_idx)
+        with sync_point(self.device):
+            last = logits.float().cpu().numpy()  # sync-point: per-slot logits
         dt = time.monotonic() - t0
         # wall time split by scheduled-row share so both tok/s stay honest
         self.stats["decode_s"] += dt * len(decode_rows) / row
@@ -1052,7 +1101,13 @@ class ContinuousBatchingEngine:
         """Launch-shape inventory: every distinct (bucket, prefix offset) is
         one prefill shape, O(log max_len) under any traffic; the ragged step
         has one (token_budget) shape, the speculative decode one (batch,
-        spec_k) shape."""
+        spec_k) shape. ``decode_graphs`` / ``spec_graphs`` /
+        ``ragged_graphs`` count the mode's step-graph captures (one per
+        engine once warm), ``graph_replays`` its replays: the port's
+        counterpart of the reference's trace counts."""
+        graphs = dict.fromkeys(("decode_graphs", "spec_graphs", "ragged_graphs"), 0)
+        mode = "ragged" if self.ragged else "spec" if self.speculation else "decode"
+        graphs[f"{mode}_graphs"] = self.step_graph.captures
         return {
             "prefill_traces": len(self._prefill_shapes),
             "prefill_calls": sum(self._prefill_shapes.values()),
@@ -1062,6 +1117,8 @@ class ContinuousBatchingEngine:
                                    and not self.speculation) else 0,
             "ragged_traces": len(self._ragged_shapes),
             "spec_traces": len(self._spec_shapes),
+            **graphs,
+            "graph_replays": self.step_graph.replays,
         }
 
     def memory(self) -> dict:
@@ -1107,7 +1164,9 @@ class ContinuousBatchingEngine:
         assert np.array_equal(refs, self.allocator.ref), (
             f"refcount drift: mapped+cached {refs.tolist()} vs allocator "
             f"{self.allocator.ref.tolist()}")
-        assert np.array_equal(self.state["bt"].cpu().numpy(), self._bt), "device bt drifted"
+        with sync_point(self.device):
+            bt = self.state["bt"].cpu().numpy()  # sync-point: the audit's read-back
+        assert np.array_equal(bt, self._bt), "device bt drifted"
 
     def routing(self) -> dict:
         """Kernel routes taken since this engine was built: {kind/path: n}

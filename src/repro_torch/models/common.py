@@ -11,8 +11,9 @@ there). Paged decode and ragged attention go through the block-table
 kernels (``dispatch.paged_decode`` / ``dispatch.ragged_attention``).
 
 Unlike the reference's immutable arrays, the decode paths update the KV
-cache and the page pools in place (one row write per slot, row and layer
-instead of a copy of the whole cache or pool).
+cache, the page pools and the position vector in place (one row write per
+slot, row and layer instead of a copy of the whole cache or pool), at fixed
+shapes and with no host sync, so that one CUDA graph can hold a whole step.
 """
 
 from __future__ import annotations
@@ -196,7 +197,8 @@ def rope_tables(positions: torch.Tensor, head_dim: int, fraction: float, theta: 
     if rot == 0 or theta <= 0:
         return None
     exps = torch.arange(0, rot, 2, dtype=torch.float32, device=positions.device) / rot
-    freqs = 1.0 / (torch.tensor(theta, dtype=torch.float32, device=positions.device) ** exps)
+    # a fill, not an upload of a host scalar: no host sync inside a step
+    freqs = 1.0 / (torch.full((), theta, dtype=torch.float32, device=positions.device) ** exps)
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang), rot
 
@@ -328,12 +330,16 @@ def slot_positions(pos: torch.Tensor, b: int, sq: int = 1) -> torch.Tensor:
 
 def update_cache_slot_stacked(cache: torch.Tensor, t: torch.Tensor, pos: torch.Tensor) -> None:
     """In place: cache (L, B, S, ...) row ``pos[b]`` of every slot b gets
-    t (L, B, 1, ...). Out-of-range positions are dropped, not clamped."""
+    t (L, B, 1, ...). Out-of-range positions are dropped, not clamped: such
+    a slot writes its own (clamped) row's old value back. Each slot writes
+    only its own row, so the fixed-shape write (no host sync) has no
+    collisions."""
     b, s = cache.shape[1], cache.shape[2]
     pos = pos.to(torch.long)
-    ok = (pos >= 0) & (pos < s)
-    slots = torch.arange(b, device=cache.device)[ok]
-    cache[:, slots, pos[ok]] = t[:, ok, 0].to(cache.dtype)
+    ok = ((pos >= 0) & (pos < s)).view(1, b, *([1] * (cache.ndim - 3)))
+    slots = torch.arange(b, device=cache.device)
+    row = pos.clamp(0, s - 1)
+    cache[:, slots, row] = torch.where(ok, t[:, :, 0].to(cache.dtype), cache[:, slots, row])
 
 
 def attention_decode_ro(p: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig,

@@ -148,7 +148,9 @@ def decode_step(params: DenseModel, cfg: ModelConfig, state: dict, tokens: torch
     """tokens (B, sq) -> (logits (B, sq, V), state). Each slot attends its own
     cache prefix; the new rows are written into ``state``'s caches (dense) or
     pools (paged, ``"bt"`` in state) in place after all layers ran, and
-    ``pos`` advances by sq.
+    ``state["pos"]`` advances by sq in place: the returned state is ``state``
+    itself, its tensors the same objects, so a captured step reads and
+    writes the same memory at every replay.
 
     ``sq > 1`` stacks speculative draft rows (paged state only): the paged
     branch routes ``dispatch.paged_decode``, whose row i equals a one-row
@@ -163,8 +165,9 @@ def decode_step(params: DenseModel, cfg: ModelConfig, state: dict, tokens: torch
     paged = "bt" in state
     if paged:  # where each row lands, found before the layers launch
         kp0 = state["k"]
-        where = pool_rows(state["bt"], torch.arange(b, device=x.device).repeat_interleave(sq),
-                            C.slot_positions(pos, b, sq).reshape(-1), kp0.shape[2], kp0.shape[1])
+        slots = torch.arange(b, device=x.device)[:, None].expand(b, sq).reshape(-1)
+        where = pool_rows(state["bt"], slots, C.slot_positions(pos, b, sq).reshape(-1),
+                          kp0.shape[2], kp0.shape[1])
     kts, vts = [], []
     for i, lp in enumerate(params.layers):
         h = _norm(x, lp.ln1, cfg)
@@ -182,12 +185,11 @@ def decode_step(params: DenseModel, cfg: ModelConfig, state: dict, tokens: torch
         kvh, hd = cfg.n_kv_heads, cfg.head_dim
         C.write_page_rows(state["k"], torch.stack(kts).reshape(-1, b * sq, kvh, hd), where)
         C.write_page_rows(state["v"], torch.stack(vts).reshape(-1, b * sq, kvh, hd), where)
-        new_state = {**state, "pos": pos + sq}
     else:
         C.update_cache_slot_stacked(state["k"], torch.stack(kts), pos)
         C.update_cache_slot_stacked(state["v"], torch.stack(vts), pos)
-        new_state = {"k": state["k"], "v": state["v"], "pos": pos + sq}
-    return _unembed(params, cfg, x), new_state
+    state["pos"].copy_(pos + sq)
+    return _unembed(params, cfg, x), state
 
 
 @torch.no_grad()
@@ -198,8 +200,9 @@ def ragged_step(params: DenseModel, cfg: ModelConfig, state: dict, tokens: torch
     pos (T,)`` are the rows (slot == B pads), ``ctx (B,)`` each slot's
     committed rows at step start, ``logit_idx (B,)`` the row whose logits
     each slot wants back. Needs the paged state. The rows are committed to
-    the pools in place; returns (logits (B, V), state) with ``pos = ctx +``
-    the rows scheduled per slot."""
+    the pools in place and ``state["pos"]`` becomes ``ctx +`` the rows
+    scheduled per slot, in place; returns (logits (B, V), state), the state
+    being ``state`` itself."""
     x = C.embed_lookup(params.embed, tokens[None, :])
     kp0 = state["k"]
     where = pool_rows(state["bt"], slot, pos, kp0.shape[2], kp0.shape[1])
@@ -216,5 +219,5 @@ def ragged_step(params: DenseModel, cfg: ModelConfig, state: dict, tokens: torch
     C.write_page_rows(state["v"], torch.stack(vts), where)
     b = ctx.shape[0]
     counts = (slot.long()[None, :] == torch.arange(b, device=x.device)[:, None]).sum(dim=1)
-    new_state = {**state, "pos": (ctx.long() + counts).to(torch.int32)}
-    return _unembed(params, cfg, x[0][logit_idx.long()][None])[0], new_state
+    state["pos"].copy_(ctx.long() + counts)
+    return _unembed(params, cfg, x[0][logit_idx.long()][None])[0], state
