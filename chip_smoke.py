@@ -4,6 +4,7 @@
     python3 chip_smoke.py --dual-only      # build + the dual kernels' phase
     python3 chip_smoke.py --timing-only [--src OTHER_TREE/src]
     python3 chip_smoke.py --ragged-serve [--src OTHER_TREE/src]
+    python3 chip_smoke.py --lifecycle-only  # build, W4A4 llama3-8b, the lifecycle phase
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -60,6 +61,27 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    ``assert_compile_budget``). A speculative W4A4 run with the norms and
    head over the whole draft stack reports which of them gave a row other
    bits (``--spec-probe N``: every variant, N times);
+   Between the W4A4 and W4A8 runs, the lifecycle phase on the same W4A4
+   packs (``lifecycle_phase``; 4 slots, max_len 128, page 16): the
+   reference's default traffic mix (``launch/workload.make_workload``, seed
+   0, 12 draws) replayed with preemption (a pool of ``LIFE_PAGES`` pages)
+   in the paged, ragged and speculative modes and once each without (a
+   pool that never runs short), under ``lifecycle_checks``,
+   ``page_invariant_checks``, ``guarded_decode`` from the third step (and
+   ``no_recompiles``, ragged) and ``assert_compile_budget``: every request
+   terminal, preemption and prefix hits in each run with preemption,
+   ``on_token`` once per emitted token, no page held past the prefix
+   cache's registrations, one capture per engine, no plain-version route;
+   each resumed request's restored pages checked exactly against its pages
+   at preemption (a planted swapped page must fail), and every request's
+   token rows against the run without preemption (``torch.equal`` gated in
+   ``RESUME_EQUAL``, else printed); ``latency()`` per run; then host-side
+   faults on a 4-slot paged engine, each confined to its own request (NaN
+   logits in one slot, a tampered pack, allocation denials, cancels and a
+   step deadline) and the plain versions forced at 2 layers (routes
+   ``ref[forced]``, no kernel launched, the kernels again after
+   ``restore()``; the forced run's steps are eager, since the plain paged
+   decode's masked writes do not capture);
 5. qwen3-8b — the paper's second model at full width, depth cut to
    ``QWEN_LAYERS``, W4A4 (fused) and W4A16, paged, with the same checks.
 
@@ -67,8 +89,10 @@ The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
 
 ``--dual-only`` runs phases 1-2 and the dual kernels' part of phase 3 and
-prints no result line, as does ``--ragged-serve`` (phases 1-2, then
-llama3-8b's W4A16 and W4A4 ragged-mode runs of phase 4 alone); ``--timing-only`` times the four dual wrappers at
+prints no result line, as do ``--ragged-serve`` (phases 1-2, then
+llama3-8b's W4A16 and W4A4 ragged-mode runs of phase 4 alone) and
+``--lifecycle-only`` (phases 1-2, then the lifecycle phase on llama3-8b's
+W4A4 packs); ``--timing-only`` times the four dual wrappers at
 their table cases, ``w4a16_gemm`` at the four llama3-8b shapes and M in
 ``W4A16_MS``, the paged decode kernel at its table case (sq 1 and 4,
 commit off) and the ragged kernel at its (T = 256): device ms from a CUDA
@@ -1803,12 +1827,551 @@ class Served:
               f"{len(reqs)} requests (not gated)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: the request lifecycle on the W4A4 packs (preemption, cancel,
+# deadlines, injected faults, the seeded traffic harness)
+# ---------------------------------------------------------------------------
+
+LIFE_SLOTS = 4
+LIFE_MAX_LEN = 128  # the workload's longest timeline is 60 prompt + 16 new tokens
+# fewer pages than 4 slots x the 5 pages a chat or summarize request
+# reserves (page 16), so admission has to preempt
+LIFE_PAGES = 10
+LIFE_MODES = {"paged": {}, "ragged": dict(ragged=True, token_budget=64),
+              "spec": dict(speculation=True, spec_k=4)}
+# A run with preemption is compared with the same requests served by an
+# engine whose pool never preempts, token by token up to a request's first
+# differing token: rows torch.equal, else their relative L2 error against
+# RESUME_REL_MAX (the bf16 ragged-vs-prefill bound, RAGGED_BF16_REL_MAX) and
+# whether a differing token came where the uninterrupted row's top-2 margin
+# is within RESUME_REL_MAX of its largest |logit|. Gated on the card in the
+# modes of RESUME_EQUAL (rows torch.equal); elsewhere printed, since a
+# resumed W4A4 request re-prefills rows that decode steps first wrote, and
+# 4-bit activations carry that rounding difference far (W4A4 ragged-vs-
+# prefill logits read 0.27-0.51 on the card, PERF.md). Every mode is gated
+# on the copy-free restore itself (_RestoreCheck).
+RESUME_REL_MAX = 0.025
+RESUME_EQUAL = frozenset({"ragged"})
+# the kernels this phase's runs launch (w4a16_gemm serves the W4A16 model)
+LIFE_KERNELS = ("dual_gemv", "dual_gemv_group", "dual_gemm", "dual_gemm_group",
+                "paged_decode_kernel", "ragged_attention_kernel")
+FORCED_LAYERS = 2  # the plain dual GEMV takes ~24 ms a call on the card
+
+
+def _counts() -> tuple[dict, dict]:
+    """(launch counts, route counts) now."""
+    from repro_torch.kernels import cuda_launch, dispatch
+
+    return cuda_launch.launch_counts(), dispatch.dispatch_counters()
+
+
+def _since(before: tuple[dict, dict]) -> tuple[dict, dict]:
+    """The launches and routes added since ``before`` (a ``_counts()``)."""
+    from repro_torch.launch.step_graph import _minus
+
+    return tuple(_minus(a, b) for a, b in zip(_counts(), before))
+
+
+def _life_engine(cfg, qp, device, mode: str, **kw):
+    from repro_torch.launch.serve import ContinuousBatchingEngine
+
+    return ContinuousBatchingEngine(cfg, qp, batch_slots=LIFE_SLOTS, max_len=LIFE_MAX_LEN,
+                                    device=device, paged=True, page_size=16,
+                                    **{**LIFE_MODES[mode], **kw})
+
+
+def _life_workload(cfg):
+    """The reference's default traffic mix (chat behind a 3-page shared
+    prompt, summarize, bursts of 3 at top priority), 12 draws from seed 0;
+    request ids name the items."""
+    from repro_torch.launch.workload import default_scenarios, make_workload
+
+    wl = make_workload(0, n_requests=12, mean_gap_steps=4,
+                       scenarios=default_scenarios(page_size=16), vocab=cfg.vocab)
+    for k, it in enumerate(wl.items):
+        it.request.request_id = f"w{k}"
+    return wl
+
+
+class _TokenLogits:
+    """The logits row behind every token an engine emits (host f32, the
+    vocab's columns), per request id: the held row for a sampled token, and
+    in a verify step the row each accepted draft (or the capped slot's last
+    token) was checked against. Wraps ``_emit_token``, ``step`` and the
+    logits tap, all on the host; ``close()`` takes them off."""
+
+    def __init__(self, eng, vocab: int):
+        import numpy as np
+
+        from repro_torch.models import common as C
+
+        self.rows: dict = {}
+        self._eng, self._verify, self._taken = eng, None, {}
+        self._emit, self._step = eng._emit_token, eng.step
+
+        def tap(last, tag):
+            if last.ndim == 3:  # the (B, spec_k, V) verify download
+                self._verify, self._taken = last, {}
+            return last
+
+        def emit(req, tok):
+            row = req._last_logits
+            if self._verify is not None:
+                i = next(i for i, s in enumerate(eng.slots) if s is req)
+                j = self._taken.get(i, 0)
+                self._taken[i] = j + 1
+                row = self._verify[i, j]
+            self.rows.setdefault(req.request_id, []).append(np.array(row[:vocab], np.float32))
+            self._emit(req, tok)
+
+        def step():
+            self._verify = None
+            return self._step()
+
+        self._prev_tap = C.set_logits_tap(tap)
+        eng._emit_token, eng.step = emit, step
+
+    def close(self) -> None:
+        from repro_torch.models import common as C
+
+        C.set_logits_tap(self._prev_tap)
+        self._eng._emit_token, self._eng.step = self._emit, self._step
+
+
+class _RestoreCheck:
+    """The copy-free restore of every resumed request, checked exactly: the
+    victim's whole committed pages are saved when it is preempted, and when
+    its readmission maps pages from the prefix cache, each restored page
+    must be the one the cache holds under the request's own tokens at that
+    position (the key chain, walked here without touching the cache's LRU
+    ticks), and a page that is still the victim's own page at that position
+    must hold, ``torch.equal``, the keys and values it held at preemption.
+    Wraps the engine's ``_preempt`` and ``_reserve``."""
+
+    def __init__(self, eng):
+        import torch
+
+        from repro_torch.launch.step_graph import sync_point
+
+        self.saved: dict = {}  # request id -> [(page, {pool key: rows})] by position
+        self.restores = 0  # readmissions that mapped restored pages
+        self.compared = 0  # restored pages compared with their saved rows
+        self.bad: list = []
+        self.resumed: dict = {}  # request id -> (tokens out, effective prompt) at readmission
+        preempt, reserve, pc = eng._preempt, eng._reserve, eng.prefix_cache
+
+        def on_preempt(i, req):
+            n = eng._committed_rows(i, req) // eng.page_size
+            self.saved[req.request_id] = [
+                (int(p), {k: eng.state[k][:, int(p)].clone() for k in eng._pool_keys})
+                for p in eng._bt[i][:n]]
+            return preempt(i, req)
+
+        def chain(prompt) -> list:
+            pages, parent = [], 0
+            for j in range((len(prompt) - 1) // pc.page_size):
+                e = pc.entries.get(pc._key(parent, prompt, j))
+                if e is None:
+                    break
+                pages.append(e.page)
+                parent = e.eid
+            return pages
+
+        def on_reserve(req, prompt, bucket_prefix):
+            res = reserve(req, prompt, bucket_prefix)
+            if res is not None and req._preemptions:
+                self.resumed[req.request_id] = (len(req.out), prompt.copy())
+            if res is None or not req._preemptions or not res[1]:
+                return res
+            shared = res[1]
+            self.restores += 1
+            if chain(prompt)[:len(shared)] != shared:
+                self.bad.append((req.request_id, "pages", shared, chain(prompt)))
+            for j, p in enumerate(shared):
+                saved = self.saved.get(req.request_id, [])
+                if j < len(saved) and saved[j][0] == p:
+                    self.compared += 1
+                    with sync_point(eng.device):
+                        same = all(torch.equal(eng.state[k][:, p], v)  # sync-point: the check
+                                   for k, v in saved[j][1].items())
+                    if not same:
+                        self.bad.append((req.request_id, "rows", j, p))
+            return res
+
+        eng._preempt, eng._reserve = on_preempt, on_reserve
+
+
+def _life_replay(name: str, eng, wl, card: str, *, tight: bool) -> dict:
+    """Replay ``wl`` through ``eng`` under ``lifecycle_checks`` and
+    ``page_invariant_checks`` (every step), from the third step on (after
+    the warm-up and the capture) ``guarded_decode`` and, ragged,
+    ``no_recompiles``; then ``assert_compile_budget``. Checks every request
+    terminal, ``on_token`` once per emitted token, no page held past the
+    prefix cache's registrations, one capture per engine, no plain-version
+    route, and (``tight``) that preemption and prefix hits happened, or
+    (not ``tight``) that nothing was preempted. Returns the run."""
+    import contextlib
+
+    from repro_torch.analysis.sanitizers import (
+        assert_compile_budget,
+        guarded_decode,
+        lifecycle_checks,
+        no_recompiles,
+        page_invariant_checks,
+    )
+    from repro_torch.launch.serve import RequestState
+    from repro_torch.launch.workload import replay
+
+    restore = _RestoreCheck(eng) if tight else None
+    fired: dict = {}
+    for it in wl.items:
+        it.request.on_token = lambda r, t: fired.setdefault(r.request_id, []).append(t)
+    rec = _TokenLogits(eng, eng.cfg.vocab)
+    steady = contextlib.ExitStack()
+    step, n = eng.step, [0]
+
+    def steady_step():
+        n[0] += 1
+        if n[0] == 3:
+            steady.enter_context(guarded_decode())
+            if eng.ragged:
+                steady.enter_context(no_recompiles(eng))
+        return step()
+
+    eng.step = steady_step
+    before = _counts()
+    t0 = time.perf_counter()
+    try:
+        with lifecycle_checks(eng), page_invariant_checks(eng), steady:
+            reqs = replay(eng, wl)
+    finally:
+        eng.step = step
+        rec.close()
+    wall = time.perf_counter() - t0
+    launches, routes = _since(before)
+    cs = assert_compile_budget(eng)
+    st = eng.stats
+    if any(r.status not in RequestState.TERMINAL for r in reqs):
+        fail(f"{name}: requests not terminal: {[(r.request_id, r.status) for r in reqs]}")
+    twice = [r.request_id for r in reqs if fired.get(r.request_id, []) != r.out]
+    if twice:
+        fail(f"{name}: on_token did not fire once per emitted token for {twice}")
+    held = eng.allocator.n_used - len(eng.prefix_cache)
+    if held:
+        fail(f"{name}: {held} pages held past the prefix cache's registrations")
+    if any("/ref" in k for k in routes):
+        fail(f"{name}: plain-version routes taken: {routes}")
+    cuda = eng.device.type == "cuda"
+    graphs = cs["ragged_graphs" if eng.ragged else "spec_graphs" if eng.speculation
+                else "decode_graphs"]
+    if cuda and (graphs != 1 or cs["graph_replays"] != eng.step_graph.steps - 1):
+        fail(f"{name}: step graph captures {graphs}, replays {cs['graph_replays']} of "
+             f"{eng.step_graph.steps} steps; want one capture")
+    if tight and not (st["requests_preempted"] >= 1 and st["prefix_hits"] >= 1):
+        fail(f"{name}: preempted {st['requests_preempted']}, prefix hits "
+             f"{st['prefix_hits']}: the tight pool must preempt and hit")
+    if not tight and st["requests_preempted"]:
+        fail(f"{name}: the uninterrupted run preempted {st['requests_preempted']} times")
+    status = {}
+    for r in reqs:
+        status[r.status] = status.get(r.status, 0) + 1
+    lat = eng.latency()
+    pct = {k: {q: round(lat[k][q], 3) for q in ("p50", "p95", "p99")}
+           for k in ("ttft_ms", "tpot_ms", "e2e_ms")}
+    print(f"lifecycle {name} requests={len(reqs)} {json.dumps(status)} "
+          f"preempted={st['requests_preempted']} "
+          f"(requests {sum(r._preemptions > 0 for r in reqs)}) prefix_hits={st['prefix_hits']}/"
+          f"{st['prefix_lookups']} steps={eng._steps} wall_s={wall:.3f} pages={eng.n_pages} "
+          f"graph captures={graphs} replays={cs['graph_replays']} routes_ref=0 on_token once "
+          f"per token, no page held past {len(eng.prefix_cache)} registrations; sanitizers "
+          f"(lifecycle_checks, page_invariant_checks, guarded_decode from step 3"
+          f"{', no_recompiles' if eng.ragged else ''}, assert_compile_budget) ok", flush=True)
+    print(f"lifecycle {name} latency {json.dumps(pct)} goodput_tok_s="
+          f"{lat['goodput_tok_s']:.2f} preemption_rate={lat['preemption_rate']:.4f} "
+          f"prefix_hit_rate={lat['prefix_hit_rate']:.4f} queue_depth_max="
+          f"{lat['queue_depth_max']} (host clock; card {card})", flush=True)
+    return {"reqs": reqs, "rows": rec.rows, "restore": restore, "eng": eng}
+
+
+def _against_uninterrupted(got: dict, want: dict) -> dict:
+    """Each DONE, untruncated request of a run with preemption against the
+    same request in a run without (``RESUME_REL_MAX`` above), over the
+    token rows both runs emitted, up to the request's first differing
+    token."""
+    import numpy as np
+
+    out = {"requests": 0, "preempted": 0, "rows": 0, "equal_rows": 0, "within": 0,
+           "max_rel": 0.0, "preempted_max_rel": 0.0, "parted": []}
+    ref = {r.request_id: r for r in want["reqs"]}
+    for r in got["reqs"]:
+        w = ref[r.request_id]
+        if r.status != "DONE" or r.truncated or w.status != "DONE" or w.truncated:
+            continue
+        out["requests"] += 1
+        out["preempted"] += r._preemptions > 0
+        for t, (a, b) in enumerate(zip(got["rows"][r.request_id], want["rows"][w.request_id])):
+            out["rows"] += 1
+            rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+            out["equal_rows"] += bool(np.array_equal(a, b))
+            out["within"] += rel <= RESUME_REL_MAX
+            out["max_rel"] = max(out["max_rel"], rel)
+            if r._preemptions:
+                out["preempted_max_rel"] = max(out["preempted_max_rel"], rel)
+            if r.out[t] != w.out[t]:
+                top = np.sort(b)[-2:]
+                margin = float(top[1] - top[0]) / float(np.abs(b).max())
+                out["parted"].append((r.request_id, t, round(margin, 5),
+                                      "within" if margin <= RESUME_REL_MAX else "over"))
+                break
+    out["equal"] = out["equal_rows"] == out["rows"]
+    return out
+
+
+def _swap_restored_page(eng) -> list:
+    """Plant a fault in a run with preemption: at the first admission of a
+    preempted request whose prefix match restores pages, the first restored
+    page is swapped for another cached page (another prompt's keys and
+    values). Returns the log of swaps (empty until one was admitted)."""
+    pc, done, trial = eng.prefix_cache, [], []
+    match, admit = pc.match, eng._admit_one
+    resuming = [False]
+
+    def swapped(prompt):
+        m, pages = match(prompt)
+        others = [e.page for e in pc.entries.values() if e.page not in pages]
+        if resuming[0] and pages and others and not done:
+            trial.append((pages[0], others[0]))
+            pages = [others[0]] + pages[1:]
+        return m, pages
+
+    def admit_one(req, i):
+        resuming[0] = req._preemptions > 0
+        try:
+            ok = admit(req, i)
+        finally:
+            resuming[0] = False
+        if ok and trial:  # an admission that waited for pages swaps again next time
+            done.append(trial[-1])
+        trial.clear()
+        return ok
+
+    pc.match, eng._admit_one = swapped, admit_one
+    return done
+
+
+def _resume_control(got: dict, want: dict) -> list:
+    """Where a resumed request's first token after its last readmission
+    follows the same tokens in both runs: that row (a prefill over the
+    restored pages), the uninterrupted run's row (a decode step) and a
+    fresh bucketed prefill of the same effective prompt, by relative L2
+    error, [(request, token, resumed vs fresh, uninterrupted vs fresh,
+    resumed vs uninterrupted)]. Run after the replay; not gated."""
+    import numpy as np
+
+    def rel(a, b):
+        return round(float(np.linalg.norm(a - b) / np.linalg.norm(b)), 5)
+
+    eng, ref = got["eng"], {r.request_id: r for r in want["reqs"]}
+    out = []
+    for r in got["reqs"]:
+        if r.request_id not in got["restore"].resumed:
+            continue
+        t, eff = got["restore"].resumed[r.request_id]
+        w = ref[r.request_id]
+        if r.status != "DONE" or t >= len(w.out) or r.out[:t] != w.out[:t]:
+            continue
+        fresh = eng._run_prefill(eff)[0][:eng.cfg.vocab]
+        a, b = got["rows"][r.request_id][t], want["rows"][r.request_id][t]
+        out.append((r.request_id, t, rel(a, fresh), rel(b, fresh), rel(a, b)))
+    return out
+
+
+def _resume_line(mode: str, g: dict, restore) -> str:
+    return (f"lifecycle {mode} resume: restored pages exact ({restore.restores} readmissions "
+            f"restored pages, {restore.compared} pages torch.equal to their rows at "
+            f"preemption); vs uninterrupted: {'equal' if g['equal'] else 'not equal'} "
+            f"({g['equal_rows']} of {g['rows']} token rows torch.equal, {g['within']} within rel "
+            f"{RESUME_REL_MAX}; {g['requests']} DONE requests, {g['preempted']} of them "
+            f"preempted; max_rel {g['max_rel']:.5f}, over preempted requests "
+            f"{g['preempted_max_rel']:.5f}); tokens parted at {g['parted']} (request, token, "
+            f"top-2 margin / max |logit|)")
+
+
+def _life_faults(cfg, qp, device, wl) -> None:
+    """Host-side faults on a 4-slot paged engine (pool big enough not to
+    preempt), each confined to its own request: NaN logits in one slot
+    mid-decode, a tampered pack, allocation denials, cancels (live and
+    queued) and a step deadline; then the plain versions forced at
+    ``FORCED_LAYERS`` layers, and the kernels again after ``restore()``."""
+    from repro_torch.analysis.sanitizers import lifecycle_checks, page_invariant_checks
+    from repro_torch.launch.faults import FaultInjector
+    from repro_torch.launch.serve import Request
+
+    def reqs(ks, **kw):
+        return [Request(wl.items[k].request.prompt, max_new=8, request_id=f"f{k}", **kw)
+                for k in ks]
+
+    def run(eng, rs, fn=None):
+        with lifecycle_checks(eng), page_invariant_checks(eng):
+            for r in rs:
+                eng.submit(r)
+            if fn is not None:
+                fn(eng, rs)
+            eng.run_until_done()
+        held = eng.allocator.n_used - len(eng.prefix_cache)
+        if held:
+            fail(f"faults: {held} pages held past the prefix cache's registrations")
+        return rs
+
+    clean = run(_life_engine(cfg, qp, device, "paged"), reqs(range(4)))
+    if any(r.status != "DONE" for r in clean):
+        fail(f"faults: clean run not DONE: {[r.status for r in clean]}")
+    want = {r.request_id: r.out for r in clean}
+
+    def same(rs):
+        return [r.request_id for r in rs if r.status == "DONE" and r.out != want[r.request_id]]
+
+    with FaultInjector(seed=0) as fi:
+        fi.corrupt_logits(slot=1, at_call=3, tag="decode")
+        got = run(_life_engine(cfg, qp, device, "paged"), reqs(range(4)))
+    bad = [(r.request_id, r.status, r.error) for r in got if r.status != "DONE"]
+    victim = got[1]
+    if (bad != [(victim.request_id, "FAILED", "nan_logits")] or same(got)
+            or victim.out != want[victim.request_id][:len(victim.out)]):
+        fail(f"faults: corrupt_logits not confined to slot 1: {bad}, others differ {same(got)}")
+    print(f"lifecycle faults corrupt_logits (slot 1, 3rd decode download): {victim.request_id} "
+          f"FAILED nan_logits after {len(victim.out)} tokens; the other 3 requests' tokens "
+          f"equal the clean run's", flush=True)
+
+    fi = FaultInjector(seed=0)
+    bad_params = fi.tamper_pack(qp)
+    got = run(_life_engine(cfg, bad_params, device, "paged"), reqs([0]))[0]
+    if got.status != "FAILED" or got.error != "prefill_exception" \
+            or "ContractError" not in (got.error_detail or ""):
+        fail(f"faults: tampered pack gave {got.status} {got.error} {got.error_detail}")
+    print(f"lifecycle faults tamper_pack ({fi.log[-1]['path']} rp {fi.log[-1]['rp_shape']}): "
+          f"FAILED prefill_exception, {got.error_detail.splitlines()[0][:100]}", flush=True)
+    del bad_params
+
+    with FaultInjector(seed=0) as fi:
+        eng = _life_engine(cfg, qp, device, "paged")
+        fi.deny_alloc(eng, at_call=2, count=3)
+        got = run(eng, reqs(range(4)))
+    denied = sum(d["kind"] == "deny_alloc" for d in fi.log)
+    if not denied or any(r.status != "DONE" for r in got) or same(got):
+        fail(f"faults: deny_alloc ({denied} denials): {[r.status for r in got]}, "
+             f"differ {same(got)}")
+    print(f"lifecycle faults deny_alloc: {denied} denials, every request DONE with the clean "
+          f"run's tokens", flush=True)
+
+    rs = reqs(range(6))
+    rs[2].deadline_steps = 3
+
+    def cancel(eng, rs):
+        eng.step()
+        eng.step()
+        if not (eng.cancel(rs[1]) and eng.cancel(rs[5].request_id)):
+            fail("faults: cancel of a live and a queued request returned False")
+
+    got = run(_life_engine(cfg, qp, device, "paged"), rs, cancel)
+    want_status = ["DONE", "CANCELLED", "TIMED_OUT", "DONE", "DONE", "CANCELLED"]
+    if [r.status for r in got] != want_status or got[2].error != "deadline_steps" \
+            or got[5].out or same(got[:4]):
+        fail(f"faults: cancel/deadline statuses {[(r.status, r.error) for r in got]}")
+    print(f"lifecycle faults cancel/deadline: live {got[1].request_id} CANCELLED after "
+          f"{len(got[1].out)} tokens, queued {got[5].request_id} CANCELLED, {got[2].request_id} "
+          f"TIMED_OUT (deadline_steps 3) after {len(got[2].out)} tokens, pages back, survivors "
+          f"equal the clean run's", flush=True)
+
+    # the degraded mode serves eager steps: the plain paged decode writes the
+    # draft rows through a boolean mask, which a graph capture refuses
+    small, scfg = _first_layers(qp, FORCED_LAYERS), cfg.replace(n_layers=FORCED_LAYERS)
+    with FaultInjector(seed=0) as fi:
+        fi.force_ref_dispatch()
+        before = _counts()
+        forced = run(_life_engine(scfg, small, device, "paged", step_graphs=False),
+                     reqs(range(2)))
+        launches, routes = _since(before)
+    if launches or not routes or not all(k.endswith(("/ref", "/ref[forced]")) for k in routes):
+        fail(f"faults: forced run launched {launches}, routes {routes}")
+    before = _counts()
+    after = run(_life_engine(scfg, small, device, "paged"), reqs(range(2)))
+    launches2, routes2 = _since(before)
+    if any("/ref" in k for k in routes2) or (device.type == "cuda" and not launches2):
+        fail(f"faults: after restore() routes {routes2}, launches {launches2}")
+    print(f"lifecycle faults force_ref_dispatch ({FORCED_LAYERS} layers, eager steps): routes "
+          f"{json.dumps(routes, sort_keys=True)}, no kernel launched; after restore() routes "
+          f"{json.dumps(routes2, sort_keys=True)}; tokens equal: "
+          f"{[a.out == b.out for a, b in zip(forced, after)]} (not gated)", flush=True)
+
+
+def lifecycle_phase(device, card: str, cfg, qp) -> None:
+    """The request lifecycle on ``qp`` (``cfg``'s W4A4 packs): the seeded
+    workload replayed with preemption in the paged, ragged and speculative
+    modes and without it (a pool that never runs short), each held by
+    ``_life_replay``; per mode the copy-free restore (``_RestoreCheck``,
+    which a planted swapped page must fail) and the comparison with the
+    uninterrupted run (``_against_uninterrupted``, gated in
+    ``RESUME_EQUAL`` on the card); then ``_life_faults``. Fails unless every
+    kernel of ``LIFE_KERNELS`` launched in the phase."""
+    from repro_torch.kernels import cuda_launch, dispatch
+
+    cuda_launch.reset_launch_counts()
+    dispatch.reset_dispatch_counters()
+    for mode in LIFE_MODES:
+        want = _life_replay(f"{mode} uninterrupted", _life_engine(cfg, qp, device, mode),
+                            _life_workload(cfg), card, tight=False)
+        got = _life_replay(f"{mode} preempting",
+                           _life_engine(cfg, qp, device, mode, n_pages=LIFE_PAGES,
+                                        preemption=True),
+                           _life_workload(cfg), card, tight=True)
+        g, restore = _against_uninterrupted(got, want), got["restore"]
+        print(_resume_line(mode, g, restore), flush=True)
+        if not got["eng"].ragged:
+            print(f"lifecycle {mode} resume control (request, token, rel: resumed vs a fresh "
+                  f"prefill of its timeline, uninterrupted decode vs that prefill, resumed vs "
+                  f"uninterrupted): {_resume_control(got, want)}", flush=True)
+        # a verify step's acceptance follows the tokens, so the speculative
+        # schedule (and whether a resume restores pages) may differ by device
+        if restore.bad or (mode != "spec" and not restore.compared):
+            fail(f"{mode}: copy-free restore: {restore.bad[:3]}, {restore.compared} restored "
+                 f"pages compared in {restore.restores} readmissions")
+        if device.type == "cuda" and mode in RESUME_EQUAL and not g["equal"]:
+            fail(f"{mode}: rows of the run with preemption != the uninterrupted run's: "
+                 f"{g['rows'] - g['equal_rows']} of {g['rows']} differ, tokens parted at "
+                 f"{g['parted']}")
+        if mode == "paged":
+            eng = _life_engine(cfg, qp, device, mode, n_pages=LIFE_PAGES, preemption=True)
+            swaps = _swap_restored_page(eng)
+            planted = _life_replay("paged planted fault", eng, _life_workload(cfg), card,
+                                   tight=True)
+            caught = planted["restore"].bad
+            if not swaps or not caught:
+                fail(f"planted fault (restored page swapped: {swaps}) not caught by the restore "
+                     f"check")
+            pg = _against_uninterrupted(planted, want)
+            print(f"lifecycle paged planted fault (restored page {swaps[0][0]} swapped for "
+                  f"{swaps[0][1]}): caught {caught[:2]}; vs uninterrupted max_rel over preempted "
+                  f"requests {pg['preempted_max_rel']:.5f}, tokens parted at {pg['parted']}",
+                  flush=True)
+        del want, got
+    _life_faults(cfg, qp, device, _life_workload(cfg))
+    launches = cuda_launch.launch_counts()
+    missing = [k for k in LIFE_KERNELS if not launches.get(k)]
+    if device.type == "cuda" and missing:
+        fail(f"lifecycle: kernels never launched in the phase: {missing}")
+    print(f"lifecycle launches {json.dumps({k: launches.get(k, 0) for k in LIFE_KERNELS})}",
+          flush=True)
+
+
 def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2048,
-                rank: int = 128, spec_probe: int = 0) -> dict:
+                rank: int = 128, spec_probe: int = 0, secs: dict | None = None) -> dict:
     """Serve ``cfg`` (random weights, seed 0) through the engine: W4A4
     (quantized once) and W4A16 in the bucketed, paged, speculative and
     ragged modes, W4A8 (the W4A4 packs at a_bits 8) paged; check each;
-    returns each kernel's launch count from the run whose main path it is.
+    between W4A4 and W4A8 the lifecycle phase on the W4A4 packs (its
+    seconds into ``secs["lifecycle"]``); returns each kernel's launch count
+    from the run whose main path it is.
     ``spec_probe`` > 0 repeats the W4A4 paged run and every speculative
     variant (``SPEC_VARIANTS``) that many times. Runs on the CPU too (plain
     versions), which is how it is rehearsed off the card."""
@@ -1872,6 +2435,13 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
     launches = dict(w4.launches)
     w4_times = dict(w4.step_times)
 
+    # -- the request lifecycle on the same packs
+    t_life = time.perf_counter()
+    lifecycle_phase(device, card, cfg, qp)
+    life_s = time.perf_counter() - t_life
+    if secs is not None:
+        secs["lifecycle"] = life_s
+
     # -- W4A8: the same packs at a_bits 8, paged
     t5 = time.perf_counter()
     w8 = Served("w4a8", cfg, with_activation_bits(qp, 8), "w4a8", prompts, device, max_len)
@@ -1892,8 +2462,8 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
             print(f"serve step times {json.dumps({'setting': tag, 'mode': mode, **times})}",
                   flush=True)
     t7 = time.perf_counter()
-    print(f"serve phase seconds: w4a4 {t5 - t4:.1f} w4a8 {t6 - t5:.1f} w4a16 {t7 - t6:.1f}",
-          flush=True)
+    print(f"serve phase seconds: w4a4 {t5 - t4 - life_s:.1f} lifecycle {life_s:.1f} "
+          f"w4a8 {t6 - t5:.1f} w4a16 {t7 - t6:.1f}", flush=True)
     return launches
 
 
@@ -2008,6 +2578,8 @@ def main() -> None:
                          "table cases alone")
     ap.add_argument("--ragged-serve", action="store_true",
                     help="build, then serve llama3-8b in ragged mode alone (W4A16, W4A4)")
+    ap.add_argument("--lifecycle-only", action="store_true",
+                    help="build, quantize llama3-8b W4A4, then run the lifecycle phase alone")
     ap.add_argument("--src", metavar="DIR",
                     help="import repro_torch from DIR (another tree's src) instead")
     args = ap.parse_args()
@@ -2045,6 +2617,18 @@ def main() -> None:
 
         ragged_serve_phase(device, card, get_config("llama3-8b").replace(n_layers=SERVE_LAYERS))
         return
+    if args.lifecycle_only:
+        from repro_torch.configs import QuantSpec, get_config
+        from repro_torch.core.twinquant import fuse_params, quantize_params
+        from repro_torch.models import dense
+
+        cfg = get_config("llama3-8b").replace(n_layers=SERVE_LAYERS)
+        qp = fuse_params(quantize_params(dense.init_params(cfg, seed=0, device=device), cfg,
+                                         QuantSpec("w4a4", rank=128, group_size=128)))
+        t = time.perf_counter()
+        lifecycle_phase(device, card, cfg, qp)
+        print(f"lifecycle phase seconds {time.perf_counter() - t:.1f}", flush=True)
+        return
 
     secs = {}
     t = time.perf_counter()
@@ -2056,8 +2640,8 @@ def main() -> None:
 
     t = time.perf_counter()
     launches = serve_phase(device, card, get_config("llama3-8b").replace(n_layers=SERVE_LAYERS),
-                           spec_probe=args.spec_probe)
-    secs["serve_llama3_8b"] = time.perf_counter() - t
+                           spec_probe=args.spec_probe, secs=secs)
+    secs["serve_llama3_8b"] = time.perf_counter() - t - secs["lifecycle"]
     t = time.perf_counter()
     qwen_phase(device, card, get_config("qwen3-8b").replace(n_layers=QWEN_LAYERS))
     secs["serve_qwen3_8b"] = time.perf_counter() - t

@@ -37,16 +37,27 @@ paged, ragged and speculative modes.
   engine's token for token.
 * Sampling is per request (greedy / temperature / top-k) on the host, with
   ``np.random.default_rng(seed)`` as in the reference.
-* Request lifecycle: ``NEW -> QUEUED -> PREFILL -> DECODE -> {DONE,
-  FAILED}``; a finite-logits guard fails only the slot whose logits went
-  NaN/Inf (``error="nan_logits"``). Every exit releases the slot's pages
-  through ``_release_slot``.
+* Request lifecycle: ``NEW -> QUEUED -> PREFILL -> DECODE -> DONE``, with
+  the exits FAILED (a finite-logits guard fails only the slot whose logits
+  went NaN/Inf, ``error="nan_logits"``; a faulting prefill fails its own
+  request, ``prefill_exception``), CANCELLED (:meth:`cancel`), TIMED_OUT
+  (``deadline_steps`` / ``deadline_s``, checked at the top of every step)
+  and, with ``preemption=True`` (paged), the detour ``PREEMPTED ->
+  PREFILL``: a page-starved queue head preempts the lowest-priority live
+  slot, whose written pages are registered in the prefix cache under
+  prompt + generated tokens so that its readmission restores them
+  copy-free. Every exit releases the slot's pages through
+  ``_release_slot``.
+* Every emitted token fires ``Request.on_token`` once and stamps its time;
+  :meth:`stream` yields one request's tokens as they come, and
+  :meth:`latency` summarizes TTFT / TPOT / E2E (``launch/metrics.py``).
+  Every logits download passes through ``models.common.logits_tap`` (the
+  fault injector's hook, ``launch/faults.py``).
 
 With TwinQuant params (W4A4 / W4A8) the engine pre-merges sibling packs
 (``fuse_params``) when fusion is on, so q/k/v and gate/up each run as one
 kernel launch. W4A16 params serve unfused, one weight-only launch per
 projection (seven a layer), as in the reference.
-Preemption is a later slice of the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -121,6 +132,7 @@ _TRANSITIONS: dict[str, frozenset] = {
 _FINISH_COUNTER = {
     RequestState.DONE: "requests_done",
     RequestState.FAILED: "requests_failed",
+    RequestState.CANCELLED: "requests_cancelled",
     RequestState.TIMED_OUT: "requests_timed_out",
 }
 
@@ -154,8 +166,11 @@ class Request:
     capacity before ``max_new``), ``error``/``error_detail`` on failure, and
     the timestamps ``t_submit`` / ``t_first_token`` / ``t_done`` plus one
     ``token_times`` entry per token (``time.monotonic``). ``on_token(request,
-    token)`` fires once per emitted token; a raising callback is detached
-    with a warning."""
+    token)`` fires once per emitted token (a preempted request's resume
+    never fires a token again); a raising callback is detached with a
+    warning. ``priority`` orders preemption victims (lower goes first);
+    ``deadline_steps`` / ``deadline_s`` bound the request's life in engine
+    steps / seconds from ``submit()``."""
 
     prompt: Any  # (S,) integer token ids
     max_new: int = 16
@@ -169,14 +184,21 @@ class Request:
     token_times: list = dataclasses.field(default_factory=list, repr=False)
     truncated: bool = False
     request_id: Optional[str] = None
+    priority: int = 0
+    deadline_steps: Optional[int] = None
+    deadline_s: Optional[float] = None
     status: str = RequestState.NEW
     error: Optional[str] = None
     error_detail: Optional[str] = None
     _last_logits: Any = dataclasses.field(default=None, repr=False)
     _rng: Any = dataclasses.field(default=None, repr=False)
-    _prompt_host: Any = dataclasses.field(default=None, repr=False)
+    _prompt_host: Any = dataclasses.field(default=None, repr=False)  # the original prompt
     _prompt: Any = dataclasses.field(default=None, repr=False)  # ragged: prompt being chunked
     _filled: int = dataclasses.field(default=0, repr=False)  # ragged: prompt rows scheduled
+    # deadlines resolved at submit (absolute engine step / monotonic time)
+    _deadline_step: Optional[int] = dataclasses.field(default=None, repr=False)
+    _deadline_t: Optional[float] = dataclasses.field(default=None, repr=False)
+    _preemptions: int = dataclasses.field(default=0, repr=False)
 
 
 # ---------------------------------------------------------------------------
@@ -335,13 +357,17 @@ class PrefixCache:
             e.tick = self._tick
             parent = e.eid
 
-    def evict(self, n_free_needed: int) -> int:
+    def evict(self, n_free_needed: int, protect=()) -> int:
         """Drop LRU leaf entries (an inner entry only once its children are
         gone) until the allocator has ``n_free_needed`` free pages or nothing
-        is evictable. Returns the entries evicted."""
+        is evictable. Returns the entries evicted. Entries holding a page in
+        ``protect`` stay: under preemption, the pages an admission has just
+        matched are a preempted request's copy-free resume, and evicting
+        them to fund the same admission would throw that away."""
         evicted = 0
         while self.allocator.n_free < n_free_needed:
-            leaves = [e for e in self.entries.values() if e.children == 0]
+            leaves = [e for e in self.entries.values()
+                      if e.children == 0 and e.page not in protect]
             if not leaves:
                 break
             e = min(leaves, key=lambda e: e.tick)
@@ -375,9 +401,6 @@ def _ngram_draft(hist: list, k: int) -> list:
     return [hist[-1]] * k
 
 
-_LATER = {"preemption": "ROADMAP Queue 1 item 3 (lifecycle, faults)"}
-
-
 class ContinuousBatchingEngine:
     """Continuous-batching server over a static batch of ``batch_slots``
     independent slot timelines: per-slot admission and eviction, per-request
@@ -393,6 +416,8 @@ class ContinuousBatchingEngine:
     ragged) verifies ``spec_k`` rows per slot per launch, drafted by
     ``draft_fn(req, k)`` when given, else by the n-gram self-draft. Ragged
     or speculation without their prerequisites warn and serve bucketed.
+    ``preemption=True`` (paged only) lets a page-starved queue head preempt
+    a strictly lower-priority live slot and requeue it.
 
     ``step_graphs`` (default: on for a CUDA device, off elsewhere) runs the
     mode's step as one captured CUDA graph; ``False`` runs it eagerly, and
@@ -406,9 +431,6 @@ class ContinuousBatchingEngine:
                  max_chunk_share: float = 1.0, speculation: bool = False, spec_k: int = 4,
                  draft_fn: Optional[Callable] = None, preemption: bool = False,
                  step_graphs: Optional[bool] = None):
-        if preemption:
-            raise NotImplementedError(
-                f"preemption=True is not ported yet: it comes with {_LATER['preemption']}")
         if on_truncation not in ("warn", "reject"):
             raise ValueError(f"on_truncation must be 'warn' or 'reject', got {on_truncation!r}")
         if not 0.0 < max_chunk_share <= 1.0:
@@ -430,6 +452,7 @@ class ContinuousBatchingEngine:
         self.batch = batch_slots
         self.max_len = max_len
         self.on_truncation = on_truncation
+        self.preemption = bool(preemption)
         self._layout = C.paged_layout(self.model.init_decode_state, cfg, max_len)
         self._pool_keys = tuple(k for k, (_, seq) in self._layout.items() if seq is not None)
         self._slot_keys = tuple(k for k in self._layout if k not in self._pool_keys)
@@ -489,11 +512,16 @@ class ContinuousBatchingEngine:
                                  f"draft-row cap), got {self.spec_k}")
             else:
                 self.speculation = True
+        # every request ever submitted and the queue depth at each step, for
+        # latency(): host bookkeeping only
+        self._requests: list[Request] = []
+        self._queue_depths: list[int] = []
         self.stats = {
             "prefill_tokens": 0, "prefill_s": 0.0,
             "decode_tokens": 0, "decode_steps": 0, "decode_s": 0.0,
             "requests_done": 0, "requests_truncated": 0,
-            "requests_failed": 0, "requests_timed_out": 0,
+            "requests_failed": 0, "requests_cancelled": 0,
+            "requests_timed_out": 0, "requests_preempted": 0,
             "prefix_lookups": 0, "prefix_hits": 0, "prefix_hit_tokens": 0,
             "spec_launches": 0, "spec_slot_steps": 0, "spec_drafted": 0, "spec_accepted": 0,
         }
@@ -567,8 +595,15 @@ class ContinuousBatchingEngine:
             self._next_rid += 1
         if req.t_submit is None:
             req.t_submit = time.monotonic()
+        if all(req is not r for r in self._requests):
+            self._requests.append(req)
         req._prompt_host = prompt.astype(np.int32)
-        self._set_status(req, RequestState.QUEUED)
+        if req.status == RequestState.NEW:
+            self._set_status(req, RequestState.QUEUED)
+        if req.deadline_steps is not None and req._deadline_step is None:
+            req._deadline_step = self._steps + int(req.deadline_steps)
+        if req.deadline_s is not None and req._deadline_t is None:
+            req._deadline_t = time.monotonic() + float(req.deadline_s)
         self.queue.append(req)
         self._admit()
         return any(s is req for s in self.slots)
@@ -602,6 +637,7 @@ class ContinuousBatchingEngine:
         )
         with sync_point(self.device):
             last = logits[0, -1].float().cpu().numpy()  # sync-point
+        last = C.logits_tap(last, "prefill")
         self.stats["prefill_s"] += time.monotonic() - t0
         self.stats["prefill_tokens"] += s_real
         return last, sub, bucket
@@ -634,18 +670,26 @@ class ContinuousBatchingEngine:
         upload(self._bt, self.device, out=self.state["bt"])
 
     def _admit(self) -> None:
+        admitted: list[Request] = []
         while self.queue:
             free = [i for i, s in enumerate(self.slots) if s is None]
             if not free:
                 return
-            if not self._admit_one(self.queue[0], free[0]):
-                return  # page-gated: wait for evictions
-            self.queue.popleft()
+            head = self.queue[0]
+            if self._admit_one(head, free[0]):
+                self.queue.popleft()
+                admitted.append(head)
+                continue
+            # page-gated: preempt one victim and retry the head, or (no
+            # preemption, no eligible victim) wait for evictions
+            if not self._preempt_for(head, admitted):
+                return
 
     def _reserve(self, req: Request, prompt: np.ndarray, bucket_prefix: bool):
-        """Reserve the request's whole timeline (prompt + quota, capped at
-        max_len) in pages, prefix-cache hits first. Returns (tokens matched,
-        shared pages, own pages), or None when the pool cannot hold it."""
+        """Reserve the request's whole timeline (``prompt``, the effective
+        one, + the quota left, capped at max_len) in pages, prefix-cache
+        hits first. Returns (tokens matched, shared pages, own pages), or
+        None when the pool cannot hold it."""
         need = min(len(prompt) + req.max_new - len(req.out), self.max_len)
         n_res = -(-need // self.page_size)
         m_tok, shared = 0, []
@@ -664,7 +708,10 @@ class ContinuousBatchingEngine:
         try:
             pages = self.allocator.alloc(n_res - len(shared))
             if pages is None and self.prefix_cache is not None:
-                self.prefix_cache.evict(n_res - len(shared))
+                # under preemption the matched pages may be a preempted
+                # request's resume: never evict them to fund this admission
+                protect = frozenset(shared) if self.preemption else frozenset()
+                self.prefix_cache.evict(n_res - len(shared), protect=protect)
                 pages = self.allocator.alloc(n_res - len(shared))
         except Exception:
             self.allocator.release(shared)
@@ -688,7 +735,7 @@ class ContinuousBatchingEngine:
         consumed)."""
         if self.ragged:
             return self._admit_one_ragged(req, i)
-        prompt = req._prompt_host
+        prompt = self._effective_prompt(req)
         if self.allocator is None:
             self._set_status(req, RequestState.PREFILL)
             try:
@@ -731,7 +778,7 @@ class ContinuousBatchingEngine:
         """Ragged admission: reserve the pages (prefix hits included) and
         park the request in slot ``i`` with its chunk cursor at the first
         uncached prompt token; the prompt streams through later steps."""
-        prompt = req._prompt_host
+        prompt = self._effective_prompt(req)
         res = self._reserve(req, prompt, bucket_prefix=False)
         if res is None:
             return False
@@ -784,6 +831,108 @@ class ContinuousBatchingEngine:
             self.state["pos"][i].zero_()  # a fill: item assignment would upload a host scalar
         if self.ragged:
             self._pos_host[i] = 0
+
+    def _effective_prompt(self, req: Request) -> np.ndarray:
+        """The tokens to (re)prefill: the prompt, followed by the tokens
+        generated so far when the request was preempted mid-generation."""
+        if not req.out:
+            return req._prompt_host
+        return np.concatenate([req._prompt_host, np.asarray(req.out, np.int32)])
+
+    def _committed_rows(self, i: int, req: Request) -> int:
+        """Cache rows slot ``i`` has written (prompt + generated). A
+        speculative step has rewound ``pos`` past its rejected rows before
+        any exit, so the count holds there too."""
+        if self.ragged:
+            return int(self._pos_host[i])
+        return len(req._prompt_host) + len(req.out)
+
+    def cancel(self, request) -> bool:
+        """Cancel a queued or live request, given by ``request_id`` or as the
+        :class:`Request`. A live request's pages are released as on any
+        exit; its tokens so far stay on ``out``. Returns False when the
+        request is unknown or already terminal."""
+        req = request if isinstance(request, Request) else next(
+            (r for r in [*self.queue, *self.slots] if r is not None
+             and r.request_id == request), None)
+        if req is None or req.status in RequestState.TERMINAL:
+            return False
+        for i, s in enumerate(self.slots):
+            if s is req:
+                self._release_slot(i)
+                self._finish(req, RequestState.CANCELLED)
+                return True
+        try:
+            self.queue.remove(req)
+        except ValueError:
+            return False  # neither queued nor live
+        self._finish(req, RequestState.CANCELLED)
+        return True
+
+    def _deadline_code(self, req: Request, now: float) -> Optional[str]:
+        if req._deadline_step is not None and self._steps > req._deadline_step:
+            return "deadline_steps"
+        if req._deadline_t is not None and now >= req._deadline_t:
+            return "deadline_s"
+        return None
+
+    def _expire_deadlines(self) -> None:
+        """TIME_OUT every queued or live request past its step or wall-clock
+        deadline; live slots release their pages as on any exit. Runs at the
+        top of every step."""
+        now = time.monotonic()
+        for i, req in enumerate(self.slots):
+            code = None if req is None else self._deadline_code(req, now)
+            if code:
+                self._release_slot(i)
+                self._finish(req, RequestState.TIMED_OUT, code,
+                             f"deadline expired at engine step {self._steps}")
+        expired = [(q, code) for q in self.queue if (code := self._deadline_code(q, now))]
+        for q, code in expired:
+            self.queue.remove(q)
+            self._finish(q, RequestState.TIMED_OUT, code,
+                         f"deadline expired at engine step {self._steps} while queued")
+
+    def _preempt(self, i: int, req: Request) -> None:
+        """Preempt slot ``i``: register its written whole pages in the prefix
+        cache under prompt + generated tokens (so readmission restores them
+        copy-free), release the slot, keep the tokens and requeue. A greedy
+        request resumes on its uninterrupted timeline: the effective prompt
+        is that timeline."""
+        committed = self._committed_rows(i, req)
+        if self.prefix_cache is not None:
+            self.prefix_cache.register(self._effective_prompt(req)[:committed],
+                                       [int(p) for p in self._bt[i] if p >= 0])
+        self._set_status(req, RequestState.PREEMPTED)
+        req._preemptions += 1
+        self.stats["requests_preempted"] += 1
+        self._release_slot(i)
+        req._last_logits = None
+        req._filled = 0
+        req._prompt = None
+        self.queue.append(req)
+
+    def _preempt_for(self, head: Request, admitted: list) -> bool:
+        """Preempt one victim so the page-starved ``head`` can be admitted:
+        the lowest-priority live slot, the longest quota left first. Only a
+        strictly lower priority than the head's is eligible (so chains of
+        preemption end), and neither a slot admitted in this admission pass
+        nor one about to reach capacity anyway. Returns True when a victim
+        was preempted (the caller retries the head)."""
+        if not self.preemption or self.allocator is None:
+            return False
+        victims = [
+            (req.priority, -(req.max_new - len(req.out)), i)
+            for i, req in enumerate(self.slots)
+            if req is not None and all(req is not a for a in admitted)
+            and req.priority < head.priority
+            and self._committed_rows(i, req) + 1 < self.max_len
+        ]
+        if not victims:
+            return False
+        i = min(victims)[2]
+        self._preempt(i, self.slots[i])
+        return True
 
     def _evict(self, i: int, req: Request, truncated: bool) -> None:
         self._release_slot(i)
@@ -848,7 +997,9 @@ class ContinuousBatchingEngine:
         if self.ragged:
             return self._step_ragged()
         self._steps += 1
+        self._expire_deadlines()
         self._admit()
+        self._queue_depths.append(len(self.queue))
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return 0
@@ -877,6 +1028,7 @@ class ContinuousBatchingEngine:
             logits = self.step_graph(tokens=tok)
             with sync_point(self.device):
                 last = logits[:, -1].float().cpu().numpy()  # sync-point
+            last = C.logits_tap(last, "decode")
             self.stats["decode_s"] += time.monotonic() - t0
             self.stats["decode_steps"] += 1
             self.stats["decode_tokens"] += len(live)
@@ -925,6 +1077,7 @@ class ContinuousBatchingEngine:
         logits = self.step_graph(tokens=tok)
         with sync_point(self.device):
             last = logits.float().cpu().numpy()  # sync-point: (B, k, V) verify download
+        last = C.logits_tap(last, "decode")
         dt = time.monotonic() - t0
         self._spec_shapes[(self.batch, k)] = self._spec_shapes.get((self.batch, k), 0) + 1
         bad = {f // k for f in C.nonfinite_rows(last, self.cfg.vocab)}  # row b*k+j -> slot b
@@ -975,7 +1128,9 @@ class ContinuousBatchingEngine:
         from repro_torch.kernels.contracts import check_ragged_rows
 
         self._steps += 1
+        self._expire_deadlines()
         self._admit()
+        self._queue_depths.append(len(self.queue))
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return 0
@@ -1031,6 +1186,7 @@ class ContinuousBatchingEngine:
         logits = self.step_graph(tokens=tokens, slot=slot, pos=pos, ctx=ctx, logit_idx=logit_idx)
         with sync_point(self.device):
             last = logits.float().cpu().numpy()  # sync-point: per-slot logits
+        last = C.logits_tap(last, "ragged")
         dt = time.monotonic() - t0
         # wall time split by scheduled-row share so both tok/s stay honest
         self.stats["decode_s"] += dt * len(decode_rows) / row
@@ -1073,6 +1229,13 @@ class ContinuousBatchingEngine:
         for _ in range(max_steps):
             if self.step() == 0 and not self.queue:
                 return
+        n = self._strand(f"run_until_done exhausted {max_steps} steps")
+        raise EngineStalledError(
+            f"engine stalled after {max_steps} steps with {n} request(s) unfinished")
+
+    def _strand(self, why: str) -> int:
+        """TIME_OUT every live and queued request (``engine_stalled``),
+        pages released; returns how many there were."""
         stranded = []
         for i, req in enumerate(self.slots):
             if req is not None:
@@ -1081,11 +1244,8 @@ class ContinuousBatchingEngine:
         stranded += list(self.queue)
         self.queue.clear()
         for req in stranded:
-            self._finish(req, RequestState.TIMED_OUT, "engine_stalled",
-                         f"run_until_done exhausted {max_steps} steps")
-        raise EngineStalledError(
-            f"engine stalled after {max_steps} steps with {len(stranded)} request(s) unfinished"
-        )
+            self._finish(req, RequestState.TIMED_OUT, "engine_stalled", why)
+        return len(stranded)
 
     def serve(self, requests: list[Request], max_steps: int = 100_000) -> list[Request]:
         """Submit all requests and drive the loop to completion; results ride
@@ -1094,6 +1254,37 @@ class ContinuousBatchingEngine:
             self.submit(r)
         self.run_until_done(max_steps)
         return requests
+
+    def stream(self, request: Request, max_steps: int = 100_000):
+        """Submit ``request`` and yield its tokens as the engine emits them:
+        each ``next()`` steps the engine until a new token lands (so the
+        first yield comes at the TTFT), while the same steps serve every
+        other request. Returns when the request is terminal; exhausting
+        ``max_steps`` times out every unfinished request and raises
+        :class:`EngineStalledError`, as :meth:`run_until_done` does."""
+        self.submit(request)
+        emitted = 0
+        for _ in range(max_steps):
+            self.step()
+            while emitted < len(request.out):
+                yield request.out[emitted]
+                emitted += 1
+            if request.done:
+                return
+        n = self._strand(f"stream exhausted {max_steps} steps")
+        raise EngineStalledError(f"engine stalled after {max_steps} steps with {n} request(s) "
+                                 f"unfinished, {request.request_id} among them")
+
+    def reset_stats(self) -> None:
+        """Zero the counters and timers (after a warm-up, say) and forget
+        the requests and queue depths ``latency()`` reads, so a warm-up's
+        TTFT stays out of the percentiles. The route baseline and the
+        launch-shape inventory stay: a warm step graph adds no shape."""
+        self.stats = {k: type(v)() for k, v in self.stats.items()}
+        self._requests.clear()
+        self._queue_depths.clear()
+        if self.allocator is not None:
+            self.allocator.peak_used = self.allocator.n_used
 
     # -- introspection ------------------------------------------------------
 
@@ -1156,6 +1347,8 @@ class ContinuousBatchingEngine:
             row = [int(p) for p in self._bt[i] if p >= 0]
             assert len(set(row)) == len(row), f"slot {i} maps a page twice: {row}"
             assert self.slots[i] is not None or not row, f"empty slot {i} still maps {row}"
+            assert self.slots[i] is None or self.slots[i].status not in RequestState.TERMINAL, (
+                f"slot {i} holds terminal request {self.slots[i].request_id}")
             for p in row:
                 refs[p] += 1
         if self.prefix_cache is not None:
@@ -1192,3 +1385,14 @@ class ContinuousBatchingEngine:
             "routing": self.routing(),
             **st,
         }
+
+    def latency(self, slo=None) -> dict:
+        """TTFT / per-token / end-to-end percentiles, goodput under ``slo``
+        (a :class:`repro_torch.launch.metrics.SLO`, or None), queue depth,
+        preemption and prefix-hit rates over every request submitted since
+        the engine was built or ``reset_stats()``; from the stamps on the
+        requests and the counters (``launch.metrics.summarize``)."""
+        from repro_torch.launch.metrics import summarize
+
+        return summarize(self._requests, slo=slo, queue_depths=self._queue_depths,
+                         stats=self.stats)

@@ -19,7 +19,7 @@ shapes and with no host sync, so that one CUDA graph can hold a whole step.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -526,6 +526,31 @@ def prefill_pos(length, batch: int, s: int, device=None) -> torch.Tensor:
     if length is None:
         return torch.full((batch,), s, dtype=torch.int32, device=device)
     return torch.as_tensor(length, device=device).reshape(-1).to(torch.int32).expand(batch).clone()
+
+
+# The host-side tap on freshly downloaded logits: the engine passes every
+# sync-point logits download through ``logits_tap`` (so ``launch/faults.py``
+# can poison one slot's row) and checks ``nonfinite_rows`` right after.
+# Identity unless a tap is installed.
+_logits_tap: Optional[Callable] = None
+
+
+def set_logits_tap(fn: Optional[Callable]) -> Optional[Callable]:
+    """Install ``fn(last, tag) -> last`` as the host logits tap (``None``
+    removes it); returns the tap it replaced. ``last`` is the host array
+    just downloaded, never a device buffer; ``tag`` names the call site
+    (``"prefill"``, ``"decode"`` (the verify step too) or ``"ragged"``)."""
+    global _logits_tap
+    prev = _logits_tap
+    _logits_tap = fn
+    return prev
+
+
+def logits_tap(last: np.ndarray, tag: str) -> np.ndarray:
+    """``last`` through the installed tap, if any."""
+    if _logits_tap is None:
+        return last
+    return _logits_tap(last, tag)
 
 
 def nonfinite_rows(last: np.ndarray, vocab: int) -> list:

@@ -1,8 +1,7 @@
 """The port's bucketed engine (repro_torch.launch.serve): the DESIGN.md §10
 invariant (a request served interleaved with others gives the tokens it
 gives alone), first greedy tokens against the JAX engine on the same
-bridged params, the mode that belongs to a later slice (preemption), and
-submit() validation."""
+bridged params, preemption, and submit() validation."""
 
 import jax
 import jax.numpy as jnp
@@ -141,11 +140,22 @@ def test_accounting_surfaces(params):
     assert tp["requests_done"] == 2 and tp["decode_tokens"] > 0 and tp["routing"] == {}
 
 
-@pytest.mark.parametrize("flag", ["preemption"])
-def test_later_slices_raise(params, flag):
+def test_preemption_constructs_and_preempts(params):
+    """``preemption=True`` builds a paged engine, and a higher-priority
+    arrival that the 3-page pool cannot hold preempts the live request,
+    which resumes and finishes with its solo tokens."""
     _, pt = params
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(pt, **{flag: True})
+    eng = _engine(pt, paged=True, page_size=16, n_pages=3, preemption=True)
+    low = Request(np.arange(20, 40), max_new=8, priority=0)
+    eng.submit(low)
+    for _ in range(3):
+        eng.step()
+    high = Request(np.arange(60, 80), max_new=8, priority=1)
+    eng.submit(high)
+    assert low.status == "PREEMPTED" and eng.stats["requests_preempted"] == 1
+    eng.run_until_done()
+    assert low.status == high.status == "DONE" and low._preemptions == 1
+    assert low.out == _solo(pt, np.arange(20, 40)) and high.out == _solo(pt, np.arange(60, 80))
 
 
 def test_submit_rejects_bad_prompts(params):
