@@ -5,6 +5,7 @@
     python3 chip_smoke.py --timing-only [--src OTHER_TREE/src]
     python3 chip_smoke.py --ragged-serve [--src OTHER_TREE/src]
     python3 chip_smoke.py --lifecycle-only  # build, W4A4 llama3-8b, the lifecycle phase
+    python3 chip_smoke.py --calib-only      # build, then the calibration phase
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -83,7 +84,25 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    ``restore()``; the forced run's steps are eager, since the plain paged
    decode's masked writes do not capture);
 5. qwen3-8b — the paper's second model at full width, depth cut to
-   ``QWEN_LAYERS``, W4A4 (fused) and W4A16, paged, with the same checks.
+   ``QWEN_LAYERS``, W4A4 (fused) and W4A16, paged, with the same checks;
+6. calibration — TwinQuant's (Q, G) learned on the card at llama3-8b's
+   widths (rank 128, group 128, a_bits 4, 2048 rows of outlier-heavy
+   synthetic layers built by the reference test's recipe, seed 0, f32 with
+   TF32 off): (a) the q-shaped 4096 x 4096 layer at the paper's 400 / 400 /
+   200 steps, host ms per step of each stage, the output error of the naive,
+   +LowRank, +Hadamard and TwinQuant variants, zeta, eta, and the reference
+   test's six gates (TwinQuant below +Hadamard and +LowRank, the loss
+   reduced, Q orthogonal and G G^-1 = I within 1e-3, the fold-offline
+   identity within 2e-3); (b) the gate/up- and down-shaped layers at
+   ``CALIB_STEPS_CUT``, with a ``torch.profiler`` top-5 of one stage-3 step
+   of down (Q is 14336 x 14336); (c) the calibrated q and down packs through
+   ``dispatch.quant_linear`` at M = 8 (``dual_gemv``) and 512
+   (``dual_gemm``), each ``torch.equal`` to ``dual_gemm_ref``, routed to the
+   kernel, counts zeroed just before and read after (both kernels must have
+   launched), with the relative error against f32 beside the RTN-SVD pack's;
+   (d) ``simulate_quantize_params`` on llama3-8b at one layer (taps from
+   ``forward_with_taps`` over 2048 seeded tokens), four methods, seconds and
+   logits error against the bf16 model each (not gated).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -92,8 +111,9 @@ The line before the last is the kernel table as JSON; the last line is
 prints no result line, as do ``--ragged-serve`` (phases 1-2, then
 llama3-8b's W4A16 and W4A4 ragged-mode runs of phase 4 alone) and
 ``--lifecycle-only`` (phases 1-2, then the lifecycle phase on llama3-8b's
-W4A4 packs); ``--timing-only`` times the four dual wrappers at
-their table cases, ``w4a16_gemm`` at the four llama3-8b shapes and M in
+W4A4 packs) and ``--calib-only`` (phases 1-2, then phase 6);
+``--timing-only`` times the four dual wrappers at their table cases,
+``w4a16_gemm`` at the four llama3-8b shapes and M in
 ``W4A16_MS``, the paged decode kernel at its table case (sq 1 and 4,
 commit off) and the ragged kernel at its (T = 256): device ms from a CUDA
 graph, host µs, CUDA events ms, each launch's device µs from
@@ -2563,6 +2583,292 @@ def qwen_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2
           f"w4a4_quantize_fuse {t3 - t2:.1f} w4a4_serve {t4 - t3:.1f}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# calibration phase: TwinQuant's (Q, G) learned at llama3-8b's widths, the
+# calibrated packs served by the dual kernels, the simulation path
+# ---------------------------------------------------------------------------
+
+CALIB_ROWS = 2048  # calibration samples (tokens) of each layer
+CALIB_STEPS = (400, 400, 200)  # the paper's schedule, q-shaped layer
+CALIB_STEPS_CUT = {"gate_up": (40, 40, 20), "down": (8, 8, 4)}  # ms per step is the reading
+SIM_STEPS = (8, 8, 4)  # twinquant in simulate_quantize_params (the phase's budget)
+SIM_LAYERS = 1  # llama3-8b's depth cut for the simulation path
+CALIB_OUTLIERS = 6  # outlier input channels, as the reference test's layer
+CALIB_GATES = dict(ortho=1e-3, ginv=1e-3, fold=2e-3)
+
+
+def outlier_layer(gen, m: int, n: int, rows: int, device):
+    """The reference test's synthetic layer (tests/test_core_calibration.py)
+    at (m, n): W ~ N(0, 0.05^2) with ``CALIB_OUTLIERS`` input channels x12,
+    X ~ N(0, 1) with those columns x8, times (1 + |t_3|) heavy tails (the t
+    variable drawn as z / sqrt(chi2_3 / 3)). Returns (x (rows, m), w)."""
+    import torch
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    w = normal(m, n) * 0.05
+    idx = torch.randperm(m, generator=gen, device=device)[:CALIB_OUTLIERS]
+    w[idx] *= 12.0
+    x = normal(rows, m)
+    x[:, idx] *= 8.0
+    chi2 = sum(normal(rows, m) ** 2 for _ in range(3))
+    t = normal(rows, m) / torch.sqrt(chi2 / torch.full_like(chi2, 3.0))
+    return x * (1 + torch.abs(t)), w
+
+
+def _calibrate(name: str, x, w, steps, device):
+    """``calibrate_layer`` at rank 128, group 128, a_bits 4; prints its
+    host-clock ms per step of each stage, the set-up (alpha search, SVD) and
+    total seconds, and the loss."""
+    from repro_torch.core.calibration import CalibConfig, calibrate_layer
+
+    cfg = CalibConfig(rank=128, a_bits=4, group_size=128, steps_global=steps[0],
+                      steps_invert=steps[1], steps_joint=steps[2])
+    t0 = time.perf_counter()
+    res = calibrate_layer(x, w, cfg, device=device)
+    total = time.perf_counter() - t0
+    ms = [1e3 * s / n if n else 0.0 for s, n in zip(res.stage_seconds, steps)]
+    print(f"calib {name} K={w.shape[0]} N={w.shape[1]} rows={x.shape[0]} "
+          f"steps={'/'.join(map(str, steps))} ms_per_step="
+          f"{'/'.join(f'{v:.2f}' for v in ms)} setup_s={total - sum(res.stage_seconds):.2f} "
+          f"total_s={total:.2f} init_loss={res.init_loss:.6g} final_loss={res.final_loss:.6g} "
+          f"ratio={res.final_loss / res.init_loss:.4f}", flush=True)
+    return cfg, res
+
+
+def _calib_errors(name: str, x, cfg, res) -> None:
+    """Phase (a)'s readings and gates: the output error of the quickstart's
+    four variants, zeta and eta, Q's orthogonality, G G^-1, and the
+    fold-offline identity."""
+    import torch
+
+    from repro_torch.core.calibration import layer_quant_configs
+    from repro_torch.core.errors import eta_gain, total_delta, zeta_gain
+    from repro_torch.core.quantization import QuantConfig, dequantize, quantize
+    from repro_torch.core.transforms import hadamard_matrix, orthogonality_error
+
+    d = res.decomp
+    m = x.shape[1]
+    aq, uq, vq, rq = layer_quant_configs(m, d.rank, cfg)
+    x_hat = x / d.lam[None, :]
+    U, V, R = d.U, d.V, d.R
+    w_hat = U @ V + R
+    Q, G, Gi = res.Q, res.G, res.G_inv
+    U2, V2, R2 = Q.T @ U @ G, Gi @ V, Q.T @ R
+
+    def dq(t, c):
+        return dequantize(quantize(t, c))
+
+    e_naive = float(torch.sum((dq(x_hat, aq) @ dq(w_hat, QuantConfig(4, 128, 0))
+                               - x_hat @ w_hat) ** 2))
+    H = hadamard_matrix(m, device=x.device)
+    e_low = float(total_delta(x_hat, U, V, R, aq, uq, vq, rq))
+    e_had = float(total_delta(x_hat @ H, H.T @ U, V, H.T @ R, aq, uq, vq, rq))
+    e_twin = float(total_delta(x_hat @ Q, U2, V2, R2, aq, uq, vq, rq))
+    ortho = float(orthogonality_error(Q))
+    ginv = float(torch.max(torch.abs(G @ Gi - torch.eye(d.rank, device=x.device))))
+    y_ref = x_hat @ w_hat
+    fold = float(torch.linalg.norm((x_hat @ Q) @ (U2 @ V2 + R2) - y_ref)
+                 / torch.linalg.norm(y_ref))
+    print(f"calib {name} total_delta naive={e_naive:.6g} lowrank={e_low:.6g} "
+          f"hadamard={e_had:.6g} twinquant={e_twin:.6g} twin/had={e_twin / e_had:.4f} "
+          f"zeta={float(zeta_gain(x_hat, Q)):.4f} eta={float(eta_gain(U, V, U2, V2)):.4f} "
+          f"ortho_err={ortho:.3g} max|G G^-1 - I|={ginv:.3g} fold_rel={fold:.3g}", flush=True)
+    gates = {"e_twin < e_had": e_twin < e_had, "e_twin < e_low": e_twin < e_low,
+             "final_loss < init_loss": res.final_loss < res.init_loss,
+             f"ortho_err < {CALIB_GATES['ortho']}": ortho < CALIB_GATES["ortho"],
+             f"max|G G^-1 - I| < {CALIB_GATES['ginv']}": ginv < CALIB_GATES["ginv"],
+             f"fold rel < {CALIB_GATES['fold']}": fold < CALIB_GATES["fold"]}
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        fail(f"calibration {name}: {bad}")
+    print(f"calib {name} gates ok: {list(gates)}", flush=True)
+
+
+def _profile_step(name: str, x, cfg, res, device) -> None:
+    """A ``torch.profiler`` top-5 (device time) of one stage-3 step at the
+    calibrated Q, with G restarted at identity (the same shapes and work)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.calibration import (
+        calibration_step,
+        layer_quant_configs,
+        stage_scales,
+    )
+    from repro_torch.core.manifold import HybridOpt
+    from repro_torch.core.transforms import gl_init
+
+    d = res.decomp
+    x_hat = x / d.lam[None, :]
+    aq, uq, vq, rq = layer_quant_configs(x.shape[1], d.rank, cfg)
+    kw = dict(x=x_hat, y_ref=x_hat @ (d.U @ d.V + d.R), U=d.U, V=d.V, R=d.R, aq=aq, uq=uq,
+              vq=vq, rq=rq, reg_lambda=cfg.reg_lambda, a_bits=cfg.a_bits)
+    params = {"Q": res.Q, "G": gl_init(d.rank, device=device)}
+    opt = HybridOpt(lr=cfg.lr, momentum=cfg.momentum)
+    state = opt.init(params)
+    scales = stage_scales(cfg)[2]
+    params, state, recon = calibration_step(params, state, opt, scales, kw)  # warm-up
+    float(recon)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        params, state, recon = calibration_step(params, state, opt, scales, kw)
+        float(recon)
+    wall = time.perf_counter() - t0
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if t and "CUDA" in str(getattr(e, "device_type", "")) and not e.key.startswith("aten::"):
+            kernels.append((t / 1e3, e.key[:60], e.count))
+        # the op that launched a kernel owns its device time as "self" time
+        st = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if st and e.key.startswith("aten::"):
+            ops.append((st / 1e3, e.key, e.count))
+    kernels.sort(reverse=True)
+    ops.sort(reverse=True)
+    total = sum(r[0] for r in kernels)
+    print(f"calib {name} stage-3 step profile profiled_wall_ms={1e3 * wall:.1f} "
+          f"device_kernel_ms={total:.1f} top5_kernels="
+          f"{json.dumps([f'{k} {ms:.2f}ms x{c}' for ms, k, c in kernels[:5]])} top5_ops="
+          f"{json.dumps([f'{k} {ms:.2f}ms x{c}' for ms, k, c in ops[:5]])}", flush=True)
+
+
+def _serve_calibrated(name: str, x, res, device) -> None:
+    """Phase (c): the calibrated components packed (U2 = Q^T U G, V2 = G^-1
+    V, R2 = Q^T R) and served through ``dispatch.quant_linear`` on (x_hat Q)
+    in bf16 at M = 8 (dual GEMV) and M = 512 (dual GEMM): each output
+    ``torch.equal`` to ``dual_gemm_ref``, routed to the kernel (never
+    ``ref``), the kernel's launch count up by one; the relative error against
+    the f32 ``x_hat @ W_hat`` beside the plain RTN-SVD pack of the same
+    weight (not gated: the kernel requantizes H, the calibration loss does
+    not)."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.ref import dual_gemm_ref, pack_twinquant_weights
+
+    d = res.decomp
+    Q, G, Gi = res.Q, res.G, res.G_inv
+    pack = pack_twinquant_weights(Q.T @ d.U @ G, Gi @ d.V, Q.T @ d.R, a_bits=4, group=128)
+    plain = pack_twinquant_weights(d.U, d.V, d.R, a_bits=4, group=128)
+    x_hat = x / d.lam[None, :]
+    w_hat = d.U @ d.V + d.R
+    for m, kern in ((8, "dual_gemv"), (512, "dual_gemm")):
+        xin = (x_hat[:m] @ Q).to(torch.bfloat16)
+        before = _counts()
+        y = dispatch.quant_linear(xin, pack)
+        launches, routes = _since(before)
+        if any("/ref" in k for k in routes):
+            fail(f"calibrated {name} M={m}: plain-version route {routes}")
+        if device.type == "cuda" and launches.get(kern, 0) != 1:
+            fail(f"calibrated {name} M={m}: {kern} launches {launches}, want 1")
+        y_p = dual_gemm_ref(xin, pack)
+        if not torch.equal(y, y_p):
+            fail(f"calibrated {name} M={m}: {kern} != plain version ({_unequal(y, y_p)})")
+        y32 = x_hat[:m] @ w_hat
+        y_rtn = dispatch.quant_linear(x_hat[:m].to(torch.bfloat16), plain)
+        rel = float(torch.linalg.norm(y.float() - y32) / torch.linalg.norm(y32))
+        rel_rtn = float(torch.linalg.norm(y_rtn.float() - y32) / torch.linalg.norm(y32))
+        print(f"calib {name} pack M={m} {kern} routes={json.dumps(routes, sort_keys=True)} "
+              f"launches={json.dumps(launches, sort_keys=True)} kernel == plain: equal "
+              f"rel_vs_f32 calibrated={rel:.4f} rtn_svd={rel_rtn:.4f}", flush=True)
+
+
+def _sim_phase(device, cfg, rows: int, steps) -> None:
+    """Phase (d): ``simulate_quantize_params`` on the random-weight model at
+    full width, depth ``cfg.n_layers``, taps from ``forward_with_taps`` over
+    ``rows`` seeded random tokens; seconds per method and each simulated
+    model's logits error against the bf16 model (not gated: random weights
+    have no outliers)."""
+    import torch
+
+    from repro_torch.configs import QuantSpec
+    from repro_torch.core.calibration import CalibConfig
+    from repro_torch.core.twinquant import simulate_quantize_params
+    from repro_torch.models import dense
+
+    model = dense.init_params(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (1, rows), generator=gen, device=device)
+    logits, taps = dense.forward_with_taps(model, cfg, toks)
+    ref = logits.float()
+    del logits
+    if tuple(taps["attn"].shape) != (cfg.n_layers, rows, cfg.d_model):
+        fail(f"forward_with_taps: attn taps {tuple(taps['attn'].shape)}")
+    spec = QuantSpec("w4a4", rank=128, group_size=128)
+    cc = CalibConfig(rank=128, a_bits=4, group_size=128, steps_global=steps[0],
+                     steps_invert=steps[1], steps_joint=steps[2])
+    for method in ("naive", "lowrank", "hadamard", "twinquant"):
+        t0 = time.perf_counter()
+        sim = simulate_quantize_params(model, cfg, spec, method, taps, cc, device=device)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        lg = dense.forward(sim, cfg, toks).float()
+        if not bool(torch.isfinite(lg).all()):
+            fail(f"sim {method}: non-finite logits")
+        rel = float(torch.linalg.norm(lg - ref) / torch.linalg.norm(ref))
+        print(f"calib sim {cfg.name} layers={cfg.n_layers} tokens={rows} {method} "
+              f"seconds={secs:.2f} logits_rel_vs_bf16={rel:.4f}", flush=True)
+        del sim, lg
+    del model, taps, ref
+
+
+def calibration_phase(device, card: str, cfg, rows: int = CALIB_ROWS, steps=CALIB_STEPS,
+                      cut_steps=None, sim_steps=SIM_STEPS) -> None:
+    """TwinQuant calibration on the card at ``cfg``'s widths (rank 128,
+    group 128, a_bits 4, ``rows`` calibration rows, seed 0): (a) the
+    q-shaped layer at ``steps`` with the reference test's six gates; (b) the
+    gate/up- and down-shaped layers at cut steps, with a profiler top-5 of
+    one stage-3 step of down; (c) the calibrated q and down packs served by
+    the dual kernels; (d) the simulation path. Launch and route counts are
+    zeroed just before (c) and read just after it; each of ``dual_gemv``
+    and ``dual_gemm`` must have run. Every SVD, QR and solve runs on
+    ``device``; TF32 stays off."""
+    import torch
+
+    from repro_torch.kernels import cuda_launch, dispatch
+
+    cut_steps = cut_steps or CALIB_STEPS_CUT
+    gen = torch.Generator(device=device).manual_seed(0)
+    d, f, hq = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
+    secs = {}
+    t = time.perf_counter()
+    x, w = outlier_layer(gen, d, hq, rows, device)
+    cq, rq = _calibrate("q", x, w, steps, device)
+    _calib_errors("q", x, cq, rq)
+    secs["a_q"] = time.perf_counter() - t
+    t = time.perf_counter()
+    x2, w2 = outlier_layer(gen, d, f, rows, device)
+    _calibrate("gate_up", x2, w2, cut_steps["gate_up"], device)
+    del x2, w2
+    x3, w3 = outlier_layer(gen, f, d, rows, device)
+    cd, rd = _calibrate("down", x3, w3, cut_steps["down"], device)
+    _profile_step("down", x3, cd, rd, device)
+    secs["b_gate_up_down"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dispatch.reset_dispatch_counters()
+    cuda_launch.reset_launch_counts()
+    _serve_calibrated("q", x, rq, device)
+    _serve_calibrated("down", x3, rd, device)
+    launches = cuda_launch.launch_counts()
+    print(f"calib packs launches {json.dumps(launches, sort_keys=True)} routes "
+          f"{json.dumps(dispatch.dispatch_counters(), sort_keys=True)}", flush=True)
+    if device.type == "cuda" and not all(launches.get(k, 0) > 0
+                                         for k in ("dual_gemv", "dual_gemm")):
+        fail(f"calibrated packs: a dual kernel did not launch: {launches}")
+    secs["c_packs"] = time.perf_counter() - t
+    del x, w, x3, w3, rq, rd
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    _sim_phase(device, cfg.replace(n_layers=SIM_LAYERS), rows, sim_steps)
+    secs["d_sim"] = time.perf_counter() - t
+    print(f"calib phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})} "
+          f"card {card}", flush=True)
+
+
 def main() -> None:
     import argparse
 
@@ -2580,6 +2886,8 @@ def main() -> None:
                     help="build, then serve llama3-8b in ragged mode alone (W4A16, W4A4)")
     ap.add_argument("--lifecycle-only", action="store_true",
                     help="build, quantize llama3-8b W4A4, then run the lifecycle phase alone")
+    ap.add_argument("--calib-only", action="store_true",
+                    help="build, then run the calibration phase alone (no result line)")
     ap.add_argument("--src", metavar="DIR",
                     help="import repro_torch from DIR (another tree's src) instead")
     args = ap.parse_args()
@@ -2617,6 +2925,13 @@ def main() -> None:
 
         ragged_serve_phase(device, card, get_config("llama3-8b").replace(n_layers=SERVE_LAYERS))
         return
+    if args.calib_only:
+        from repro_torch.configs import get_config
+
+        t = time.perf_counter()
+        calibration_phase(device, card, get_config("llama3-8b"))
+        print(f"calib phase total seconds {time.perf_counter() - t:.1f}", flush=True)
+        return
     if args.lifecycle_only:
         from repro_torch.configs import QuantSpec, get_config
         from repro_torch.core.twinquant import fuse_params, quantize_params
@@ -2645,6 +2960,10 @@ def main() -> None:
     t = time.perf_counter()
     qwen_phase(device, card, get_config("qwen3-8b").replace(n_layers=QWEN_LAYERS))
     secs["serve_qwen3_8b"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    calibration_phase(device, card, get_config("llama3-8b"))
+    secs["calibration"] = time.perf_counter() - t
     print(f"phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
 
     rows = []

@@ -16,34 +16,56 @@
   time), so W4A8 is the W4A4 packs with ``a_bits = 8``, bit for bit what
   ``quantize_params`` gives for ``w4a8``, without a second pass of SVDs.
 
-Both return a new model and leave their input untouched; tensors that do not
-change are shared, not copied. Exclusions (kept bf16): embeddings and the lm
-head. Calibration and the simulation path wait for a later slice.
+* :func:`simulate_quantize_params` — the **evaluation** path: eligible
+  linears become :class:`~repro_torch.models.common.SimLinear` modules that
+  reproduce exact W4A4 / W4A8 TwinQuant numerics (online smoothing and
+  rotation, activation and H fake-quant) with plain matmuls over
+  dequantized components, under four methods: ``naive`` (RTN, no
+  decomposition), ``lowrank`` (SVD, both factors 4-bit), ``hadamard`` (SVD +
+  fixed rotation) and ``twinquant`` (Q and G learned per linear by
+  :func:`~repro_torch.core.calibration.calibrate_layer`). The accuracy
+  comparisons of the paper's ablation run on this path.
+
+The rewriters return a new model and leave their input untouched; tensors
+that do not change are shared, not copied. Exclusions (kept bf16):
+embeddings and the lm head.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import re
+from typing import Optional
 
 import torch
 from torch import nn
 
+from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig, QuantSpec
+from repro_torch.core.calibration import CalibConfig, calibrate_layer
 from repro_torch.core.decomposition import svd_decompose
+from repro_torch.core.quantization import QuantConfig, dequantize, quantize
+from repro_torch.core.transforms import hadamard_matrix
 from repro_torch.kernels.ref import (
     fuse_twinquant_weights,
     pack_rows_groupsplit,
     pack_twinquant_weights,
     quantize_rows_ref,
 )
-from repro_torch.models.common import Linear, TwinQuantLinear, TwinQuantLinearGroup, W4A16Linear
+from repro_torch.models.common import (
+    Linear,
+    SimLinear,
+    TwinQuantLinear,
+    TwinQuantLinearGroup,
+    W4A16Linear,
+)
 
 __all__ = ["EXCLUDE", "FUSE_GROUPS", "quantize_params", "fuse_linear_packs", "fuse_params",
-           "with_activation_bits"]
+           "with_activation_bits", "build_sim_linear", "simulate_quantize_params"]
 
 # the leaf modules the rewriters never descend into
-_LEAVES = (Linear, TwinQuantLinear, TwinQuantLinearGroup, W4A16Linear)
+_LEAVES = (Linear, SimLinear, TwinQuantLinear, TwinQuantLinearGroup, W4A16Linear)
 
 EXCLUDE = re.compile(r"(embed|head|router|wkv_b|mtp/proj)")
 
@@ -170,3 +192,107 @@ def with_activation_bits(params: nn.Module, a_bits: int) -> nn.Module:
                               for k, v in mod._modules.items()})
 
     return visit(params)
+
+
+# ---------------------------------------------------------------------------
+# evaluation path: exact-numerics simulation modules
+# ---------------------------------------------------------------------------
+
+CALIB_SAMPLES = 256  # rows of the seeded stand-in calibration set
+
+
+@torch.no_grad()
+def build_sim_linear(w: torch.Tensor, method: str, spec: QuantSpec,
+                     calib_x: Optional[torch.Tensor] = None,
+                     calib_cfg: Optional[CalibConfig] = None, device=None) -> SimLinear:
+    """2-D weight (K, N) -> :class:`SimLinear` for exact quantized-numerics
+    evaluation, on ``device`` (the card unless asked otherwise).
+
+    method: 'naive' (RTN, no decomposition) | 'lowrank' (SVD, both 4-bit) |
+            'hadamard' (SVD + fixed rotation) | 'twinquant' (learned Q, G).
+    ``calib_x`` (samples, K) feeds the calibration; a tap of another width
+    (the down projection's input is d_ff wide) is ignored, and without one
+    twinquant calibrates on ``CALIB_SAMPLES`` normal rows drawn from a
+    generator seeded 0 on the device."""
+    dev = resolve_device(device)
+    k, n = w.shape
+    w = w.to(device=dev, dtype=torch.float32)
+    if calib_x is not None and calib_x.shape[-1] != k:
+        calib_x = None  # tap dim mismatch (e.g. down-proj input is d_ff-dim)
+    r = max(2, min(spec.rank, k // 2, n) // 2 * 2)
+    g = min(spec.group_size, k)
+    wq = QuantConfig(bits=4, group_size=g, axis=0)
+    vq = QuantConfig(bits=4, group_size=min(spec.group_size, r), axis=0)
+
+    def dq(t, c):
+        return dequantize(quantize(t, c), dtype=torch.float32).to(torch.bfloat16)
+
+    lam = torch.ones((k,), dtype=torch.float32, device=dev)
+    if method == "naive":
+        return SimLinear(lam, dq(w, wq), spec.a_bits)
+    Q = None
+    if method == "twinquant":
+        cc = calib_cfg or CalibConfig(rank=r, a_bits=spec.a_bits, group_size=g,
+                                      steps_global=40, steps_invert=40, steps_joint=20)
+        cc = cc if cc.rank == r else dataclasses.replace(cc, rank=r)
+        if calib_x is None:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            calib_x = torch.randn(CALIB_SAMPLES, k, generator=gen, device=dev)
+        res = calibrate_layer(calib_x, w, cc, device=dev)
+        lam = res.decomp.lam
+        U2 = res.Q.T @ res.decomp.U @ res.G
+        V2 = res.G_inv @ res.decomp.V
+        R2 = res.Q.T @ res.decomp.R
+        Q = res.Q
+    elif method in ("lowrank", "hadamard"):
+        U, V, R = svd_decompose(w, r)
+        if method == "hadamard":
+            Q = hadamard_matrix(k, device=dev)
+            U2, V2, R2 = Q.T @ U, V, Q.T @ R
+        else:
+            U2, V2, R2 = U, V, R
+    else:
+        raise ValueError(f"unknown simulation method {method!r}")
+    return SimLinear(lam, dq(R2, wq), spec.a_bits,
+                     Q=None if Q is None else Q.to(torch.bfloat16),
+                     u_dq=dq(U2, wq), v_dq=dq(V2, vq))
+
+
+_LAYER = re.compile(r"/layers/(\d+)/")
+
+
+def simulate_quantize_params(params: nn.Module, cfg: ModelConfig, spec: QuantSpec, method: str,
+                             calib_taps: Optional[dict] = None,
+                             calib_cfg: Optional[CalibConfig] = None, device=None) -> nn.Module:
+    """Rewrite eligible linears into :class:`SimLinear` modules (on
+    ``device``, the card unless asked otherwise), one decoder layer at a
+    time. ``calib_taps``: optional ``{path substring: activations}`` map of
+    real calibration data, e.g. :func:`~repro_torch.models.dense.
+    forward_with_taps`' ``{"attn": (L, T, D), "mlp": (L, T, D)}``; the first
+    key found in a linear's path names its tap, and a (L, T, K) tap gives
+    layer i its row block i."""
+    dev = resolve_device(device)
+    n_layers = len(params.layers)
+
+    def tap_for(path: str):
+        for key, acts in (calib_taps or {}).items():
+            if key in path:
+                hit = _LAYER.search(path)
+                if acts.ndim == 3 and hit and acts.shape[0] == n_layers:
+                    return acts[int(hit.group(1))]
+                return acts
+        return None
+
+    def visit(mod: nn.Module, path: str) -> nn.Module:
+        if isinstance(mod, Linear):
+            if not _eligible(path + "/w", mod.w):
+                return mod
+            sim = build_sim_linear(mod.w, method, spec, tap_for(path), calib_cfg, device=dev)
+            sim.b = mod.b
+            return sim
+        if isinstance(mod, _LEAVES):
+            return mod
+        return _rebuild(mod, {k: None if v is None else visit(v, f"{path}/{k}")
+                              for k, v in mod._modules.items()})
+
+    return visit(params, "")

@@ -3,9 +3,12 @@
 :func:`params_from_numpy` takes the JAX package's dense params as a nested
 dict of numpy arrays (``jax.tree.map(np.asarray, params)``) — bf16 weights,
 TwinQuant packs from ``quantize_params`` (W4A4 / W4A8), weight-only packs
-(W4A16), or fused packs from ``fuse_params`` — and builds the port's
+(W4A16), fused packs from ``fuse_params``, or the simulation dicts of
+``simulate_quantize_params`` — and builds the port's
 :class:`~repro_torch.models.dense.DenseModel`, unstacking the ``(L, ...)``
-layer axis into one module per layer. bf16 arrays are recognised by dtype name and moved bit for bit
+layer axis into one module per layer. :func:`calib_result_from_numpy` and
+:func:`gl_params_from_numpy` carry a calibration's result and a ``GLParams``
+across the same way. bf16 arrays are recognised by dtype name and moved bit for bit
 through a 16-bit integer view, so no bf16 numpy extension is needed here.
 """
 
@@ -16,11 +19,20 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
+from repro_torch.core.calibration import CalibResult
+from repro_torch.core.decomposition import Decomposition
+from repro_torch.core.transforms import GLParams
 from repro_torch.kernels.ref import TwinQuantGroupWeights, TwinQuantWeights
-from repro_torch.models.common import Linear, TwinQuantLinear, TwinQuantLinearGroup, W4A16Linear
+from repro_torch.models.common import (
+    Linear,
+    SimLinear,
+    TwinQuantLinear,
+    TwinQuantLinearGroup,
+    W4A16Linear,
+)
 from repro_torch.models.dense import DenseLayer, DenseModel
 
-__all__ = ["params_from_numpy", "to_torch"]
+__all__ = ["calib_result_from_numpy", "gl_params_from_numpy", "params_from_numpy", "to_torch"]
 
 
 def to_torch(a, device) -> torch.Tensor:
@@ -42,6 +54,12 @@ def _linear(d: dict, device) -> torch.nn.Module:
         return Linear(t("w"), b)
     if "wp" in d:  # W4A16 weight-only pack; its group comes from the shapes
         return W4A16Linear(t("wp"), t("ws"), b)
+    if "r_dq" in d:  # quantized-numerics simulation; a_bits is the abits length
+        def opt(key):
+            return t(key) if key in d else None
+
+        return SimLinear(t("lam"), t("r_dq"), d["abits"].shape[-1], Q=opt("Q"),
+                         u_dq=opt("u_dq"), v_dq=opt("v_dq"), b=b)
     a_bits = d["abits"].shape[-1]
     group = d["rp"].shape[-2] * 2 // d["rs"].shape[-2]
     if "vp" in d:
@@ -77,3 +95,24 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> DenseModel:
         ))
     head = _linear(tree["head"], dev) if "head" in tree else None
     return DenseModel(to_torch(tree["embed"], dev), layers, to_torch(tree["ln_f"], dev), head)
+
+
+def gl_params_from_numpy(p, device=None) -> GLParams:
+    """The reference's ``GLParams`` (any object with numpy-convertible ``P``,
+    ``L``, ``gamma``) as the port's, on ``device``."""
+    dev = resolve_device(device)
+    return GLParams(P=to_torch(p.P, dev), L=to_torch(p.L, dev), gamma=to_torch(p.gamma, dev))
+
+
+def calib_result_from_numpy(res, device=None) -> CalibResult:
+    """The reference's ``CalibResult`` (numpy-convertible arrays) as the
+    port's: Q, G, G_inv and the smoothed decomposition, on ``device``."""
+    dev = resolve_device(device)
+    d = res.decomp
+    return CalibResult(
+        Q=to_torch(res.Q, dev), G=to_torch(res.G, dev), G_inv=to_torch(res.G_inv, dev),
+        decomp=Decomposition(U=to_torch(d.U, dev), V=to_torch(d.V, dev), R=to_torch(d.R, dev),
+                             lam=to_torch(d.lam, dev)),
+        loss_history=list(res.loss_history), final_loss=float(res.final_loss),
+        init_loss=float(res.init_loss),
+    )

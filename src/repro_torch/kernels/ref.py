@@ -35,7 +35,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.quantization import qmax_for_bits
+from repro_torch.core.quantization import qmax_for_bits, scale_of
 
 __all__ = [
     "pack_rows_groupsplit",
@@ -94,13 +94,6 @@ def unpack_rows_groupsplit(p: torch.Tensor, group: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _scale_of(amax: torch.Tensor, qmax: int) -> torch.Tensor:
-    # divide by a tensor, not a Python number: on CUDA, PyTorch turns division
-    # by a scalar into multiplication by its reciprocal, which is not the
-    # correctly rounded quotient the kernels (and the reference) compute
-    return torch.where(amax > 0, amax / torch.full_like(amax, qmax), torch.ones_like(amax))
-
-
 def quantize_rows_ref(w: torch.Tensor, group: int, bits: int):
     """Group-wise symmetric quantization along axis 0.
 
@@ -108,7 +101,7 @@ def quantize_rows_ref(w: torch.Tensor, group: int, bits: int):
     k, n = w.shape
     qmax = qmax_for_bits(bits)
     g = w.to(torch.float32).contiguous().reshape(k // group, group, n)
-    scale = _scale_of(g.abs().amax(dim=1), qmax)
+    scale = scale_of(g.abs().amax(dim=1), qmax)
     q = torch.clamp(torch.round(g / scale[:, None, :]), -qmax, qmax)
     return q.reshape(k, n).to(torch.int8), scale
 
@@ -120,7 +113,7 @@ def quantize_act_ref(x: torch.Tensor, group: int, bits: int):
     m, k = x.shape
     qmax = qmax_for_bits(bits)
     g = x.to(torch.float32).contiguous().reshape(m, k // group, group)
-    scale = _scale_of(g.abs().amax(dim=2), qmax)
+    scale = scale_of(g.abs().amax(dim=2), qmax)
     q = torch.clamp(torch.round(g / scale[:, :, None]), -qmax, qmax)
     return q.reshape(m, k).to(torch.int8), scale
 
@@ -330,7 +323,7 @@ def dual_gemm_group_ref(x: torch.Tensor, gw: TwinQuantGroupWeights) -> torch.Ten
         no, ro = gw.n_offsets[j], gw.r_offsets[j]
         nj, rj, gr = gw.seg_n[j], gw.seg_r[j], gw.rgroups[j]
         hg = h[:, ro:ro + rj].reshape(m, rj // gr, gr)
-        hs = _scale_of(hg.abs().amax(dim=2), a_qmax)
+        hs = scale_of(hg.abs().amax(dim=2), a_qmax)
         hq = torch.clamp(torch.round(hg / hs[:, :, None]), -a_qmax, a_qmax)
         hq = hq.reshape(m, rj).to(torch.int8)
         vq = unpack_rows_groupsplit(gw.vps[j], gr)

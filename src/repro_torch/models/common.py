@@ -1,5 +1,6 @@
 """Shared model substrate of the port: linear modules (bf16, TwinQuant and
-the weight-only W4A16 baseline, routed through ``kernels/dispatch``), norms,
+the weight-only W4A16 baseline, routed through ``kernels/dispatch``, and the
+quantized-numerics simulation ``SimLinear``), norms,
 RoPE, GQA attention with a dense per-slot KV cache or paged KV pools, and the
 serving helpers the engine uses.
 
@@ -26,6 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ModelConfig
+from repro_torch.core.quantization import QuantConfig, fake_quant
 from repro_torch.kernels import dispatch
 # the page geometry lives beside the kernel; gather_pages is re-exported as
 # the reference's models/common has it
@@ -126,6 +128,49 @@ class W4A16Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dispatch.w4a16_linear(x, self.wp, self.ws, self.b, group=self.group).to(x.dtype)
+
+
+class SimLinear(nn.Module):
+    """Quantized-numerics simulation of a TwinQuant linear (the evaluation
+    path; the reference's ``"r_dq"`` branch of ``linear``): dequantized bf16
+    components ``r_dq`` (K, N) and, with the low-rank branch, ``u_dq`` (K, r)
+    and ``v_dq`` (r, N); the smoothing vector ``lam`` (K,), the optional
+    online rotation ``Q`` (K, K), activation bits ``a_bits`` and bias ``b``.
+
+    ``y = fq(x / lam @ Q) @ r_dq + fq_H(fq(x / lam @ Q) @ u_dq) @ v_dq + b``
+    in ``x``'s dtype, with activations fake-quantized in groups of min(128, K)
+    and H (the kernel's requantization step) in groups of min(128, r), both
+    when ``a_bits < 16``. Plain matmuls: never fused, never packed."""
+
+    def __init__(self, lam: torch.Tensor, r_dq: torch.Tensor, a_bits: int,
+                 Q: Optional[torch.Tensor] = None, u_dq: Optional[torch.Tensor] = None,
+                 v_dq: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.register_buffer("lam", lam)
+        self.register_buffer("Q", Q)
+        self.register_buffer("u_dq", u_dq)
+        self.register_buffer("v_dq", v_dq)
+        self.register_buffer("r_dq", r_dq)
+        self.register_buffer("b", b)
+        self.a_bits = a_bits
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xh = x / self.lam.to(x.dtype)
+        if self.Q is not None:
+            xh = xh @ self.Q.to(x.dtype)
+        if self.a_bits < 16:
+            k = xh.shape[-1]
+            xh = fake_quant(xh, QuantConfig(bits=self.a_bits, group_size=min(128, k), axis=-1))
+        y = xh @ self.r_dq.to(x.dtype)
+        if self.u_dq is not None:
+            h = xh @ self.u_dq.to(x.dtype)
+            if self.a_bits < 16:  # H requantization (the fused kernel's s_H step)
+                r = h.shape[-1]
+                h = fake_quant(h, QuantConfig(bits=self.a_bits, group_size=min(128, r), axis=-1))
+            y = y + h @ self.v_dq.to(x.dtype)
+        if self.b is not None:
+            y = y + self.b.to(y.dtype)
+        return y
 
 
 def linear(p: nn.Module, x: torch.Tensor) -> torch.Tensor:

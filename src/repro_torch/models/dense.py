@@ -19,8 +19,8 @@ from repro_torch.configs import ModelConfig
 from repro_torch.kernels.paged_attention import pool_rows
 from repro_torch.models import common as C
 
-__all__ = ["DenseLayer", "DenseModel", "init_params", "forward", "init_decode_state",
-           "prefill", "decode_step", "ragged_step"]
+__all__ = ["DenseLayer", "DenseModel", "init_params", "forward", "forward_with_taps",
+           "init_decode_state", "prefill", "decode_step", "ragged_step"]
 
 
 class DenseLayer(nn.Module):
@@ -104,6 +104,27 @@ def forward(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor) -> torch
     for lp in params.layers:
         x, _, _ = _block(lp, x, cfg, positions)
     return _unembed(params, cfg, x)
+
+
+@torch.no_grad()
+def forward_with_taps(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor):
+    """Forward that also returns per-layer calibration activations:
+    ``{"attn": (L, T, D) ln1 outputs, "mlp": (L, T, D) ln2 outputs}`` with
+    T = B * S — the inputs the q/k/v and gate/up linears see (the paper's
+    per-layer calibration set). Returns (logits (B, S, V), taps)."""
+    x = C.embed_lookup(params.embed, tokens)
+    b, s, d = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+    t1, t2 = [], []
+    for lp in params.layers:
+        h1 = C.rmsnorm(x, lp.ln1, cfg.norm_eps)
+        att, _, _ = C.gqa_prefill_attn(lp.attn, h1, cfg, positions)
+        h = x + att
+        h2 = C.rmsnorm(h, lp.ln2, cfg.norm_eps)
+        x = h + C.mlp_apply(lp.mlp, h2)
+        t1.append(h1.reshape(b * s, d))
+        t2.append(h2.reshape(b * s, d))
+    return _unembed(params, cfg, x), {"attn": torch.stack(t1), "mlp": torch.stack(t2)}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=C.DTYPE,
