@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ragged-serve [--src OTHER_TREE/src]
     python3 chip_smoke.py --lifecycle-only  # build, W4A4 llama3-8b, the lifecycle phase
     python3 chip_smoke.py --calib-only      # build, then the calibration phase
+    python3 chip_smoke.py --olmoe-only      # build, then the OLMoE phase
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -102,7 +103,23 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    launched), with the relative error against f32 beside the RTN-SVD pack's;
    (d) ``simulate_quantize_params`` on llama3-8b at one layer (taps from
    ``forward_with_taps`` over 2048 seeded tokens), four methods, seconds and
-   logits error against the bf16 model each (not gated).
+   logits error against the bf16 model each (not gated);
+7. olmoe-1b-7b — the ``moe`` family at full width (d_model 2048, 16 / 16
+   heads, 64 experts, top-8, d_ff_expert 1024, vocab 50304) and depth
+   ``OLMOE_LAYERS``: the four dual kernels on expert-stacked packs (one
+   launch for all 64 experts) at Cp 8 (GEMV) and at every Cp the served
+   runs give a GEMM (``MOE_GEMM_CPS``, 16 .. 1024), a_bits 4 and 8, each
+   ``torch.equal`` to the stacked plain version and
+   expert by expert to one-expert launches, experts 0 and 1 with swapped
+   ``rp`` caught, timed beside one bf16 ``torch.bmm`` and the bound; the
+   attention kernels of phase 3 at H = KV = 16; W4A4 packs (rank 128, one
+   batched SVD per expert linear) served in the four modes at
+   ``capacity_factor`` ``OLMOE_CF`` (drop-free) with the serve phase's
+   checks (every model call four dual launches a layer: q/k/v, o, the
+   experts' gate/up and down), a graph step == eager step in each mode,
+   paged and ragged again under the sanitizers, and one eager paged run at
+   the published capacity factor 1.25 printing the expert assignments
+   dropped per model call (``moe_layer.record_drops``).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -111,7 +128,8 @@ The line before the last is the kernel table as JSON; the last line is
 prints no result line, as do ``--ragged-serve`` (phases 1-2, then
 llama3-8b's W4A16 and W4A4 ragged-mode runs of phase 4 alone) and
 ``--lifecycle-only`` (phases 1-2, then the lifecycle phase on llama3-8b's
-W4A4 packs) and ``--calib-only`` (phases 1-2, then phase 6);
+W4A4 packs), ``--calib-only`` (phases 1-2, then phase 6) and
+``--olmoe-only`` (phases 1-2, then phase 7);
 ``--timing-only`` times the four dual wrappers at their table cases,
 ``w4a16_gemm`` at the four llama3-8b shapes and M in
 ``W4A16_MS``, the paged decode kernel at its table case (sq 1 and 4,
@@ -796,19 +814,19 @@ def _planted(name: str, y_f, y_p, y32, rows=None) -> None:
         fail(f"planted fault ({name}) passes the rel check (rel {rel})")
 
 
-def _spare_page(bt) -> int:
+def _spare_page(bt, att: dict = ATT) -> int:
     """A pool page no block table maps."""
     used = set(bt[bt >= 0].tolist())
-    return next(i for i in range(ATT["B"] * ATT["maxp"]) if i not in used)
+    return next(i for i in range(att["B"] * att["maxp"]) if i not in used)
 
 
-def _tables(lens, extra, gen, device):
+def _tables(lens, extra, gen, device, att: dict = ATT):
     """Block tables mapping each slot's pages for ``lens[b] + extra[b]``
-    rows from a shuffled pool (pages taken in turn), -1 elsewhere (slot with
-    no rows: all -1)."""
+    rows from a shuffled pool of ``att``'s size (pages taken in turn), -1
+    elsewhere (slot with no rows: all -1)."""
     import torch
 
-    c = ATT
+    c = att
     perm = torch.randperm(c["B"] * c["maxp"], generator=gen, device="cpu")
     bt = torch.full((len(lens), c["maxp"]), -1, dtype=torch.int32)
     used = 0
@@ -846,12 +864,12 @@ def _sdpa_case(q, kp, vp, kt, vt, bt, pos):
         return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
 
-def _pools(gen, device, copies: int):
-    """``copies`` pairs of (P, page, KV, hd) pools, enough to rotate the
-    pages read past the 50 MB L2 between timed launches."""
+def _pools(gen, device, copies: int, att: dict = ATT):
+    """``copies`` pairs of (P, page, KV, hd) pools at ``att``'s heads, enough
+    to rotate the pages read past the 50 MB L2 between timed launches."""
     import torch
 
-    c = ATT
+    c = att
     shape = (c["B"] * c["maxp"], c["page"], c["KV"], c["hd"])
     return [tuple(torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
                   for _ in range(2)) for _ in range(copies)]
@@ -879,15 +897,16 @@ def _ragged_rows(ctx_l, runs, T):
     return slot_l + [B] * (T - n_real), pos_l + [0] * (T - n_real), n_real
 
 
-def _ragged_case(gen, cpu_gen, device, T: int = 256) -> dict:
+def _ragged_case(gen, cpu_gen, device, T: int = 256, att: dict = ATT) -> dict:
     """The ragged table case: T = 256 rows of decode rows behind {1 .. 2000}
     keys, a 200-row chunk behind 512 committed keys, a cold 40-row chunk and
-    pad rows, at llama3-8b's heads; block tables from ``cpu_gen``."""
+    pad rows, at ``att``'s heads (kept as ``att``); block tables from
+    ``cpu_gen``."""
     import torch
 
     from repro_torch.kernels.contracts import check_ragged_rows
 
-    c = ATT
+    c = att
     B, H, KV, hd = c["B"], c["H"], c["KV"], c["hd"]
     slot_l, pos_l, n_real = _ragged_rows(RAGGED_CTX, RAGGED_RUNS, T)
     check_ragged_rows(slot_l, pos_l, RAGGED_CTX)  # (no s_max: a parent tree's takes none)
@@ -897,8 +916,9 @@ def _ragged_case(gen, cpu_gen, device, T: int = 256) -> dict:
 
     q, kt, vt = (torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
                  for shape in ((T, H, hd), (T, KV, hd), (T, KV, hd)))
-    return dict(T=T, n_real=n_real, ctx_l=RAGGED_CTX, runs=RAGGED_RUNS, slot_l=slot_l,
-                pos_l=pos_l, q=q, kt=kt, vt=vt, bt=_tables(RAGGED_CTX, RAGGED_RUNS, cpu_gen, device),
+    return dict(att=att, T=T, n_real=n_real, ctx_l=RAGGED_CTX, runs=RAGGED_RUNS, slot_l=slot_l,
+                pos_l=pos_l, q=q, kt=kt, vt=vt,
+                bt=_tables(RAGGED_CTX, RAGGED_RUNS, cpu_gen, device, att),
                 slot=t32(slot_l), pos=t32(pos_l), ctx=t32(RAGGED_CTX))
 
 
@@ -914,7 +934,8 @@ def _ragged_chunking(rc, kp, vp, y_whole) -> None:
     from repro_torch.kernels.paged_attention import pool_rows, write_page_rows
     from repro_torch.kernels.ragged_attention import ragged_attention_kernel
 
-    B = ATT["B"]
+    att = rc["att"]
+    B = att["B"]
     T, q, kt, vt, bt, slot, pos, ctx = (rc[k] for k in ("T", "q", "kt", "vt", "bt", "slot",
                                                       "pos", "ctx"))
     dev = q.device
@@ -932,7 +953,7 @@ def _ragged_chunking(rc, kp, vp, y_whole) -> None:
 
         sl, ps = fill(slot, B), fill(pos, 0)
         check_ragged_rows(sl.cpu().numpy(), ps.cpu().numpy(), ctx_.cpu().numpy(),
-                          s_max=ATT["maxp"] * ATT["page"])
+                          s_max=att["maxp"] * att["page"])
         return ragged_attention_kernel(fill(q, 0), kp_, vp_, fill(kt, 0), fill(vt, 0), bt, sl,
                                        ps, ctx_)
 
@@ -973,7 +994,7 @@ def _sdpa_ragged(rc, kp, vp):
     import torch
     import torch.nn.functional as F
 
-    c = ATT
+    c = rc["att"]
     B, H, KV, hd = c["B"], c["H"], c["KV"], c["hd"]
     S = c["maxp"] * c["page"]
     q, kt, vt, bt, slot, pos = (rc[k] for k in ("q", "kt", "vt", "bt", "slot", "pos"))
@@ -1002,7 +1023,7 @@ def _bound_ragged(rc) -> tuple[float, str]:
     """The ragged table case's bound: the committed keys and values of the
     slots with rows, the rows' q, k, v and output, the metadata, read or
     written once; the score and P.V operations of every real row."""
-    c = ATT
+    c = rc["att"]
     B, H, KV, hd = c["B"], c["H"], c["KV"], c["hd"]
     T = rc["T"]
     keys_ctx = sum(n0 for n0, r in zip(rc["ctx_l"], rc["runs"]) if r)
@@ -1012,18 +1033,19 @@ def _bound_ragged(rc) -> tuple[float, str]:
     return _bound_attn(nbytes, flops)
 
 
-def attention_phase(device) -> dict:
+def attention_phase(device, att: dict = ATT) -> dict:
     """The paged-decode and ragged kernels against their plain versions at
-    llama3-8b shapes, timed beside the plain version and SDPA over a dense
-    view; plus the stacked-vs-sequential identity of the paged kernel and
-    the one-vs-two-launch identity of the ragged kernel."""
+    the heads and pools of ``att`` (llama3-8b's by default), timed beside
+    the plain version and SDPA over a dense view; plus the
+    stacked-vs-sequential identity of the paged kernel and the
+    one-vs-two-launch identity of the ragged kernel."""
     import torch
 
     from repro_torch.kernels import build, contracts
     from repro_torch.kernels.paged_attention import paged_decode_kernel, paged_decode_ref
     from repro_torch.kernels.ragged_attention import ragged_attention_kernel, ragged_attention_ref
 
-    c = ATT
+    c = att
     B, H, KV, hd = c["B"], c["H"], c["KV"], c["hd"]
     for lib, fn, args, want in (
             ("paged_attention", "paged_decode_smem_bytes", (hd, H // KV),
@@ -1039,7 +1061,7 @@ def attention_phase(device) -> dict:
             fail(f"{lib}: the kernel's shared memory {got} B != the contract's {want} B")
     gen = torch.Generator(device=device).manual_seed(2)
     cpu_gen = torch.Generator().manual_seed(2)
-    pools = _pools(gen, device, copies=4)
+    pools = _pools(gen, device, copies=4, att=att)
     kp, vp = pools[0]
     table = {}
 
@@ -1050,7 +1072,7 @@ def attention_phase(device) -> dict:
     pos = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
     worst, rep = 0.0, None
     for sq in (1, 4):
-        bt = _tables(DECODE_LENS, [sq if n else 0 for n in DECODE_LENS], cpu_gen, device)
+        bt = _tables(DECODE_LENS, [sq if n else 0 for n in DECODE_LENS], cpu_gen, device, att)
         q, kt, vt = rnd(B, sq, H, hd), rnd(B, sq, KV, hd), rnd(B, sq, KV, hd)
         for commit in (False, True):
             kk, vk = kp.clone(), vp.clone()
@@ -1069,7 +1091,7 @@ def attention_phase(device) -> dict:
                          paged_decode_kernel(q, kp, vp, kt, vt, bt, short, commit=False),
                          out_p, y32)
                 bad = bt.clone()
-                bad[7, 60] = _spare_page(bt)
+                bad[7, 60] = _spare_page(bt, att)
                 _planted("paged: slot 7 reads one wrong page",
                          paged_decode_kernel(q, kp, vp, kt, vt, bad, pos, commit=False),
                          out_p, y32)
@@ -1114,7 +1136,7 @@ def attention_phase(device) -> dict:
     lens = DECODE_LENS + (PAGED_CHUNK - 2,)
     nb = len(lens)
     pos_s = torch.tensor(lens, dtype=torch.int32, device=device)
-    bt = _tables(lens, [sq if n else 0 for n in lens], cpu_gen, device)
+    bt = _tables(lens, [sq if n else 0 for n in lens], cpu_gen, device, att)
     q, kt, vt = rnd(nb, sq, H, hd), rnd(nb, sq, KV, hd), rnd(nb, sq, KV, hd)
     stacked = paged_decode_kernel(q, kp, vp, kt, vt, bt, pos_s, commit=False)
     ks, vs = kp.clone(), vp.clone()
@@ -1138,7 +1160,7 @@ def attention_phase(device) -> dict:
 
     # -- ragged: T = 256 rows, decode rows + a chunk behind committed pages +
     #    a cold chunk + pad rows
-    rc = _ragged_case(gen, cpu_gen, device)
+    rc = _ragged_case(gen, cpu_gen, device, att=att)
     q, kt, vt, bt, slot, rpos, ctx = (rc[k] for k in ("q", "kt", "vt", "bt", "slot", "pos", "ctx"))
     T, n_real = rc["T"], rc["n_real"]
     y_k = ragged_attention_kernel(q, kp, vp, kt, vt, bt, slot, rpos, ctx)
@@ -1154,7 +1176,7 @@ def attention_phase(device) -> dict:
     _planted("ragged: slot 4 misses its last committed key",
              ragged_attention_kernel(q, kp, vp, kt, vt, bt, slot, rpos, short), y_p, y32, real)
     bad = bt.clone()
-    bad[5, 10] = _spare_page(bt)  # slot 5: a 200-row chunk behind 512 committed keys
+    bad[5, 10] = _spare_page(bt, att)  # slot 5: a 200-row chunk behind 512 committed keys
     _planted("ragged: slot 5 reads one wrong page",
              ragged_attention_kernel(q, kp, vp, kt, vt, bad, slot, rpos, ctx), y_p, y32, real)
     del y32
@@ -1412,7 +1434,8 @@ def _w4a16_f32_order(x, wp, ws, group=128):
 CHECK_STEP = 6
 # (setting, mode) pairs whose eager and graph steps are timed, and how many
 # steps each reading takes
-STEP_TIMED = {("w4a16", "paged"), ("w4a4", "paged"), ("w4a4", "ragged")}
+STEP_TIMED = {("w4a16", "paged"), ("w4a4", "paged"), ("w4a4", "ragged"),
+              ("olmoe w4a4", "paged")}
 STEP_REPS = 10
 # profiler name prefixes of the hand-written kernels (csrc/*.cu)
 HANDWRITTEN = ("tq_", "pd_", "rg_", "w4a16_")
@@ -2869,6 +2892,284 @@ def calibration_phase(device, card: str, cfg, rows: int = CALIB_ROWS, steps=CALI
           f"card {card}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: OLMoE-1B-7B (moe family): the dual kernels over an expert axis, the
+# attention kernels at one query head per KV head, the engine in every mode
+# ---------------------------------------------------------------------------
+
+OLMOE_LAYERS = 16  # OLMoE-1B-7B's full depth
+OLMOE_CF = 8.0  # capacity_factor at which nothing drops: Cp >= T at E / top_k = 8
+MOE_GEMV_CPS = (8,)  # decode (B = 8) and the prefill bucket 8 at either capacity factor
+# Cp of every stacked GEMM the served runs launch. At OLMOE_CF (Cp = T): spec
+# verify 32 (B 8 x sq 4), ragged 256 (the token budget), the prefill buckets
+# 32, 64, 512, 1024. At the published 1.25 (the paged run only): the buckets
+# 64, 512, 1024 give 16, 80, 160. And 40, the ragged budget's Cp at 1.25.
+MOE_GEMM_CPS = (16, 32, 40, 64, 80, 160, 256, 512, 1024)
+MOE_TABLE_CP = {"dual_gemv": 8, "dual_gemv_group": 8,  # the kernel table's row: ragged's
+                "dual_gemm": 256, "dual_gemm_group": 256}  # Cp is the most launched GEMM
+OLMOE_ATT = dict(B=8, H=16, KV=16, hd=128, page=16, maxp=128)  # max_len 2048
+MOE_KERNELS = ("dual_gemv", "dual_gemv_group", "dual_gemm", "dual_gemm_group")
+
+
+def _stacked_pack(gen, e, k, n, r, device):
+    """An expert-stacked W4A4 pack: E experts' random (U, V, R), packed at once."""
+    import torch
+
+    from repro_torch.kernels.ref import pack_twinquant_weights
+
+    def rnd(*shape, s):
+        return torch.randn(*shape, generator=gen, device=device) * s
+
+    return pack_twinquant_weights(rnd(e, k, r, s=0.1), rnd(e, r, n, s=0.1),
+                                  rnd(e, k, n, s=0.05), a_bits=4, group=128)
+
+
+def _bound_stacked(e: int, cp: int, k: int, gw) -> tuple[float, str]:
+    """``bound`` of one launch over E experts: every expert's Cp rows in and
+    out and the whole stacked pack moved once, every expert's operations."""
+    n, r = gw.ndim_out, gw.rank
+    nbytes = e * cp * k * 2 + pack_bytes(gw) + e * cp * n * 2
+    ops = e * (2 * cp * k * n + 2 * cp * k * r
+               + sum(2 * cp * rj * nj for rj, nj in zip(gw.seg_r, gw.seg_n)))
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT8_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _swap_experts(w, a: int = 0, b: int = 1):
+    """A copy of stacked pack ``w`` whose experts ``a`` and ``b`` swap their
+    residual packs (``rp``): the planted fault of the expert axis."""
+    rp = w.rp.clone()
+    rp[[a, b]] = rp[[b, a]]
+    return dataclasses.replace(w, rp=rp)
+
+
+def moe_kernel_phase(device, cfg) -> dict:
+    """The four dual kernels on expert-stacked packs at ``cfg``'s widths
+    (OLMoE: E = 64, gate_up 2048 -> 2 x 1024 fused, down 1024 -> 2048, rank
+    128, group 128), GEMV at Cp in ``MOE_GEMV_CPS`` and GEMM at
+    ``MOE_GEMM_CPS``, a_bits 4 and 8: each stacked launch ``torch.equal`` to
+    the stacked plain version and, expert by expert, to one-expert launches;
+    experts 0 and 1 with their ``rp`` swapped must fail the check; timed at
+    a_bits 4 (device ms from a CUDA graph, host µs, the plain version, one
+    bf16 ``torch.bmm`` of the same (E, Cp, K) x (E, K, N), the bound).
+    Returns each wrapper's row for the table (at ``MOE_TABLE_CP``)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.twinquant_dual_gemm import dual_gemm, dual_gemm_group
+    from repro_torch.kernels.twinquant_dual_gemv import dual_gemv, dual_gemv_group
+
+    e, d, f, r = cfg.n_experts, cfg.d_model, cfg.d_ff_expert, 128
+    gen = torch.Generator(device=device).manual_seed(7)
+    down = _stacked_pack(gen, e, f, d, r, device)
+    gate_up = ref.fuse_twinquant_weights([_stacked_pack(gen, e, d, f, r, device)
+                                          for _ in range(2)])
+    cases = {"dual_gemv": (dual_gemv, "down", down, MOE_GEMV_CPS),
+             "dual_gemv_group": (dual_gemv_group, "gate_up", gate_up, MOE_GEMV_CPS),
+             "dual_gemm": (dual_gemm, "down", down, MOE_GEMM_CPS),
+             "dual_gemm_group": (dual_gemm_group, "gate_up", gate_up, MOE_GEMM_CPS)}
+    table = {}
+    for name, (kern, lname, w, cps) in cases.items():
+        gw = w if isinstance(w, ref.TwinQuantGroupWeights) else ref.as_group(w)
+        k, n = gw.kdim, gw.ndim_out
+        wb = torch.randn(e, k, n, generator=gen, device=device).to(torch.bfloat16)
+        worst = 0.0
+        for a_bits in (4, 8):
+            wa = dataclasses.replace(w, a_bits=a_bits)
+            gwa = dataclasses.replace(gw, a_bits=a_bits)
+            for cp in cps:
+                x = (torch.randn(e, cp, k, generator=gen, device=device) * 2).to(torch.bfloat16)
+                y_k, y_p = kern(x, wa), ref.dual_gemm_group_ref(x, gwa)
+                torch.cuda.synchronize()
+                worst = max(worst, (y_k.float() - y_p.float()).abs().max().item())
+                if not torch.equal(y_k, y_p):
+                    fail(f"{name} stacked {lname} E={e} Cp={cp} a_bits={a_bits}: kernel != "
+                         f"plain version ({_unequal(y_k, y_p)})")
+                alone = torch.stack([kern(x[i], wa.expert(i)) for i in range(e)])
+                if not torch.equal(alone, y_k):
+                    bad = int((alone != y_k).flatten(1).any(dim=1).sum())
+                    fail(f"{name} stacked {lname} Cp={cp} a_bits={a_bits}: {bad} experts differ "
+                         f"from one-expert launches")
+                y_f = kern(x, _swap_experts(wa))
+                torch.cuda.synchronize()
+                caught = not torch.equal(y_f, y_p)
+                print(f"kernel planted fault ({name} stacked {lname} Cp={cp} a_bits={a_bits}: "
+                      f"experts 0 and 1 swap rp) -> {'caught' if caught else 'MISSED'}; experts "
+                      f"0, 1 differ: {not torch.equal(y_f[:2], y_p[:2])}, experts 2.. equal: "
+                      f"{torch.equal(y_f[2:], y_p[2:])}", flush=True)
+                if not caught:
+                    fail(f"{name} stacked: swapped experts' rp passes the equality check")
+                if a_bits != 4:
+                    continue
+                t_k = graph_ms(lambda: kern(x, wa))
+                t_h = host_us(lambda: kern(x, wa))
+                t_p = cuda_ms(lambda: ref.dual_gemm_group_ref(x, gwa), iters=1, warmup=0)
+                t_lib = cuda_ms(lambda: torch.bmm(x, wb), iters=20)
+                t_b, by = _bound_stacked(e, cp, k, gw)
+                print(f"kernel {name:16s} stacked {lname:8s} E={e} Cp={cp:4d} K={k:5d} N={n:5d} "
+                      f"equal, experts == one-expert launches device_ms={t_k:.4f} "
+                      f"host_us={t_h:.1f} plain_ms={t_p:.4f} bf16_bmm_ms={t_lib:.4f} "
+                      f"bound_ms={t_b:.4f} ({by}) share={t_b / t_k:.3f} "
+                      f"vs_bmm={t_k / t_lib:.2f}x", flush=True)
+                if cp == MOE_TABLE_CP[name]:
+                    table[name] = dict(ms=t_k, host_us=t_h, plain_ms=t_p, library_ms=t_lib,
+                                       bound_ms=t_b, bound_by=by, cp=cp)
+        print(f"kernel {name:16s} stacked {lname} E={e} a_bits=4,8 equal at Cp={list(cps)}",
+              flush=True)
+        table[name]["max_abs_err"] = worst
+        del wb
+    del cases, down, gate_up
+    torch.cuda.empty_cache()
+    return table
+
+
+class MoEServed(Served):
+    """An OLMoE model served as :class:`Served` does, its linears checked as
+    one stacked launch per (layer, linear call): every model call (a decode,
+    verify or ragged step, a prefill) runs q/k/v (fused), o, the experts'
+    gate/up (fused) and down, each one dual launch for all experts."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.host_step_ms: dict = {}
+
+    def _against_eager(self, mode, reqs, got, routes, eng) -> None:
+        """No whole-run eager twin: the graph step is held to the eager step
+        bit for bit (``_step_check``), and an eager run of each mode (~6 s on
+        an H100 at 2.5k launches a step) would add ~25 s to a script held to
+        1200 s."""
+
+    def _linears(self, mode, eng, got, routes) -> None:
+        L, cuda = self.cfg.n_layers, self.device.type == "cuda"
+        name = f"{self.tag} {mode}"
+        calls = eng.stats["decode_steps"] + eng.compile_stats()["prefill_calls"]
+        want = 4 * L * calls
+        n_routes = sum(v for key, v in routes.items() if key in (
+            "dual/decode", "dual/prefill", "dual_fused/decode", "dual_fused/prefill"))
+        n_launch = sum(got.get(kname, 0) for kname in MOE_KERNELS)
+        if n_routes != want or any(not key.startswith(("dual", "paged_decode", "ragged"))
+                                   for key in routes):
+            fail(f"{name}: want {want} dual routes (4 x {L} layers x {calls} model calls), "
+                 f"routes {routes}")
+        if cuda and n_launch != want:
+            fail(f"{name}: dual kernels launched {n_launch} times, want one stacked launch per "
+                 f"(layer, linear call): {want} ({got})")
+        if mode == "bucketed":
+            for kname in MOE_KERNELS:
+                if cuda and got.get(kname, 0) <= 0:
+                    fail(f"kernel {kname} never launched on the {name} path")
+                self.launches[kname] = got.get(kname, 0)
+        mem = eng.memory()
+        self.host_step_ms[mode] = _step_ms(eng, mode)
+        print(f"serve {name} dual launches={n_launch} == 4 x {L} layers x {calls} model calls "
+              f"(qkv, o, experts gate_up, experts down; one launch for all "
+              f"{self.cfg.n_experts} experts) host_step_ms={_step_ms(eng, mode):.3f} "
+              f"pages_peak={mem.get('pages_peak', 'dense cache')}", flush=True)
+
+
+def _drops_run(served, device) -> None:
+    """One paged run at the published capacity factor (eager steps: the
+    layer records drops of eager calls only): the expert assignments
+    dropped per model call, from the layer's own record
+    (``moe_layer.record_drops``), read after the run and shown by the
+    call's token rows T (decode steps and the prompts of bucket 8 share T =
+    8). Not gated on tokens."""
+    from repro_torch.models import moe_layer
+
+    cfg, L = served.cfg, served.cfg.n_layers
+    log: list = []
+    eng = served.engine("paged", step_graphs=False)
+    reqs = served.requests()
+    moe_layer.record_drops(log)
+    try:
+        _drive(f"{served.tag} paged capacity_factor={cfg.capacity_factor}", eng, reqs, device, L)
+    finally:
+        moe_layer.record_drops(None)
+    by_t: dict = {}
+    for i in range(0, len(log), L):  # one model call: L MoE calls of one T
+        t, cp = log[i][:2]
+        by_t.setdefault((t, cp), []).append(int(sum(e[2] for e in log[i:i + L]).item()))
+    same = sum(a.out == b.out for a, b in zip(reqs, served.outs["paged"]))
+    shown = {f"T={t} Cp={cp}": dict(calls=len(v), dropped_max=max(v),
+                                     dropped_mean=sum(v) / len(v), of=t * cfg.top_k * L)
+             for (t, cp), v in sorted(by_t.items())}
+    print(f"serve {served.tag} paged capacity_factor={cfg.capacity_factor}: assignments dropped "
+          f"per model call (of T x {cfg.top_k} x {L} layers), by token rows: {json.dumps(shown)}; "
+          f"decode_steps={eng.stats['decode_steps']}; requests with the drop-free run's tokens: "
+          f"{same} of {len(reqs)} (not gated)", flush=True)
+
+
+def olmoe_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2048,
+                rank: int = 128) -> dict:
+    """OLMoE-1B-7B at full width (``cfg``'s depth), random weights from seed
+    0: the stacked dual kernels (``moe_kernel_phase``), the attention
+    kernels at one query head per KV head, then W4A4 packs (quantized once,
+    fused) served in the four modes at ``OLMOE_CF`` (drop-free) with the
+    serve phase's checks (routes, one stacked launch per linear call, one
+    capture, solo == interleaved, spec == paged, graph step == eager step),
+    paged and ragged again under the sanitizers, and one paged run at the
+    published capacity factor. Returns the kernel and attention tables."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import QuantSpec
+    from repro_torch.core.twinquant import fuse_params, quantize_params
+    from repro_torch.models import olmoe
+
+    t0 = time.perf_counter()
+    print(f"olmoe config {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+          f"head_dim={cfg.head_dim} experts={cfg.n_experts} top_k={cfg.top_k} "
+          f"d_ff_expert={cfg.d_ff_expert} vocab={cfg.vocab} n_layers={cfg.n_layers} "
+          f"card=\"{card}\"", flush=True)
+    tables = {"stacked": moe_kernel_phase(device, cfg)}
+    t1 = time.perf_counter()
+    tables["attention"] = attention_phase(device, OLMOE_ATT)
+    t2 = time.perf_counter()
+    params = olmoe.init_params(cfg, seed=0, device=device)
+    bf16_bytes = _param_bytes(params)
+    _sync(device)
+    t3 = time.perf_counter()
+    qp = quantize_params(params, cfg, QuantSpec("w4a4", rank=rank, group_size=128))
+    _sync(device)
+    t4 = time.perf_counter()
+    del params
+    torch.cuda.empty_cache()
+    qp = fuse_params(qp)
+    total, active = olmoe.count_params(cfg)
+    print(f"olmoe params total={total} active={active} param_bytes bf16={bf16_bytes} "
+          f"w4a4={_param_bytes(qp)} ({bf16_bytes / _param_bytes(qp):.2f}x); init_s={t3 - t2:.2f} "
+          f"w4a4_quantize_s={t4 - t3:.2f} ({(t4 - t3) / cfg.n_layers:.2f} s a layer: "
+          f"{3 * cfg.n_experts} expert linears in 3 batched SVDs + 4 attention linears)",
+          flush=True)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
+    served = MoEServed("olmoe w4a4", cfg.replace(capacity_factor=OLMOE_CF), qp, "w4a4",
+                       prompts, device, max_len)
+    t5 = time.perf_counter()
+    for mode in MODES:
+        served.serve(mode, against_eager=True)
+    for mode in ("paged", "ragged"):
+        served.sanitized(mode)
+    for mode, times in served.step_times.items():
+        times["busy_share_graph"] = ((times["graph_kernel_ms"] or times["replay_events_ms"])
+                                     / served.host_step_ms[mode])
+        print(f"serve step times {json.dumps({'setting': served.tag, 'mode': mode, **times})}",
+              flush=True)
+    t6 = time.perf_counter()
+    published = MoEServed("olmoe w4a4", cfg, qp, "w4a4", prompts, device, max_len)
+    published.outs = served.outs
+    _drops_run(published, device)
+    t7 = time.perf_counter()
+    launches = dict(served.launches)
+    del served, published, qp
+    torch.cuda.empty_cache()
+    print(f"olmoe phase seconds: stacked kernels {t1 - t0:.1f} attention {t2 - t1:.1f} "
+          f"init+quantize {t5 - t2:.1f} serve {t6 - t5:.1f} capacity_1.25 {t7 - t6:.1f}",
+          flush=True)
+    print(f"olmoe tables {json.dumps({**tables, 'launches': launches})}", flush=True)
+    return tables
+
+
 def main() -> None:
     import argparse
 
@@ -2888,6 +3189,8 @@ def main() -> None:
                     help="build, quantize llama3-8b W4A4, then run the lifecycle phase alone")
     ap.add_argument("--calib-only", action="store_true",
                     help="build, then run the calibration phase alone (no result line)")
+    ap.add_argument("--olmoe-only", action="store_true",
+                    help="build, then run the OLMoE phase alone (no result line)")
     ap.add_argument("--src", metavar="DIR",
                     help="import repro_torch from DIR (another tree's src) instead")
     args = ap.parse_args()
@@ -2932,6 +3235,13 @@ def main() -> None:
         calibration_phase(device, card, get_config("llama3-8b"))
         print(f"calib phase total seconds {time.perf_counter() - t:.1f}", flush=True)
         return
+    if args.olmoe_only:
+        from repro_torch.configs import get_config
+
+        t = time.perf_counter()
+        olmoe_phase(device, card, get_config("olmoe-1b-7b").replace(n_layers=OLMOE_LAYERS))
+        print(f"olmoe phase total seconds {time.perf_counter() - t:.1f}", flush=True)
+        return
     if args.lifecycle_only:
         from repro_torch.configs import QuantSpec, get_config
         from repro_torch.core.twinquant import fuse_params, quantize_params
@@ -2964,6 +3274,10 @@ def main() -> None:
     t = time.perf_counter()
     calibration_phase(device, card, get_config("llama3-8b"))
     secs["calibration"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    olmoe_phase(device, card, get_config("olmoe-1b-7b").replace(n_layers=OLMOE_LAYERS))
+    secs["olmoe_1b_7b"] = time.perf_counter() - t
     print(f"phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
 
     rows = []

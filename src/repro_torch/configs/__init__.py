@@ -1,6 +1,7 @@
 """Model configuration for the port: its own copy of ``ModelConfig`` /
-``QuantSpec`` and the registry, restricted to the dense family and the
-paper's two evaluation models (``llama3-8b``, ``qwen3-8b``).
+``QuantSpec`` and the registry, restricted to the families the port serves
+(``dense``: the paper's two evaluation models ``llama3-8b`` and
+``qwen3-8b``; ``moe``: ``olmoe-1b-7b``).
 
 ``get_config(name)`` returns the full-scale config, ``get_config(name,
 reduced=True)`` the small smoke-test reduction (same code paths).
@@ -33,7 +34,7 @@ class QuantSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Dense decoder-only transformer configuration."""
+    """Decoder-only transformer configuration (dense or MoE FFN)."""
 
     name: str = ""
     family: str = "dense"
@@ -49,6 +50,13 @@ class ModelConfig:
     rope_fraction: float = 1.0  # fraction of head_dim that is rotated
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
     quant: QuantSpec = QuantSpec()
 
     @property
@@ -63,9 +71,9 @@ class ModelConfig:
 _REGISTRY: dict[str, ModelConfig] = {}
 _REDUCED: dict[str, ModelConfig] = {}
 
-ARCH_IDS = ["llama3-8b", "qwen3-8b"]
+ARCH_IDS = ["llama3-8b", "qwen3-8b", "olmoe-1b-7b"]
 
-_MODULES = {"llama3-8b": "llama3_8b", "qwen3-8b": "qwen3_8b"}
+_MODULES = {"llama3-8b": "llama3_8b", "qwen3-8b": "qwen3_8b", "olmoe-1b-7b": "olmoe_1b_7b"}
 
 
 def register(full: ModelConfig, reduced: ModelConfig) -> None:

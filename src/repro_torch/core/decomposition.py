@@ -64,13 +64,14 @@ def apply_smoothing(x: torch.Tensor, w: torch.Tensor, lam: torch.Tensor):
 
 
 def svd_decompose(w: torch.Tensor, rank: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Truncated SVD with sqrt-balanced factors; returns (U, V, R) in f32."""
+    """Truncated SVD with sqrt-balanced factors; returns (U, V, R) in f32.
+    A leading axis (an MoE layer's stacked experts) is one batched SVD."""
     w = w.to(torch.float32)
     u, s, vt = torch.linalg.svd(w, full_matrices=False)
-    r = min(rank, s.shape[0])
-    sq = torch.sqrt(s[:r])
-    U = u[:, :r] * sq[None, :]
-    V = sq[:, None] * vt[:r, :]
+    r = min(rank, s.shape[-1])
+    sq = torch.sqrt(s[..., :r])
+    U = u[..., :r] * sq[..., None, :]
+    V = sq[..., :, None] * vt[..., :r, :]
     R = w - U @ V
     return U, V, R
 

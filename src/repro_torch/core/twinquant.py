@@ -5,7 +5,10 @@
   split, sqrt-balanced, 4-bit packs) or a
   :class:`~repro_torch.models.common.W4A16Linear` (W4A16: group-wise RTN
   int4 weights, bf16 activations), looping over the decoder layers where
-  the reference vmaps over its stacked layer axis.
+  the reference vmaps over its stacked layer axis. An MoE layer's
+  :class:`~repro_torch.models.common.ExpertLinear` (E, K, N) becomes one
+  expert-stacked pack (one batched SVD over the E experts), as the
+  reference's vmap over the stacked expert axis.
 * :func:`fuse_params` merges sibling packs that consume the same activation
   (q/k/v -> ``qkv``, gate/up -> ``gate_up``) into one
   :class:`~repro_torch.models.common.TwinQuantLinearGroup`, which
@@ -54,6 +57,7 @@ from repro_torch.kernels.ref import (
     quantize_rows_ref,
 )
 from repro_torch.models.common import (
+    ExpertLinear,
     Linear,
     SimLinear,
     TwinQuantLinear,
@@ -65,7 +69,7 @@ __all__ = ["EXCLUDE", "FUSE_GROUPS", "quantize_params", "fuse_linear_packs", "fu
            "with_activation_bits", "build_sim_linear", "simulate_quantize_params"]
 
 # the leaf modules the rewriters never descend into
-_LEAVES = (Linear, SimLinear, TwinQuantLinear, TwinQuantLinearGroup, W4A16Linear)
+_LEAVES = (ExpertLinear, Linear, SimLinear, TwinQuantLinear, TwinQuantLinearGroup, W4A16Linear)
 
 EXCLUDE = re.compile(r"(embed|head|router|wkv_b|mtp/proj)")
 
@@ -83,9 +87,10 @@ def _eligible(path_str: str, w: torch.Tensor) -> bool:
     return k % 256 == 0 and n % 2 == 0 and k >= 256
 
 
-def _pack_one(lin: Linear, spec: QuantSpec) -> TwinQuantLinear:
-    """bf16 linear -> TwinQuant pack (SVD split, sqrt-balanced)."""
-    k, n = lin.w.shape
+def _pack_one(lin, spec: QuantSpec) -> TwinQuantLinear:
+    """bf16 linear -> TwinQuant pack (SVD split, sqrt-balanced); an
+    :class:`ExpertLinear` -> an expert-stacked pack."""
+    k, n = lin.w.shape[-2:]
     r = min(spec.rank, k // 2, n)
     r = max(2, r // 2 * 2)
     U, V, R = svd_decompose(lin.w.to(torch.float32), r)
@@ -121,8 +126,14 @@ def quantize_params(params: nn.Module, cfg: ModelConfig, spec: QuantSpec) -> nn.
     pack_one = _pack_one_w4a16 if spec.mode == "w4a16" else _pack_one
 
     def visit(mod: nn.Module, path: str) -> nn.Module:
-        if isinstance(mod, Linear):
-            return pack_one(mod, spec) if _eligible(path + "/w", mod.w) else mod
+        if isinstance(mod, (Linear, ExpertLinear)):
+            if not _eligible(path + "/w", mod.w):
+                return mod
+            if isinstance(mod, ExpertLinear) and spec.mode == "w4a16":
+                raise NotImplementedError(
+                    f"{path}: W4A16 expert packs need w4a16_gemm with an expert axis, which "
+                    "the port does not have yet (ROADMAP Queue 1)")
+            return pack_one(mod, spec)
         if isinstance(mod, _LEAVES):
             return mod
         return _rebuild(mod, {k: None if v is None else visit(v, f"{path}/{k}")
@@ -135,7 +146,7 @@ def _packs_fusable(packs: list) -> bool:
     if not all(isinstance(p, TwinQuantLinear) for p in packs):
         return False
     base = packs[0]
-    return all(p.rp.shape[0] == base.rp.shape[0] and p.group == base.group
+    return all(p.rp.shape[:-1] == base.rp.shape[:-1] and p.group == base.group
                and p.a_bits == base.a_bits for p in packs)
 
 
@@ -147,17 +158,19 @@ def fuse_linear_packs(packs: list) -> TwinQuantLinearGroup:
     if any(p.b is not None for p in packs):
         b = torch.cat([
             p.b.to(torch.float32) if p.b is not None
-            else torch.zeros(p.rp.shape[-1], dtype=torch.float32, device=p.rp.device)
+            else torch.zeros(p.rp.shape[:-2] + p.rp.shape[-1:], dtype=torch.float32,
+                             device=p.rp.device)
             for p in packs
-        ])
+        ], dim=-1)
     return TwinQuantLinearGroup(gw, b)
 
 
 @torch.no_grad()
 def fuse_params(params: nn.Module) -> nn.Module:
     """Merge sibling quantized packs that share an input into fused groups:
-    ``attn/{q,k,v}`` -> ``attn/qkv`` and ``mlp/{gate,up}`` -> ``mlp/gate_up``.
-    Non-pack siblings (bf16, partially quantized groups) stay as they are."""
+    ``attn/{q,k,v}`` -> ``attn/qkv`` and ``{gate,up}`` -> ``gate_up`` under
+    any parent (``mlp``, an MoE layer's stacked ``experts``). Non-pack
+    siblings (bf16, partially quantized groups) stay as they are."""
 
     def visit(mod: nn.Module, key: str) -> nn.Module:
         if isinstance(mod, _LEAVES):

@@ -1,6 +1,13 @@
 // Shared pieces of the dual-component TwinQuant kernels for Hopper (sm_90a):
-// the segment table, cp.async / ldmatrix / int8 MMA helpers, the in-register
-// nibble unpack, activation quantization and H requantization.
+// the segment table, the expert axis, cp.async / ldmatrix / int8 MMA helpers,
+// the in-register nibble unpack, activation quantization and H requantization.
+//
+// The expert axis (an MoE layer's experts in one launch, the counterpart of
+// the reference's vmap over its pallas_call): every kernel runs gridDim.z = E
+// and offsets each pointer by blockIdx.z times that operand's per-expert
+// element stride (TqExp; all zero for E = 1) at its top. The segment table is
+// the same for every expert, and nothing crosses experts, so an expert's
+// slice of a launch is that expert launched alone, bit for bit.
 //
 // Arithmetic contract (held bit for bit against the plain PyTorch versions
 // in repro_torch/kernels/ref.py):
@@ -35,6 +42,36 @@ struct TqSegs {
   const int8_t* vp[TQ_MAX_SEGS];  // (r_j/2, N_j) packed
   const float* vs[TQ_MAX_SEGS];   // (r_j/gr_j, N_j)
 };
+
+// Per-expert element strides of a launch over an expert axis.
+struct TqExp {
+  long long x, up, us, rp, rs;      // activation and pack tensors
+  long long xq, xs, hf, hq, hs;     // scratch
+  long long out;
+  long long vp[TQ_MAX_SEGS], vs[TQ_MAX_SEGS];
+};
+
+// From the host array: x, up, us, rp, rs, xq, xs, hf, hq, hs, out, then vp
+// and vs of each of TQ_MAX_SEGS segments.
+static inline TqExp tq_make_exp(const long long* s) {
+  TqExp e;
+  e.x = s[0];
+  e.up = s[1];
+  e.us = s[2];
+  e.rp = s[3];
+  e.rs = s[4];
+  e.xq = s[5];
+  e.xs = s[6];
+  e.hf = s[7];
+  e.hq = s[8];
+  e.hs = s[9];
+  e.out = s[10];
+  for (int j = 0; j < TQ_MAX_SEGS; ++j) {
+    e.vp[j] = s[11 + j];
+    e.vs[j] = s[11 + TQ_MAX_SEGS + j];
+  }
+  return e;
+}
 
 static inline TqSegs tq_make_segs(int n_seg, const long long* info,
                                   const void* const* vps, const void* const* vss) {
@@ -189,9 +226,14 @@ __device__ __forceinline__ float tq_warp_max(float v) {
 
 // X (M, K) bf16 -> Xq (M, K) int8 + xs (M, K/G) f32. One warp per (m, g);
 // a lane keeps its <= 4 values (G <= 128) in registers between the amax and
-// the quantization.
+// the quantization. blockIdx.z: the expert (strides sx, sxq, sxs).
 __global__ void tq_quantize_act(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
-                                float* __restrict__ xs, int M, int K, int G, int qmax) {
+                                float* __restrict__ xs, int M, int K, int G, int qmax,
+                                long long sx, long long sxq, long long sxs) {
+  const size_t z = blockIdx.z;
+  x += z * sx;
+  xq += z * sxq;
+  xs += z * sxs;
   int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   int lane = threadIdx.x & 31;
   int ng = K / G;
@@ -235,11 +277,16 @@ __global__ void tq_quantize_act(const __nv_bfloat16* __restrict__ x, int8_t* __r
 // H = sum over t of terms[t] (each (M, R) f32, t ascending, from 0), then
 // H -> Hq (M, R) int8 + hs (M, sum_j r_j/gr_j) f32, each segment with its
 // own rank groups. One block (128 threads) per (m, H group); gr <= 128, so
-// one column a thread.
+// one column a thread. blockIdx.z: the expert (strides st, shq, shs).
 __global__ void tq_requant_h(const float* __restrict__ terms, int n_terms,
                              int8_t* __restrict__ hq, float* __restrict__ hs, int M, int R,
-                             int hs_cols, TqSegs segs, int qmax) {
+                             int hs_cols, TqSegs segs, int qmax, long long st, long long shq,
+                             long long shs) {
   __shared__ float red[4];
+  const size_t z = blockIdx.z;
+  terms += z * st;
+  hq += z * shq;
+  hs += z * shs;
   int m = blockIdx.y;
   int hcol = blockIdx.x;
   int j = 0;
@@ -283,21 +330,22 @@ static inline int tq_smem_attr(const void* fn, int bytes) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-static inline int tq_launch_quantize(const void* x, void* xq, void* xs, int M, int K, int G,
-                                     int qmax, cudaStream_t st) {
+static inline int tq_launch_quantize(const void* x, void* xq, void* xs, int E, int M, int K,
+                                     int G, int qmax, const TqExp& ex, cudaStream_t st) {
   int warps = M * (K / G);
   int threads = 256;
-  int blocks = (warps * 32 + threads - 1) / threads;
-  tq_quantize_act<<<blocks, threads, 0, st>>>((const __nv_bfloat16*)x, (int8_t*)xq, (float*)xs,
-                                              M, K, G, qmax);
+  dim3 grid((warps * 32 + threads - 1) / threads, 1, E);
+  tq_quantize_act<<<grid, threads, 0, st>>>((const __nv_bfloat16*)x, (int8_t*)xq, (float*)xs, M,
+                                            K, G, qmax, ex.x, ex.xq, ex.xs);
   return (int)cudaGetLastError();
 }
 
-static inline int tq_launch_requant(const float* terms, int n_terms, void* hq, void* hs, int M,
-                                    int R, const TqSegs& segs, int qmax, cudaStream_t st) {
+static inline int tq_launch_requant(const float* terms, int n_terms, void* hq, void* hs, int E,
+                                    int M, int R, const TqSegs& segs, int qmax, const TqExp& ex,
+                                    cudaStream_t st) {
   int cols = tq_hs_cols(segs);
-  dim3 grid(cols, M);
+  dim3 grid(cols, M, E);
   tq_requant_h<<<grid, 128, 0, st>>>(terms, n_terms, (int8_t*)hq, (float*)hs, M, R, cols, segs,
-                                     qmax);
+                                     qmax, ex.hf, ex.hq, ex.hs);
   return (int)cudaGetLastError();
 }

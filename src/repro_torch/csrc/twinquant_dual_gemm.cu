@@ -8,6 +8,10 @@
 // for the residual plus 2*M*R*(K+N) for the low-rank path, against 1,979
 // int8 TOP/s); at small M the packed weight bytes bound it, as in the GEMV.
 //
+// Over an expert axis (E > 1: an MoE layer's stacked packs) every launch
+// runs gridDim.z = E, each block reading and writing its expert's slices
+// (the per-expert strides in TqExp / GmArgs).
+//
 // Four launches: tq_quantize_act (X -> Xq, xs); the H pass, tq_gemm_split
 // with W = Uq, writing H in f32; tq_requant_h (H -> Hq, hs per segment); the
 // main pass with W = Rq and each column tile's owning segment's V groups,
@@ -92,7 +96,8 @@ __device__ __forceinline__ int gm_p_off(int r, int c) {
 
 // One launch's operands: A = (xq, xs) against W = (w, ws) over the K groups,
 // then (segs.n > 0) each column tile's owning segment's V groups with A =
-// (hq, hs); out f32 or bf16, (M, N).
+// (hq, hs); out f32 or bf16, (M, N); expert 0's pointers and the
+// per-expert element strides s_* (blockIdx.z is the expert).
 struct GmArgs {
   const int8_t* xq;
   const float* xs;
@@ -105,6 +110,8 @@ struct GmArgs {
   TqSegs segs;
   float* out_f32;
   __nv_bfloat16* out_bf16;
+  long long s_xq, s_xs, s_w, s_ws, s_hq, s_hs, s_out;
+  long long s_vp[TQ_MAX_SEGS], s_vs[TQ_MAX_SEGS];
 };
 
 struct GmTask {
@@ -116,13 +123,15 @@ struct GmTask {
 };
 
 // Where column tile bx of width bn lies: its segment j, first column n0,
-// valid columns; and how many tasks it walks.
+// valid columns; how many tasks it walks; its expert z.
 struct GmPlace {
   int j, n0, ncols, n_tasks;
+  size_t z;
 };
 
 __device__ __forceinline__ GmPlace gm_place(const GmArgs& p, int bx, int bn) {
   GmPlace q;
+  q.z = blockIdx.z;
   q.j = 0;
   q.n0 = bx * bn;
   int nend = p.N;
@@ -141,10 +150,10 @@ __device__ __forceinline__ GmTask gm_task(const GmArgs& p, const GmPlace& q, int
   GmTask k;
   const int nk = p.K / p.G;
   if (t < nk) {
-    k.a = p.xq + (size_t)t * p.G;
-    k.as = p.xs + t;
-    k.w = p.w + (size_t)t * (p.G / 2) * p.N + q.n0;
-    k.ws = p.ws + (size_t)t * p.N + q.n0;
+    k.a = p.xq + q.z * p.s_xq + (size_t)t * p.G;
+    k.as = p.xs + q.z * p.s_xs + t;
+    k.w = p.w + q.z * p.s_w + (size_t)t * (p.G / 2) * p.N + q.n0;
+    k.ws = p.ws + q.z * p.s_ws + (size_t)t * p.N + q.n0;
     k.lda = p.K;
     k.las = nk;
     k.ldw = p.N;
@@ -152,10 +161,10 @@ __device__ __forceinline__ GmTask gm_task(const GmArgs& p, const GmPlace& q, int
   } else {
     const int v = t - nk, j = q.j, gr = p.segs.rgroup[j], nj = p.segs.n_len[j];
     const int vcol = q.n0 - p.segs.n_off[j];
-    k.a = p.hq + p.segs.r_off[j] + v * gr;
-    k.as = p.hs + p.segs.hs_off[j] + v;
-    k.w = p.segs.vp[j] + (size_t)v * (gr / 2) * nj + vcol;
-    k.ws = p.segs.vs[j] + (size_t)v * nj + vcol;
+    k.a = p.hq + q.z * p.s_hq + p.segs.r_off[j] + v * gr;
+    k.as = p.hs + q.z * p.s_hs + p.segs.hs_off[j] + v;
+    k.w = p.segs.vp[j] + q.z * p.s_vp[j] + (size_t)v * (gr / 2) * nj + vcol;
+    k.ws = p.segs.vs[j] + q.z * p.s_vs[j] + (size_t)v * nj + vcol;
     k.lda = p.R;
     k.las = p.hs_cols;
     k.ldw = nj;
@@ -290,9 +299,10 @@ __device__ __forceinline__ int gm_col(int tid, int nt, int e) {
   return (tid >> 5) % C::WARPS_COLS * C::WN + nt * 8 + (tid & 3) * 2 + (e & 1);
 }
 
-__device__ __forceinline__ void gm_store(const GmArgs& p, int m, int n, float v) {
-  if (p.out_f32) p.out_f32[(size_t)m * p.N + n] = v;
-  else p.out_bf16[(size_t)m * p.N + n] = __float2bfloat16_rn(v);
+__device__ __forceinline__ void gm_store(const GmArgs& p, size_t z, int m, int n, float v) {
+  const size_t i = z * p.s_out + (size_t)m * p.N + n;
+  if (p.out_f32) p.out_f32[i] = v;
+  else p.out_bf16[i] = __float2bfloat16_rn(v);
 }
 
 // wgmma operand descriptor of a K-major tile of 128-byte rows in the
@@ -362,13 +372,14 @@ __global__ void __launch_bounds__(GmTile::THREADS, 1) tq_gemm_tile(GmArgs p) {
     if (t < q.n_tasks) {
       unsigned char* slot = sm + (t % C::STAGES) * C::SLOT;
       if (t < nk && p.G == GM_KMAX) {
-        const int8_t* a = p.xq + (size_t)t * GM_KMAX;
-        const int8_t* w = p.w + (size_t)t * (GM_KMAX / 2) * p.N + q.n0;
+        const int8_t* a = p.xq + q.z * p.s_xq + (size_t)t * GM_KMAX;
+        const int8_t* w = p.w + q.z * p.s_w + (size_t)t * (GM_KMAX / 2) * p.N + q.n0;
         tq_cp16(slot + a_dst, a_ok0 ? a + a_off : a, a_ok0);
         tq_cp16(slot + a_dst + 64 * GM_KMAX, a_ok1 ? a + a_off + 64 * p.K : a, a_ok1);
         tq_cp16(slot + p_dst, p_ok ? w + p_off : w, p_ok);
         if (tid < C::BM + C::BN) {
-          const float* sc = tid < C::BM ? p.xs + t : p.ws + (size_t)t * p.N + q.n0;
+          const float* sc = tid < C::BM ? p.xs + q.z * p.s_xs + t
+                                        : p.ws + q.z * p.s_ws + (size_t)t * p.N + q.n0;
           tq_cp4(slot + C::A_BYTES + C::P_BYTES + 4 * tid, s_ok ? sc + s_off : sc, s_ok);
         }
       } else {
@@ -436,7 +447,7 @@ __global__ void __launch_bounds__(GmTile::THREADS, 1) tq_gemm_tile(GmArgs p) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int m = m0 + row0 + 8 * ((i & 3) >> 1), c = col0 + 8 * (i >> 2) + (i & 1);
-    if (m < p.M && c < q.ncols) gm_store(p, m, q.n0 + c, acc[i]);
+    if (m < p.M && c < q.ncols) gm_store(p, q.z, m, q.n0 + c, acc[i]);
   }
 }
 
@@ -519,18 +530,18 @@ __global__ void __launch_bounds__(GM_TEAMS * 32, 1) tq_gemm_split(GmArgs p) {
   for (int o = 0; o < OUT; ++o) {
     const int e = threadIdx.x + o * GM_TEAMS * 32;
     const int m = m0 + e / C::BN, c = e % C::BN;
-    if (m < p.M && c < q.ncols) gm_store(p, m, q.n0 + c, acc[o]);
+    if (m < p.M && c < q.ncols) gm_store(p, q.z, m, q.n0 + c, acc[o]);
   }
 }
 
 // Dynamic shared memory of the larger launch (contracts.gemm_smem_bytes).
 extern "C" int tq_gemm_smem_bytes() { return kTileSmem > kSplitSmem ? kTileSmem : kSplitSmem; }
 
-// One pass: split (small M, or the H pass) or 128 x 128 tiles.
-static int launch_pass(GmArgs p, bool split, cudaStream_t st) {
+// One pass over E experts: split (small M, or the H pass) or 128 x 128 tiles.
+static int launch_pass(GmArgs p, int E, bool split, cudaStream_t st) {
   const int bm = split ? GmWarp::BM : GmTile::BM, bn = split ? GmWarp::BN : GmTile::BN;
   const int tiles = p.segs.n > 0 ? tq_set_tiles(p.segs, bn) : (p.N + bn - 1) / bn;
-  dim3 grid(tiles, (p.M + bm - 1) / bm);
+  dim3 grid(tiles, (p.M + bm - 1) / bm, E);
   int err;
   if (split) {
     err = tq_smem_attr((const void*)tq_gemm_split, kSplitSmem);
@@ -544,23 +555,33 @@ static int launch_pass(GmArgs p, bool split, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// x (M, K) bf16 -> out (M, N) bf16 for a fused group of n_seg segments;
-// arguments as tq_dual_gemv, with hf (M, R) f32 (H itself). Four launches:
-// quantize, H (split), requantize, main (split up to GM_SPLIT_M rows, tiles
-// above; both give every output the same f32 chain, so a row's bits do not
-// depend on M). Returns the first non-zero cudaGetLastError(), else 0.
+// x (M, K) bf16 -> out (M, N) bf16 for a fused group of n_seg segments,
+// for each of E experts; arguments as tq_dual_gemv, with hf (M, R) f32 (H
+// itself). Four launches: quantize, H (split), requantize, main (split up to
+// GM_SPLIT_M rows, tiles above; both give every output the same f32 chain,
+// so a row's bits do not depend on M). Returns the first non-zero
+// cudaGetLastError(), else 0.
 extern "C" int tq_dual_gemm(const void* x, const void* up, const void* us, const void* rp,
-                            const void* rs, int M, int K, int N, int R, int G, int a_bits,
+                            const void* rs, int E, int M, int K, int N, int R, int G, int a_bits,
                             int n_seg, const void* seg_info, const void* vps, const void* vss,
-                            void* xq, void* xs, void* hf, void* hq, void* hs, void* out,
-                            void* stream) {
+                            const void* strides, void* xq, void* xs, void* hf, void* hq,
+                            void* hs, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int qmax = (1 << (a_bits - 1)) - 1;
   TqSegs segs = tq_make_segs(n_seg, (const long long*)seg_info, (const void* const*)vps,
                              (const void* const*)vss);
-  int err = tq_launch_quantize(x, xq, xs, M, K, G, qmax, st);
+  const TqExp ex = tq_make_exp((const long long*)strides);
+  int err = tq_launch_quantize(x, xq, xs, E, M, K, G, qmax, ex, st);
   if (err) return err;
   GmArgs p;
+  p.s_xq = ex.xq;
+  p.s_xs = ex.xs;
+  p.s_hq = ex.hq;
+  p.s_hs = ex.hs;
+  for (int j = 0; j < TQ_MAX_SEGS; ++j) {
+    p.s_vp[j] = ex.vp[j];
+    p.s_vs[j] = ex.vs[j];
+  }
   p.xq = (const int8_t*)xq;
   p.xs = (const float*)xs;
   p.w = (const int8_t*)up;
@@ -577,12 +598,18 @@ extern "C" int tq_dual_gemm(const void* x, const void* up, const void* us, const
   p.segs.n = 0;
   p.out_f32 = (float*)hf;
   p.out_bf16 = nullptr;
-  err = launch_pass(p, true, st);
+  p.s_w = ex.up;
+  p.s_ws = ex.us;
+  p.s_out = ex.hf;
+  err = launch_pass(p, E, true, st);
   if (err) return err;
-  err = tq_launch_requant((const float*)hf, 1, hq, hs, M, R, segs, qmax, st);
+  err = tq_launch_requant((const float*)hf, 1, hq, hs, E, M, R, segs, qmax, ex, st);
   if (err) return err;
   p.w = (const int8_t*)rp;
   p.ws = (const float*)rs;
+  p.s_w = ex.rp;
+  p.s_ws = ex.rs;
+  p.s_out = ex.out;
   p.N = N;
   p.hq = (const int8_t*)hq;
   p.hs = (const float*)hs;
@@ -590,5 +617,5 @@ extern "C" int tq_dual_gemm(const void* x, const void* up, const void* us, const
   p.segs = segs;
   p.out_f32 = nullptr;
   p.out_bf16 = (__nv_bfloat16*)out;
-  return launch_pass(p, M <= GM_SPLIT_M, st);
+  return launch_pass(p, E, M <= GM_SPLIT_M, st);
 }

@@ -12,6 +12,10 @@
 // over the memory rate. The design spreads every pass over more blocks than
 // the card has SMs and keeps ~48 KB of copies in flight on each.
 //
+// Over an expert axis (E > 1: an MoE layer's stacked packs) every launch
+// below runs gridDim.z = E, each block offsetting its pointers by its
+// expert's strides (TqExp) first.
+//
 // Three launches:
 //   1. tq_gemv_h: one warp per (K group, 16 columns of the stacked U). It
 //      quantizes its group of X itself (the blocks of column 0 also write
@@ -150,8 +154,15 @@ __device__ __forceinline__ void gv_mma(const GvSlot& s, int half, int lane, int 
 __global__ void __launch_bounds__(32) tq_gemv_h(
     const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs,
     const int8_t* __restrict__ up, const float* __restrict__ us, int M, int K, int R, int G,
-    int qmax, float* __restrict__ terms) {
+    int qmax, float* __restrict__ terms, TqExp ex) {
   __shared__ GvSlot s;
+  const size_t z = blockIdx.z;
+  x += z * ex.x;
+  xq += z * ex.xq;
+  xs += z * ex.xs;
+  up += z * ex.up;
+  us += z * ex.us;
+  terms += z * ex.hf;
   const int lane = threadIdx.x, g = blockIdx.y, c0 = blockIdx.x * GV_NT;
   const int half = G / 2, ng = K / G;
   GvTask t;
@@ -224,8 +235,16 @@ __global__ void __launch_bounds__(GV_WARPS * 32, GV_BLOCKS) tq_gemv_main(
     const int8_t* __restrict__ xq, const float* __restrict__ xs, const int8_t* __restrict__ rp,
     const float* __restrict__ rs, int M, int K, int N, int G, const int8_t* __restrict__ hq,
     const float* __restrict__ hs, int R, int hs_cols, TqSegs segs,
-    __nv_bfloat16* __restrict__ out) {
+    __nv_bfloat16* __restrict__ out, TqExp ex) {
   extern __shared__ __align__(128) unsigned char gv_smem[];
+  const size_t z = blockIdx.z;
+  xq += z * ex.xq;
+  xs += z * ex.xs;
+  rp += z * ex.rp;
+  rs += z * ex.rs;
+  hq += z * ex.hq;
+  hs += z * ex.hs;
+  out += z * ex.out;
   GvSlot* slots = (GvSlot*)gv_smem;                                    // [warps][stages]
   float* tbuf = (float*)(slots + GV_WARPS * GV_STAGES);               // [2][warps][M x 16]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -235,6 +254,8 @@ __global__ void __launch_bounds__(GV_WARPS * 32, GV_BLOCKS) tq_gemv_main(
   const int n_tasks = nk + segs.r_len[j] / gr;
   const int rounds = (n_tasks + GV_WARPS - 1) / GV_WARPS;
   const int vcol = n0 - segs.n_off[j], nj = segs.n_len[j];
+  const int8_t* vpj = segs.vp[j] + z * ex.vp[j];
+  const float* vsj = segs.vs[j] + z * ex.vs[j];
 
   auto task = [&](int t) {
     GvTask k;
@@ -252,8 +273,8 @@ __global__ void __launch_bounds__(GV_WARPS * 32, GV_BLOCKS) tq_gemv_main(
       const int v = t - nk;
       k.a = hq + segs.r_off[j] + v * gr;
       k.as = hs + segs.hs_off[j] + v;
-      k.w = segs.vp[j] + (size_t)v * (gr / 2) * nj + vcol;
-      k.ws = segs.vs[j] + (size_t)v * nj + vcol;
+      k.w = vpj + (size_t)v * (gr / 2) * nj + vcol;
+      k.ws = vsj + (size_t)v * nj + vcol;
       k.lda = R;
       k.las = hs_cols;
       k.ldw = nj;
@@ -311,34 +332,37 @@ static const int kGvMainSmem =
 // Dynamic shared memory of the main pass (contracts.gemv_smem_bytes).
 extern "C" int tq_gemv_smem_bytes() { return kGvMainSmem; }
 
-// x (M, K) bf16 -> out (M, N) bf16 for a fused group of n_seg segments.
-// seg_info: n_seg x (n_off, n_len, r_off, r_len, rgroup) int64 on the host;
-// vps/vss: host arrays of n_seg device pointers. Scratch (device): xq (M, K)
-// int8, xs (M, K/G) f32, hf (K/G, M, R) f32 (H's per-group terms), hq (M, R)
-// int8, hs (M, hs_cols) f32. Three launches; returns the first non-zero
-// cudaGetLastError() of them, else 0.
+// x (M, K) bf16 -> out (M, N) bf16 for a fused group of n_seg segments, for
+// each of E experts. seg_info: n_seg x (n_off, n_len, r_off, r_len, rgroup)
+// int64 on the host; vps/vss: host arrays of n_seg device pointers (expert
+// 0's); strides: the host array tq_make_exp reads (all 0 for E = 1).
+// Scratch (device, per expert): xq (M, K) int8, xs (M, K/G) f32, hf (K/G,
+// M, R) f32 (H's per-group terms), hq (M, R) int8, hs (M, hs_cols) f32.
+// Three launches; returns the first non-zero cudaGetLastError() of them,
+// else 0.
 extern "C" int tq_dual_gemv(const void* x, const void* up, const void* us, const void* rp,
-                            const void* rs, int M, int K, int N, int R, int G, int a_bits,
+                            const void* rs, int E, int M, int K, int N, int R, int G, int a_bits,
                             int n_seg, const void* seg_info, const void* vps, const void* vss,
-                            void* xq, void* xs, void* hf, void* hq, void* hs, void* out,
-                            void* stream) {
+                            const void* strides, void* xq, void* xs, void* hf, void* hq,
+                            void* hs, void* out, void* stream) {
   int err = tq_smem_attr((const void*)tq_gemv_main, kGvMainSmem);
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
   const int qmax = (1 << (a_bits - 1)) - 1;
   TqSegs segs = tq_make_segs(n_seg, (const long long*)seg_info, (const void* const*)vps,
                              (const void* const*)vss);
+  const TqExp ex = tq_make_exp((const long long*)strides);
   const int hs_cols = tq_hs_cols(segs);
-  dim3 hgrid((R + GV_NT - 1) / GV_NT, K / G);
+  dim3 hgrid((R + GV_NT - 1) / GV_NT, K / G, E);
   tq_gemv_h<<<hgrid, 32, 0, st>>>((const __nv_bfloat16*)x, (int8_t*)xq, (float*)xs,
                                   (const int8_t*)up, (const float*)us, M, K, R, G, qmax,
-                                  (float*)hf);
+                                  (float*)hf, ex);
   err = (int)cudaGetLastError();
   if (err) return err;
-  err = tq_launch_requant((const float*)hf, K / G, hq, hs, M, R, segs, qmax, st);
+  err = tq_launch_requant((const float*)hf, K / G, hq, hs, E, M, R, segs, qmax, ex, st);
   if (err) return err;
-  tq_gemv_main<<<N / GV_NT, GV_WARPS * 32, kGvMainSmem, st>>>(
+  tq_gemv_main<<<dim3(N / GV_NT, 1, E), GV_WARPS * 32, kGvMainSmem, st>>>(
       (const int8_t*)xq, (const float*)xs, (const int8_t*)rp, (const float*)rs, M, K, N, G,
-      (const int8_t*)hq, (const float*)hs, R, hs_cols, segs, (__nv_bfloat16*)out);
+      (const int8_t*)hq, (const float*)hs, R, hs_cols, segs, (__nv_bfloat16*)out, ex);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,15 @@
 """Bridge from the reference's parameter trees to the port's modules.
 
-:func:`params_from_numpy` takes the JAX package's dense params as a nested
-dict of numpy arrays (``jax.tree.map(np.asarray, params)``) — bf16 weights,
-TwinQuant packs from ``quantize_params`` (W4A4 / W4A8), weight-only packs
-(W4A16), fused packs from ``fuse_params``, or the simulation dicts of
+:func:`params_from_numpy` takes the JAX package's dense or OLMoE params as
+a nested dict of numpy arrays (``jax.tree.map(np.asarray, params)``) — bf16
+weights, TwinQuant packs from ``quantize_params`` (W4A4 / W4A8), weight-only
+packs (W4A16), fused packs from ``fuse_params``, or the simulation dicts of
 ``simulate_quantize_params`` — and builds the port's
 :class:`~repro_torch.models.dense.DenseModel`, unstacking the ``(L, ...)``
-layer axis into one module per layer. :func:`calib_result_from_numpy` and
+layer axis into one module per layer. An MoE layer's experts stay stacked,
+E leading: bf16 ``(E, K, N)`` weights become one
+:class:`~repro_torch.models.common.ExpertLinear`, packs one expert-stacked
+pack. :func:`calib_result_from_numpy` and
 :func:`gl_params_from_numpy` carry a calibration's result and a ``GLParams``
 across the same way. bf16 arrays are recognised by dtype name and moved bit for bit
 through a 16-bit integer view, so no bf16 numpy extension is needed here.
@@ -24,6 +27,7 @@ from repro_torch.core.decomposition import Decomposition
 from repro_torch.core.transforms import GLParams
 from repro_torch.kernels.ref import TwinQuantGroupWeights, TwinQuantWeights
 from repro_torch.models.common import (
+    ExpertLinear,
     Linear,
     SimLinear,
     TwinQuantLinear,
@@ -31,6 +35,8 @@ from repro_torch.models.common import (
     W4A16Linear,
 )
 from repro_torch.models.dense import DenseLayer, DenseModel
+from repro_torch.models.moe_layer import MoEFFN
+from repro_torch.models.olmoe import OLMoELayer
 
 __all__ = ["calib_result_from_numpy", "gl_params_from_numpy", "params_from_numpy", "to_torch"]
 
@@ -51,7 +57,7 @@ def _linear(d: dict, device) -> torch.nn.Module:
 
     b = t("b") if "b" in d else None
     if "w" in d:
-        return Linear(t("w"), b)
+        return ExpertLinear(t("w")) if np.ndim(d["w"]) == 3 else Linear(t("w"), b)
     if "wp" in d:  # W4A16 weight-only pack; its group comes from the shapes
         return W4A16Linear(t("wp"), t("ws"), b)
     if "r_dq" in d:  # quantized-numerics simulation; a_bits is the abits length
@@ -81,18 +87,29 @@ def _layer_slice(tree, i: int):
     return np.asarray(tree)[i]
 
 
+def _moe(mt: dict, dev) -> MoEFFN:
+    experts = {k: _linear(v, dev) for k, v in mt.items() if k not in ("router", "shared")}
+    shared = None
+    if "shared" in mt:
+        shared = {k: _linear(v, dev) for k, v in mt["shared"].items()}
+    return MoEFFN(to_torch(mt["router"], dev), experts, shared)
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> DenseModel:
-    """The reference's dense params (numpy leaves, layers stacked on axis 0)
-    as the port's model on ``device`` (the card unless asked otherwise)."""
+    """The reference's dense or OLMoE params (numpy leaves, layers stacked
+    on axis 0) as the port's model on ``device`` (the card unless asked
+    otherwise)."""
     dev = resolve_device(device)
     layers = []
     for i in range(cfg.n_layers):
         lt = _layer_slice(tree["layers"], i)
-        layers.append(DenseLayer(
-            {k: _linear(v, dev) for k, v in lt["attn"].items()},
-            {k: _linear(v, dev) for k, v in lt["mlp"].items()},
-            to_torch(lt["ln1"], dev), to_torch(lt["ln2"], dev),
-        ))
+        attn = {k: _linear(v, dev) for k, v in lt["attn"].items()}
+        ln1, ln2 = to_torch(lt["ln1"], dev), to_torch(lt["ln2"], dev)
+        if "moe" in lt:
+            layers.append(OLMoELayer(attn, _moe(lt["moe"], dev), ln1, ln2))
+        else:
+            layers.append(DenseLayer(attn, {k: _linear(v, dev) for k, v in lt["mlp"].items()},
+                                     ln1, ln2))
     head = _linear(tree["head"], dev) if "head" in tree else None
     return DenseModel(to_torch(tree["embed"], dev), layers, to_torch(tree["ln_f"], dev), head)
 

@@ -3,7 +3,8 @@
 * :func:`check_twinquant_pack` / :func:`check_twinquant_group_pack` — shape
   and dtype consistency of a pack against the activation's K, run at every
   dispatch entry so a malformed pack raises a diagnostic instead of giving
-  garbage or an unexplained plain-version route.
+  garbage or an unexplained plain-version route. An expert-stacked pack
+  (every tensor with the same leading E) is checked the same way.
 * :func:`validate_dual_gemv` / :func:`validate_dual_gemv_group` /
   :func:`validate_dual_gemm` / :func:`validate_dual_gemm_group` — what the
   CUDA kernels can tile (divisibility, group sizes, segment count) and their
@@ -249,10 +250,15 @@ def validate_w4a16(m: int, n: int, k: int, group: int, block_m: int, block_n: in
 
 
 def _dtype_problems(fields) -> list[str]:
+    """Field types, and one layout for all fields: 2-D, or 3-D with one
+    leading expert count (an expert-stacked pack)."""
     problems = []
+    lead = fields[0][1].shape[:-2] if fields[0][1].ndim == 3 else ()
     for name, a, want_int8 in fields:
-        if a.ndim != 2:
-            problems.append(f"{name}: expected a 2-D pack field, got shape {tuple(a.shape)}")
+        if a.ndim != 2 + len(lead) or a.shape[:-2] != lead:
+            want = f"3-D with E={lead[0]} leading" if lead else "2-D"
+            problems.append(f"{name}: expected a {want} pack field, got shape "
+                            f"{tuple(a.shape)}")
         if want_int8 and a.dtype != torch.int8:
             problems.append(f"{name}: expected packed int8 nibbles, got {a.dtype}")
         if not want_int8 and not a.dtype.is_floating_point:

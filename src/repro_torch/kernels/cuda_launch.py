@@ -3,6 +3,11 @@ check and the launch counters; for the dual-component kernels also their
 operand checks, their per-pack launch arguments (built once) and their
 scratch (one allocation a call).
 
+An expert-stacked pack (every tensor with a leading E) launches once for
+all experts: the C entry takes E and the per-expert element strides of x,
+each pack tensor, the scratch and out (:func:`expert_strides`), and every
+kernel inside it runs ``gridDim.z = E``.
+
 Every wrapper counts its own launches here (``launch_counts()``), bumped
 exactly where it calls its CUDA entry and nowhere else, so a run can show
 which kernels its main path went through. A captured step graph
@@ -18,17 +23,19 @@ import weakref
 import torch
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.contracts import MAX_SEGMENTS
 
-__all__ = ["add_counts", "add_launch_counts", "device_operand", "dual_args", "launch_counts",
-           "reset_launch_counts", "launch_dual", "pack_args", "run_kernel", "scratch_layout"]
+__all__ = ["add_counts", "add_launch_counts", "device_operand", "dual_args", "expert_strides",
+           "launch_counts", "reset_launch_counts", "launch_dual", "pack_args", "run_kernel",
+           "scratch_layout"]
 
 _counts: dict[str, int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# (x, up, us, rp, rs, M, K, N, R, G, a_bits, n_seg, seg_info, vps, vss,
-#  xq, xs, hf, hq, hs, out)
-_DUAL_ARGS = [_P] * 5 + [_I] * 7 + [_P] * 9
+# (x, up, us, rp, rs, E, M, K, N, R, G, a_bits, n_seg, seg_info, vps, vss,
+#  strides, xq, xs, hf, hq, hs, out)
+_DUAL_ARGS = [_P] * 5 + [_I] * 8 + [_P] * 10
 
 
 def launch_counts() -> dict[str, int]:
@@ -128,6 +135,12 @@ class _PackArgs:
         _check_pack(gw, kind)
         self.device = gw.up.device
         self.n, self.r, self.group, self.a_bits = gw.ndim_out, gw.rank, gw.group, gw.a_bits
+        self.experts = gw.experts or 1
+        # per-expert element strides of up, us, rp, rs and each segment's vp, vs
+        st = (lambda t: t.stride(0)) if gw.experts else (lambda t: 0)
+        pad = [0] * max(0, MAX_SEGMENTS - gw.n_segments)
+        self.strides = ([st(gw.up), st(gw.us), st(gw.rp), st(gw.rs)],
+                        [st(t) for t in gw.vps] + pad, [st(t) for t in gw.vss] + pad)
         self.hs_cols = sum(rj // gr for rj, gr in zip(gw.seg_r, gw.rgroups))
         info = []
         for no, nj, ro, rj, gr in zip(gw.n_offsets, gw.seg_n, gw.r_offsets, gw.seg_r,
@@ -185,12 +198,19 @@ def _align(n: int) -> int:
     return (n + 255) // 256 * 256
 
 
+def _scratch_elems(m: int, k: int, pa: _PackArgs, h_planes: int) -> tuple:
+    """Elements of one expert's five scratch buffers: xq (M, K) int8, xs
+    (M, K/G) f32, H as ``h_planes`` (M, R) f32 planes, hq (M, R) int8, hs
+    (M, hs_cols) f32."""
+    return (m * k, m * (k // pa.group), h_planes * m * pa.r, m * pa.r, m * pa.hs_cols)
+
+
 def scratch_layout(m: int, k: int, pa: _PackArgs, h_planes: int) -> tuple[int, list[int]]:
     """Bytes of a dual launch's scratch and the offsets of its five buffers
-    in it: xq (M, K) int8, xs (M, K/G) f32, H as ``h_planes`` (M, R) f32
-    planes, hq (M, R) int8, hs (M, hs_cols) f32; each 256-byte aligned."""
-    sizes = (m * k, m * (k // pa.group) * 4, h_planes * m * pa.r * 4, m * pa.r,
-             m * pa.hs_cols * 4)
+    in it (:func:`_scratch_elems`, each for all E experts of the pack, the
+    experts one after another); each buffer 256-byte aligned."""
+    sizes = [pa.experts * n * b for n, b in zip(_scratch_elems(m, k, pa, h_planes),
+                                                 (1, 4, 4, 1, 4))]
     offs, total = [], 0
     for b in sizes:
         offs.append(total)
@@ -198,26 +218,44 @@ def scratch_layout(m: int, k: int, pa: _PackArgs, h_planes: int) -> tuple[int, l
     return total, offs
 
 
+def expert_strides(m: int, k: int, pa: _PackArgs, h_planes: int):
+    """The C entry's per-expert element strides (a ``long long`` array: x,
+    up, us, rp, rs, xq, xs, hf, hq, hs, out, then vp and vs of each of the
+    ``MAX_SEGMENTS`` segments); all 0 for a single pack."""
+    if pa.experts == 1:
+        vals = [0] * (11 + 2 * MAX_SEGMENTS)
+    else:
+        head, vps, vss = pa.strides
+        vals = [m * k, *head, *_scratch_elems(m, k, pa, h_planes), m * pa.n, *vps, *vss]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
 def dual_args(x_ptr: int, m: int, k: int, pa: _PackArgs, scratch_ptr: int, offs,
-              out_ptr: int) -> list:
+              out_ptr: int, strides) -> list:
     """The C entry's argument list (``_DUAL_ARGS``, without the stream)."""
-    return [x_ptr, *pa.head, m, k, pa.n, pa.r, pa.group, pa.a_bits, *pa.segs,
-            *(scratch_ptr + o for o in offs), out_ptr]
+    return [x_ptr, *pa.head, pa.experts, m, k, pa.n, pa.r, pa.group, pa.a_bits, *pa.segs,
+            strides, *(scratch_ptr + o for o in offs), out_ptr]
 
 
 def launch_dual(name: str, lib_name: str, fn_name: str, x: torch.Tensor, w, *,
                 h_planes: int = 1) -> torch.Tensor:
     """Run the dual-component CUDA entry ``fn_name`` of ``csrc/<lib_name>.cu``
     on x (M, K) bf16 and the pack ``w`` (single or fused); returns (M, sum N)
-    bf16. ``h_planes`` is the number of (M, R) f32 planes the entry keeps of
-    H (its per-group terms, or H itself). The pack's constant arguments are
-    built once (:func:`pack_args`); the scratch is one allocation. Counts one
-    launch under ``name``. Raises on a launch error."""
+    bf16. An expert-stacked pack takes x (E, M, K) and returns (E, M, sum
+    N), all experts in one call. ``h_planes`` is the number of (M, R) f32
+    planes the entry keeps of H (its per-group terms, or H itself). The
+    pack's constant arguments are built once (:func:`pack_args`); the
+    scratch is one allocation. Counts one launch under ``name``. Raises on
+    a launch error."""
     from repro_torch.kernels.contracts import ContractError
 
-    if x.dtype != torch.bfloat16 or x.ndim != 2:
-        raise ContractError(f"[{name}] x must be a 2-D bf16 tensor, got {x.dtype} "
+    e = getattr(w, "experts", None)
+    if x.dtype != torch.bfloat16 or x.ndim != (2 if e is None else 3):
+        want = "a 2-D" if e is None else f"an (E={e}, M, K)"
+        raise ContractError(f"[{name}] x must be {want} bf16 tensor, got {x.dtype} "
                             f"{tuple(x.shape)}")
+    if e is not None and x.shape[0] != e:
+        raise ContractError(f"[{name}] x has {x.shape[0]} experts, the pack {e}")
     if x.device.type != "cuda":
         raise ContractError(f"[{name}] the CUDA kernel needs a CUDA tensor, got {x.device}")
     pa = pack_args(w, name)
@@ -225,10 +263,11 @@ def launch_dual(name: str, lib_name: str, fn_name: str, x: torch.Tensor, w, *,
         raise ContractError(f"[{name}] pack tensor on {pa.device}, activation on {x.device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         x = x.contiguous().clone()
-    m, k = x.shape
+    m, k = x.shape[-2:]
     total, offs = scratch_layout(m, k, pa, h_planes)
     scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
-    out = torch.empty((m, pa.n), dtype=torch.bfloat16, device=x.device)
-    args = dual_args(x.data_ptr(), m, k, pa, scratch.data_ptr(), offs, out.data_ptr())
+    out = torch.empty((*x.shape[:-1], pa.n), dtype=torch.bfloat16, device=x.device)
+    strides = expert_strides(m, k, pa, h_planes)
+    args = dual_args(x.data_ptr(), m, k, pa, scratch.data_ptr(), offs, out.data_ptr(), strides)
     run_kernel(name, lib_name, fn_name, _DUAL_ARGS, args, x.device)
     return out

@@ -19,6 +19,11 @@ Each decision bumps a counter keyed ``<kind>/<path>`` (kinds ``dual`` and
 ``dual_fused``), one bump per call; a captured step graph adds its
 capture's decisions once per replay (``add_dispatch_counts``).
 
+An expert-stacked pack (an MoE layer's experts, every pack tensor with a
+leading E) takes x (E, M, K) and returns (E, M, N): one call, classified by
+M (the rows each expert gets) as the reference classifies its vmapped call,
+one route recorded and one kernel launch for all E experts.
+
 The weight-only baseline :func:`w4a16_linear` (kind ``w4a16``) has one
 kernel schedule for every M, so as in the reference a routed call counts
 ``w4a16/prefill`` whatever its M; ``ref`` codes ``k_group`` (K not whole
@@ -220,19 +225,34 @@ def _require_cpu_for_ref(kind: str, route: Route, x: torch.Tensor) -> None:
 def _finish(y: torch.Tensor, batch_shape, n: int, bias) -> torch.Tensor:
     y = y.reshape(*batch_shape, n)
     if bias is not None:
+        if bias.ndim == 2:  # an expert-stacked pack's (E, N) biases
+            bias = bias[:, None, :]
         y = (y.to(torch.float32) + bias.to(torch.float32)).to(y.dtype)
     return y
 
 
+def _rows(kind: str, x: torch.Tensor, experts) -> tuple[int, torch.Tensor]:
+    """(M, the kernel's x) of a call: x flattened to (M, K), or for an
+    expert-stacked pack x itself, (E, M, K), with M the rows an expert gets."""
+    k = x.shape[-1]
+    if experts is None:
+        m = math.prod(x.shape[:-1])
+        return m, x.reshape(m, k)
+    if x.ndim != 3 or x.shape[0] != experts:
+        raise ContractError(f"[{kind}] an expert-stacked pack of E={experts} takes x (E, M, K), "
+                            f"got {tuple(x.shape)}")
+    return x.shape[1], x
+
+
 def quant_linear(x: torch.Tensor, w: TwinQuantWeights,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dual-component quantized linear: (..., K) -> (..., N) bf16, routed."""
+    """Dual-component quantized linear: (..., K) -> (..., N) bf16, routed;
+    an expert-stacked pack takes (E, M, K) -> (E, M, N)."""
     k = x.shape[-1]
     n = w.ndim_out
     check_twinquant_pack(w, k)
     batch_shape = x.shape[:-1]
-    m = math.prod(batch_shape)
-    x2 = x.reshape(m, k)
+    m, x2 = _rows("dual", x, w.experts)
     if _force_ref:
         route = Route(PATH_REF, None, "set_force_ref(True)", "forced")
     else:
@@ -252,7 +272,8 @@ def fused_linear(x: torch.Tensor,
                  ws: Union[TwinQuantGroupWeights, Sequence[TwinQuantWeights]],
                  biases: Optional[Sequence[Optional[torch.Tensor]]] = None
                  ) -> tuple[torch.Tensor, ...]:
-    """Fused sibling-projection linear: (..., K) -> per-segment (..., N_j).
+    """Fused sibling-projection linear: (..., K) -> per-segment (..., N_j);
+    an expert-stacked group takes (E, M, K) -> per-segment (E, M, N_j).
 
     One routed launch computes every projection of the group; the
     activation is quantized once. Kind ``dual_fused``. Each segment equals
@@ -265,8 +286,7 @@ def fused_linear(x: torch.Tensor,
     k = x.shape[-1]
     check_twinquant_group_pack(gw, k)
     batch_shape = x.shape[:-1]
-    m = math.prod(batch_shape)
-    x2 = x.reshape(m, k)
+    m, x2 = _rows("dual_fused", x, gw.experts)
     if _force_ref:
         route = Route(PATH_REF, None, "set_force_ref(True)", "forced")
     else:

@@ -24,9 +24,15 @@ and greedy tokens of the W4A16 engine hold across its modes on the CPU too.
 Groups still accumulate in f32, ascending, as in the reference.
 
 Packing layout ("group-split rows"): int4 values are packed two per int8
-byte along the contraction axis (axis 0). Within each scale group of ``G``
+byte along the contraction axis (axis -2). Within each scale group of ``G``
 rows, packed row ``j`` holds logical row ``j`` (low nibble) and row
 ``j + G/2`` (high nibble), so every packed block stays local to its group.
+
+Expert-stacked packs (an MoE layer's experts, the reference's vmap over a
+stacked weight) carry a leading E on every tensor of a pack; the packers
+here take such stacks as they are, and :func:`dual_gemm_group_ref` (and so
+:func:`dual_gemm_ref`) given one is the plain version of one launch over all
+experts: x (E, M, K), each expert's rows computed alone, stacked.
 """
 
 from __future__ import annotations
@@ -70,23 +76,24 @@ def _sext4(v32: torch.Tensor) -> torch.Tensor:
 
 
 def pack_rows_groupsplit(q: torch.Tensor, group: int) -> torch.Tensor:
-    """(K, N) int4-valued int8 -> (K/2, N) packed, group-split layout."""
-    k, n = q.shape
+    """(..., K, N) int4-valued int8 -> (..., K/2, N) packed, group-split
+    layout."""
+    *lead, k, n = q.shape
     if k % group or group % 2:
         raise ValueError(f"K={k} must be a multiple of an even group={group}")
-    q4 = q.to(torch.int32).reshape(k // group, 2, group // 2, n)
-    packed = (q4[:, 0] & 0x0F) | ((q4[:, 1] & 0x0F) << 4)
-    return _to_int8(packed).reshape(k // 2, n)
+    q4 = q.to(torch.int32).reshape(*lead, k // group, 2, group // 2, n)
+    packed = (q4[..., 0, :, :] & 0x0F) | ((q4[..., 1, :, :] & 0x0F) << 4)
+    return _to_int8(packed).reshape(*lead, k // 2, n)
 
 
 def unpack_rows_groupsplit(p: torch.Tensor, group: int) -> torch.Tensor:
     """Inverse of :func:`pack_rows_groupsplit`."""
-    k2, n = p.shape
+    *lead, k2, n = p.shape
     g2 = group // 2
-    u = p.to(torch.int32).reshape(k2 // g2, g2, n) & 0xFF
+    u = p.to(torch.int32).reshape(*lead, k2 // g2, g2, n) & 0xFF
     lo = _sext4(u & 0x0F)
     hi = _sext4((u >> 4) & 0x0F)
-    return torch.cat([lo, hi], dim=1).reshape(k2 * 2, n).to(torch.int8)
+    return torch.cat([lo, hi], dim=-2).reshape(*lead, k2 * 2, n).to(torch.int8)
 
 
 # ---------------------------------------------------------------------------
@@ -95,15 +102,16 @@ def unpack_rows_groupsplit(p: torch.Tensor, group: int) -> torch.Tensor:
 
 
 def quantize_rows_ref(w: torch.Tensor, group: int, bits: int):
-    """Group-wise symmetric quantization along axis 0.
+    """Group-wise symmetric quantization along axis -2 (a leading expert
+    axis, if any, is carried through).
 
-    Returns (q int8 (K, N), scales f32 (K/group, N))."""
-    k, n = w.shape
+    Returns (q int8 (..., K, N), scales f32 (..., K/group, N))."""
+    *lead, k, n = w.shape
     qmax = qmax_for_bits(bits)
-    g = w.to(torch.float32).contiguous().reshape(k // group, group, n)
-    scale = scale_of(g.abs().amax(dim=1), qmax)
-    q = torch.clamp(torch.round(g / scale[:, None, :]), -qmax, qmax)
-    return q.reshape(k, n).to(torch.int8), scale
+    g = w.to(torch.float32).contiguous().reshape(*lead, k // group, group, n)
+    scale = scale_of(g.abs().amax(dim=-2), qmax)
+    q = torch.clamp(torch.round(g / scale[..., None, :]), -qmax, qmax)
+    return q.reshape(*lead, k, n).to(torch.int8), scale
 
 
 def quantize_act_ref(x: torch.Tensor, group: int, bits: int):
@@ -138,7 +146,8 @@ def _exact_matmuls() -> None:
 
 @dataclasses.dataclass
 class TwinQuantWeights:
-    """Offline-quantized dual-component weights (4-bit packed)."""
+    """Offline-quantized dual-component weights (4-bit packed). An
+    expert-stacked pack has a leading E on every tensor (``experts``)."""
 
     up: torch.Tensor  # (K/2, r)   packed int4 — low-rank in-factor
     us: torch.Tensor  # (K/G, r)   f32 scales
@@ -152,23 +161,34 @@ class TwinQuantWeights:
 
     @property
     def kdim(self) -> int:
-        return self.up.shape[0] * 2
+        return self.up.shape[-2] * 2
 
     @property
     def ndim_out(self) -> int:
-        return self.rp.shape[1]
+        return self.rp.shape[-1]
 
     @property
     def rank(self) -> int:
-        return self.up.shape[1]
+        return self.up.shape[-1]
+
+    @property
+    def experts(self):
+        """E of an expert-stacked pack, ``None`` for a single pack."""
+        return self.rp.shape[0] if self.rp.ndim == 3 else None
+
+    def expert(self, e: int) -> "TwinQuantWeights":
+        """Expert ``e`` of a stacked pack, as views."""
+        return dataclasses.replace(self, up=self.up[e], us=self.us[e], vp=self.vp[e],
+                                   vs=self.vs[e], rp=self.rp[e], rs=self.rs[e])
 
 
 def pack_twinquant_weights(U, V, R, *, w_bits: int = 4, a_bits: int = 4,
                            group: int = 128) -> TwinQuantWeights:
-    """Quantize + pack the (already transformed) components offline."""
+    """Quantize + pack the (already transformed) components offline; U, V,
+    R may carry a leading expert axis, which every pack tensor keeps."""
     if w_bits != 4:
         raise ValueError("the packed path is int4")
-    k, r = U.shape
+    k, r = U.shape[-2:]
     rgroup = min(group, r)
     uq, us = quantize_rows_ref(U, group, w_bits)
     vq, vs = quantize_rows_ref(V, rgroup, w_bits)
@@ -202,7 +222,7 @@ class TwinQuantGroupWeights:
 
     @property
     def kdim(self) -> int:
-        return self.rp.shape[0] * 2
+        return self.rp.shape[-2] * 2
 
     @property
     def n_segments(self) -> int:
@@ -210,19 +230,30 @@ class TwinQuantGroupWeights:
 
     @property
     def seg_n(self) -> tuple:
-        return tuple(vp.shape[1] for vp in self.vps)
+        return tuple(vp.shape[-1] for vp in self.vps)
 
     @property
     def seg_r(self) -> tuple:
-        return tuple(vp.shape[0] * 2 for vp in self.vps)
+        return tuple(vp.shape[-2] * 2 for vp in self.vps)
 
     @property
     def ndim_out(self) -> int:
-        return self.rp.shape[1]
+        return self.rp.shape[-1]
 
     @property
     def rank(self) -> int:
-        return self.up.shape[1]
+        return self.up.shape[-1]
+
+    @property
+    def experts(self):
+        """E of an expert-stacked group, ``None`` for a single one."""
+        return self.rp.shape[0] if self.rp.ndim == 3 else None
+
+    def expert(self, e: int) -> "TwinQuantGroupWeights":
+        """Expert ``e`` of a stacked group, as views."""
+        return dataclasses.replace(self, up=self.up[e], us=self.us[e], rp=self.rp[e],
+                                   rs=self.rs[e], vps=tuple(v[e] for v in self.vps),
+                                   vss=tuple(v[e] for v in self.vss))
 
     @staticmethod
     def _offsets(sizes) -> tuple:
@@ -245,9 +276,9 @@ class TwinQuantGroupWeights:
         no, ro = self.n_offsets[j], self.r_offsets[j]
         nj, rj = self.seg_n[j], self.seg_r[j]
         return TwinQuantWeights(
-            up=self.up[:, ro:ro + rj], us=self.us[:, ro:ro + rj],
+            up=self.up[..., ro:ro + rj], us=self.us[..., ro:ro + rj],
             vp=self.vps[j], vs=self.vss[j],
-            rp=self.rp[:, no:no + nj], rs=self.rs[:, no:no + nj],
+            rp=self.rp[..., no:no + nj], rs=self.rs[..., no:no + nj],
             group=self.group, rgroup=self.rgroups[j], a_bits=self.a_bits,
         )
 
@@ -265,26 +296,27 @@ def as_group(w: TwinQuantWeights) -> TwinQuantGroupWeights:
 
 
 def fuse_twinquant_weights(ws) -> TwinQuantGroupWeights:
-    """Merge sibling packs (same K, group, a_bits) into one fused group.
+    """Merge sibling packs (same K, group, a_bits, and experts if stacked)
+    into one fused group.
 
-    Pure concatenation — ``fused.segment(j)`` recovers ``ws[j]`` bit for bit."""
+    Pure concatenation along the last axis — ``fused.segment(j)`` recovers
+    ``ws[j]`` bit for bit."""
     ws = tuple(ws)
     if not ws:
         raise ValueError("need at least one pack")
     base = ws[0]
     for w in ws:
-        if (w.kdim, w.group, w.a_bits) != (base.kdim, base.group, base.a_bits):
-            raise ValueError(
-                f"packs disagree on (K, group, a_bits): {(w.kdim, w.group, w.a_bits)} "
-                f"vs {(base.kdim, base.group, base.a_bits)}"
-            )
+        key, base_key = (w.kdim, w.group, w.a_bits, w.experts), (
+            base.kdim, base.group, base.a_bits, base.experts)
+        if key != base_key:
+            raise ValueError(f"packs disagree on (K, group, a_bits, experts): {key} vs {base_key}")
     return TwinQuantGroupWeights(
-        up=torch.cat([w.up for w in ws], dim=1),
-        us=torch.cat([w.us for w in ws], dim=1),
+        up=torch.cat([w.up for w in ws], dim=-1),
+        us=torch.cat([w.us for w in ws], dim=-1),
         vps=tuple(w.vp for w in ws),
         vss=tuple(w.vs for w in ws),
-        rp=torch.cat([w.rp for w in ws], dim=1),
-        rs=torch.cat([w.rs for w in ws], dim=1),
+        rp=torch.cat([w.rp for w in ws], dim=-1),
+        rs=torch.cat([w.rs for w in ws], dim=-1),
         group=base.group,
         rgroups=tuple(w.rgroup for w in ws),
         a_bits=base.a_bits,
@@ -297,13 +329,17 @@ def fuse_twinquant_weights(ws) -> TwinQuantGroupWeights:
 
 
 def dual_gemm_group_ref(x: torch.Tensor, gw: TwinQuantGroupWeights) -> torch.Tensor:
-    """Fused-group plain version: x (M, K) -> (M, sum N_j) bf16.
+    """Fused-group plain version: x (M, K) -> (M, sum N_j) bf16; an
+    expert-stacked group takes x (E, M, K) -> (E, M, sum N_j), expert e's
+    rows being this function of x[e] with pack e.
 
     X is quantized once; one ascending pass over K groups builds the
     residual accumulator and the stacked H; each segment then requantizes
     its own H columns with its own rank groups and adds its V epilogue.
     Every operation is column-independent, so each output segment equals
     :func:`dual_gemm_ref` on the segment's own pack bit for bit."""
+    if gw.experts is not None:
+        return torch.stack([dual_gemm_group_ref(x[e], gw.expert(e)) for e in range(gw.experts)])
     _exact_matmuls()
     m, k = x.shape
     G, a_bits = gw.group, gw.a_bits
@@ -341,7 +377,8 @@ def dual_gemm_ref(x: torch.Tensor, w: TwinQuantWeights) -> torch.Tensor:
     y = dq(Xq @ Rq) + dq(requant(dq(Xq @ Uq)) @ Vq)
 
     with group-wise scales and H requantized at ``w.a_bits``; K groups
-    accumulate in ascending order. A single pack is a one-segment group."""
+    accumulate in ascending order. A single pack is a one-segment group;
+    an expert-stacked pack takes x (E, M, K) -> (E, M, N)."""
     return dual_gemm_group_ref(x, as_group(w))
 
 

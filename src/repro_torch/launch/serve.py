@@ -26,11 +26,13 @@ paged, ragged and speculative modes.
   :class:`PrefixCache` maps shared prompt prefixes (whole pages) into new
   slots copy-free so only the suffix is prefilled. Decode attention runs
   through the paged-decode kernel over the pages in use.
-* **Ragged mode** (``ragged=True``, needs paged): every step packs one
+* **Ragged mode** (``ragged=True``, needs paged and a family with a
+  ``ragged_step``): every step packs one
   decode row per decoding slot, then prompt chunks, into one flat batch of
   ``token_budget`` rows and runs ONE ``ragged_step`` launch through the
   ragged-attention kernel; ``max_chunk_share`` caps the chunk rows a step.
-* **Speculation** (``speculation=True``, needs paged, not ragged): each
+* **Speculation** (``speculation=True``, needs paged, not ragged, and
+  family ``dense`` or ``moe``): each
   decode launch stacks the sampled token and ``spec_k - 1`` self-drafted
   tokens per slot, accepts the longest greedy-matching draft prefix, and
   rolls the rest back by rewinding ``pos``; greedy output equals the plain
@@ -401,6 +403,13 @@ def _ngram_draft(hist: list, k: int) -> list:
     return [hist[-1]] * k
 
 
+# families whose decode state is fully page-addressable (caches + pos only),
+# so a prompt prefix maps onto shared pages with no residual per-slot state
+_PREFIX_FAMILIES = ("dense", "moe", "mla_moe")
+# families whose decode_step takes (B, sq) rows through the paged kernel
+_SPEC_FAMILIES = ("dense", "moe")
+
+
 class ContinuousBatchingEngine:
     """Continuous-batching server over a static batch of ``batch_slots``
     independent slot timelines: per-slot admission and eviction, per-request
@@ -410,12 +419,15 @@ class ContinuousBatchingEngine:
     ``paged=True`` keeps the KV cache in page pools behind block tables
     (``page_size`` rows a page, ``n_pages`` pages, default enough for every
     slot's full timeline) with the prefix cache on unless
-    ``prefix_caching=False``. ``ragged=True`` (needs paged) serves every
+    ``prefix_caching=False`` (or the family's decode state is not fully
+    page-addressable: then it warns and serves without it). ``ragged=True`` (needs paged) serves every
     step as one flat launch of ``token_budget`` rows, prompt chunks capped
     at ``max_chunk_share`` of it. ``speculation=True`` (needs paged, not
     ragged) verifies ``spec_k`` rows per slot per launch, drafted by
     ``draft_fn(req, k)`` when given, else by the n-gram self-draft. Ragged
-    or speculation without their prerequisites warn and serve bucketed.
+    or speculation without their prerequisites (paged mode; a family with
+    a ``ragged_step``; family ``dense`` or ``moe`` for speculation) warn and
+    serve bucketed.
     ``preemption=True`` (paged only) lets a page-starved queue head preempt
     a strictly lower-priority live slot and requeue it.
 
@@ -467,7 +479,12 @@ class ContinuousBatchingEngine:
             self.state = C.init_paged_state(self.model.init_decode_state, cfg, batch_slots,
                                             max_len, page_size, self.n_pages, self.device)
             self.allocator = PageAllocator(self.n_pages)
-            if prefix_caching:
+            if prefix_caching and cfg.family not in _PREFIX_FAMILIES:
+                warnings.warn(f"prefix_caching=True needs a family whose decode state is fully "
+                              f"page-addressable ({'/'.join(_PREFIX_FAMILIES)}), not "
+                              f"{cfg.family!r}; serving paged without the prefix cache",
+                              stacklevel=2)
+            elif prefix_caching:
                 self.prefix_cache = PrefixCache(self.allocator, page_size)
             self._bt = np.full((batch_slots, self._max_pages), -1, np.int32)
         else:
@@ -487,9 +504,10 @@ class ContinuousBatchingEngine:
         self.max_chunk_share = float(max_chunk_share)
         self._ragged_shapes: dict[int, int] = {}
         if ragged:
-            if self.allocator is None:
-                warnings.warn("ragged=True needs paged mode; falling back to bucketed prefill "
-                              "+ lock-step decode", stacklevel=2)
+            if self.allocator is None or getattr(self.model, "ragged_step", None) is None:
+                warnings.warn("ragged=True needs paged mode and a family with a ragged_step "
+                              "(dense/moe); falling back to bucketed prefill + lock-step "
+                              "decode", stacklevel=2)
             else:
                 if self.token_budget < batch_slots:
                     raise ValueError(f"token_budget ({self.token_budget}) must be >= "
@@ -504,8 +522,9 @@ class ContinuousBatchingEngine:
         self._draft_fn = draft_fn
         self._spec_shapes: dict[tuple, int] = {}
         if speculation:
-            if self.allocator is None or self.ragged:
-                warnings.warn("speculation=True needs paged (non-ragged) mode; falling back to "
+            if self.allocator is None or self.ragged or cfg.family not in _SPEC_FAMILIES:
+                warnings.warn("speculation=True needs paged (non-ragged) mode and a family "
+                              "with multi-row paged decode (dense/moe); falling back to "
                               "one-token decode steps", stacklevel=2)
             elif not 2 <= self.spec_k <= DECODE_M_MAX:
                 raise ValueError(f"spec_k must be in [2, {DECODE_M_MAX}] (the paged kernel's "

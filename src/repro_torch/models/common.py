@@ -1,6 +1,8 @@
 """Shared model substrate of the port: linear modules (bf16, TwinQuant and
 the weight-only W4A16 baseline, routed through ``kernels/dispatch``, and the
-quantized-numerics simulation ``SimLinear``), norms,
+quantized-numerics simulation ``SimLinear``; an MoE layer's experts as one
+expert-stacked module each, ``ExpertLinear`` in bf16 or a stacked TwinQuant
+pack), norms,
 RoPE, GQA attention with a dense per-slot KV cache or paged KV pools, and the
 serving helpers the engine uses.
 
@@ -64,9 +66,24 @@ class Linear(nn.Module):
         return y
 
 
+class ExpertLinear(nn.Module):
+    """An MoE layer's experts' bf16 linears stacked: ``w`` (E, K, N); x (E, C,
+    K) -> (E, C, N), the reference's ``einsum("ecd,edf->ecf")``."""
+
+    def __init__(self, w: torch.Tensor):
+        super().__init__()
+        self.register_buffer("w", w)
+        self.register_buffer("b", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.bmm(x, self.w.to(x.dtype))
+
+
 class TwinQuantLinear(nn.Module):
     """A TwinQuant dual-component pack (buffers ``up us vp vs rp rs`` and an
-    optional bias ``b``), applied through ``dispatch.quant_linear``."""
+    optional bias ``b``), applied through ``dispatch.quant_linear``. An
+    expert-stacked pack (every buffer with a leading E) takes x (E, C, K)
+    and runs all experts in one launch."""
 
     def __init__(self, w: TwinQuantWeights, b: Optional[torch.Tensor] = None):
         super().__init__()
@@ -86,7 +103,8 @@ class TwinQuantLinear(nn.Module):
 class TwinQuantLinearGroup(nn.Module):
     """Sibling packs fused along N (``up us rp rs`` concatenated, ``vp{j}``
     / ``vs{j}`` per segment, biases concatenated into ``b``); one launch of
-    ``dispatch.fused_linear`` computes every sibling."""
+    ``dispatch.fused_linear`` computes every sibling (of every expert, for
+    an expert-stacked group)."""
 
     def __init__(self, gw: TwinQuantGroupWeights, b: Optional[torch.Tensor] = None):
         super().__init__()
@@ -207,7 +225,7 @@ def _fusable(ps) -> bool:
     if not all(isinstance(pp, TwinQuantLinear) for pp in ps):
         return False
     base = ps[0]
-    return all(pp.rp.shape[0] == base.rp.shape[0] and pp.group == base.group
+    return all(pp.rp.shape[:-1] == base.rp.shape[:-1] and pp.group == base.group
                and pp.a_bits == base.a_bits for pp in ps)
 
 

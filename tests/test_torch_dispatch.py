@@ -287,7 +287,9 @@ def test_launch_args_built_once_per_pack():
                                    gw.group, gw.rgroups, gw.a_bits)
     assert CL.pack_args(regw, "dual_gemv_group") is CL.pack_args(gw, "dual_gemv_group")
     total, offs = CL.scratch_layout(8, K, pa, K // 128)
-    args = [CL.dual_args(4096, 8, K, pa, 1 << 20, offs, 1 << 30) for _ in range(2)]
+    strides = CL.expert_strides(8, K, pa, K // 128)
+    assert list(strides) == [0] * 19  # a single pack: no expert axis
+    args = [CL.dual_args(4096, 8, K, pa, 1 << 20, offs, 1 << 30, strides) for _ in range(2)]
     assert args[0] == args[1] and all(a is b for a, b in zip(args[0], args[1])
                                       if not isinstance(a, int))
     assert len(args[0]) == len(CL._DUAL_ARGS)

@@ -311,3 +311,58 @@ def test_planted_wrong_order_is_caught():
     want = T.dual_gemm_group_ref(x, gw)
     assert torch.equal(gemv_model(x, gw), want)
     assert (gemv_model(x, gw, h_sum=_pairwise) != want).sum() > 100
+
+
+def _expert_view(gw, x, strides, z):
+    """Expert ``z`` of a launch over an expert axis as the kernels address
+    it: every operand read at ``blockIdx.z`` times its per-expert stride
+    from expert 0's pointer (``cuda_launch.expert_strides``: x, up, us, rp,
+    rs, ..., then each segment's vp and vs)."""
+    import dataclasses
+
+    s = list(strides)
+
+    def at(t, stride, shape):
+        flat = t.reshape(-1)
+        return flat[z * stride:z * stride + shape.numel()].view(shape)
+
+    head = {name: at(getattr(gw, name), s[1 + i], getattr(gw, name).shape[1:])
+            for i, name in enumerate(("up", "us", "rp", "rs"))}
+    vps = tuple(at(t, s[11 + j], t.shape[1:]) for j, t in enumerate(gw.vps))
+    vss = tuple(at(t, s[15 + j], t.shape[1:]) for j, t in enumerate(gw.vss))
+    one = dataclasses.replace(gw, vps=vps, vss=vss, **head)
+    return at(x, s[0], x.shape[1:]), one
+
+
+@pytest.mark.parametrize("m", [5, 40, 100])
+def test_expert_axis_schedule_bit_exact(m):
+    """A launch over an expert axis: each expert's slice, addressed by its
+    strides, run through the kernel's schedule, equals the stacked plain
+    version's and that expert alone; a wrong stride (rs not advanced per
+    expert) is caught."""
+    from repro_torch.kernels import cuda_launch as CL
+
+    E, k = 3, 256
+
+    def stacked(seed, n, r):
+        g = torch.Generator().manual_seed(seed)
+        return T.pack_twinquant_weights(torch.randn(E, k, r, generator=g) * 0.1,
+                                        torch.randn(E, r, n, generator=g) * 0.1,
+                                        torch.randn(E, k, n, generator=g) * 0.05)
+
+    gw = T.fuse_twinquant_weights([stacked(50, 256, 32), stacked(51, 128, 64)])
+    x = (torch.randn(E, m, k, generator=torch.Generator().manual_seed(m)) * 2).bfloat16()
+    gemv = m <= 8
+    pa = CL.pack_args(gw, "dual_gemv_group" if gemv else "dual_gemm_group")
+    strides = CL.expert_strides(m, k, pa, k // gw.group if gemv else 1)
+    model = gemv_model if gemv else gemm_model
+    want = T.dual_gemm_group_ref(x, gw)
+    for z in range(E):
+        xz, wz = _expert_view(gw, x, strides, z)
+        got = model(xz, wz)
+        assert torch.equal(got, want[z])
+        assert torch.equal(got, T.dual_gemm_group_ref(x[z], gw.expert(z)))
+    bad = list(strides)
+    bad[4] = 0  # every expert reads expert 0's residual scales
+    xz, wz = _expert_view(gw, x, bad, 1)
+    assert not torch.equal(model(xz, wz), want[1])
