@@ -7,6 +7,7 @@
     python3 chip_smoke.py --lifecycle-only  # build, W4A4 llama3-8b, the lifecycle phase
     python3 chip_smoke.py --calib-only      # build, then the calibration phase
     python3 chip_smoke.py --olmoe-only      # build, then the OLMoE phase
+    python3 chip_smoke.py --dense-only      # build, then the other dense configs and the VLM
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -111,15 +112,35 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    runs give a GEMM (``MOE_GEMM_CPS``, 16 .. 1024), a_bits 4 and 8, each
    ``torch.equal`` to the stacked plain version and
    expert by expert to one-expert launches, experts 0 and 1 with swapped
-   ``rp`` caught, timed beside one bf16 ``torch.bmm`` and the bound; the
-   attention kernels of phase 3 at H = KV = 16; W4A4 packs (rank 128, one
-   batched SVD per expert linear) served in the four modes at
+   ``rp`` caught, timed beside one bf16 ``torch.bmm`` and the bound; then
+   ``w4a16_gemm`` on expert-stacked packs (gate/up and down, E = 64) at
+   every Cp in ``W4A16_MOE_CPS`` and its column-split schedule at
+   ``W4A16_COL_CASE``, rows at rel <= ``W4A16_REL_MAX`` against the f32
+   plain version and within ``W4A16_TOL`` of the bf16 one, each expert's
+   slice ``torch.equal`` to a one-expert launch, experts 0 and 1 with
+   swapped packs caught, timed beside one bf16 ``torch.bmm`` and the bound;
+   the attention kernels of phase 3 at H = KV = 16; W4A4 packs (rank 128,
+   one batched SVD per expert linear) served in the four modes at
    ``capacity_factor`` ``OLMOE_CF`` (drop-free) with the serve phase's
    checks (every model call four dual launches a layer: q/k/v, o, the
    experts' gate/up and down), a graph step == eager step in each mode,
    paged and ragged again under the sanitizers, and one eager paged run at
    the published capacity factor 1.25 printing the expert assignments
-   dropped per model call (``moe_layer.record_drops``).
+   dropped per model call (``moe_layer.record_drops``); then the W4A16
+   packs (experts stacked) served in the four modes at ``OLMOE_CF`` with
+   the same checks, ``w4a16_gemm`` launched 7 x layers x model calls (q, k,
+   v, o and the experts' gate, up, down, one launch each for all experts);
+8. dense configs — ``qwen2-1.5b``, ``stablelm-12b``, ``phi4-mini-3.8b``,
+   ``internlm2-1.8b`` and the ``vlm`` family's ``internvl2-2b`` at full
+   width, depth ``DENSE_LAYERS``, random weights from seed 0, W4A4 packs
+   (rank 128, group 128, fused) served in ``DENSE_MODES`` (paged with the
+   prefix cache; qwen2-1.5b also ragged; internvl2-2b bucketed and paged,
+   each request behind its own seeded 256-row patch set) with the serve
+   phase's checks and four dual launches a layer a model call; for
+   internvl2-2b also ``prefix_lookups == 0`` and two patch sets giving
+   different first logits; before each new (H, KV, hd) the attention
+   kernels of phase 3 at it ((12, 2, 128), (32, 8, 160), (24, 8, 128), (16,
+   8, 128)).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -129,7 +150,8 @@ prints no result line, as do ``--ragged-serve`` (phases 1-2, then
 llama3-8b's W4A16 and W4A4 ragged-mode runs of phase 4 alone) and
 ``--lifecycle-only`` (phases 1-2, then the lifecycle phase on llama3-8b's
 W4A4 packs), ``--calib-only`` (phases 1-2, then phase 6) and
-``--olmoe-only`` (phases 1-2, then phase 7);
+``--olmoe-only`` (phases 1-2, then phase 7) and ``--dense-only`` (phases
+1-2, then phase 8; with ``--olmoe-only``, 7 then 8);
 ``--timing-only`` times the four dual wrappers at their table cases,
 ``w4a16_gemm`` at the four llama3-8b shapes and M in
 ``W4A16_MS``, the paged decode kernel at its table case (sq 1 and 4,
@@ -1435,7 +1457,7 @@ CHECK_STEP = 6
 # (setting, mode) pairs whose eager and graph steps are timed, and how many
 # steps each reading takes
 STEP_TIMED = {("w4a16", "paged"), ("w4a4", "paged"), ("w4a4", "ragged"),
-              ("olmoe w4a4", "paged")}
+              ("olmoe w4a4", "paged"), ("olmoe w4a16", "paged")}
 STEP_REPS = 10
 # profiler name prefixes of the hand-written kernels (csrc/*.cu)
 HANDWRITTEN = ("tq_", "pd_", "rg_", "w4a16_")
@@ -2897,7 +2919,7 @@ def calibration_phase(device, card: str, cfg, rows: int = CALIB_ROWS, steps=CALI
 # attention kernels at one query head per KV head, the engine in every mode
 # ---------------------------------------------------------------------------
 
-OLMOE_LAYERS = 16  # OLMoE-1B-7B's full depth
+OLMOE_LAYERS = 8  # OLMoE-1B-7B's 16 layers cut to keep the whole script near 1000 s
 OLMOE_CF = 8.0  # capacity_factor at which nothing drops: Cp >= T at E / top_k = 8
 MOE_GEMV_CPS = (8,)  # decode (B = 8) and the prefill bucket 8 at either capacity factor
 # Cp of every stacked GEMM the served runs launch. At OLMOE_CF (Cp = T): spec
@@ -2909,6 +2931,15 @@ MOE_TABLE_CP = {"dual_gemv": 8, "dual_gemv_group": 8,  # the kernel table's row:
                 "dual_gemm": 256, "dual_gemm_group": 256}  # Cp is the most launched GEMM
 OLMOE_ATT = dict(B=8, H=16, KV=16, hd=128, page=16, maxp=128)  # max_len 2048
 MOE_KERNELS = ("dual_gemv", "dual_gemv_group", "dual_gemm", "dual_gemm_group")
+# Cp of every stacked w4a16_gemm the served W4A16 runs launch (drop-free:
+# decode 8, verify 32, ragged 256, the prefill buckets 8 .. 1024) and those of
+# the dual kernels' panel beside them; the decode regime takes Cp <= 32, the
+# 64 x 64 tile the rest
+W4A16_MOE_CPS = MOE_GEMV_CPS + MOE_GEMM_CPS
+W4A16_MOE_TABLE = ("down", 8)  # the stacked row for PERF.md: decode, the most launched
+# no OLMoE width reaches the column-split schedule (N >= 8192): one case
+# over a short expert axis takes it (E, K, N, Cps)
+W4A16_COL_CASE = (4, 1024, 8192, (8, 32))
 
 
 def _stacked_pack(gen, e, k, n, r, device):
@@ -2944,7 +2975,8 @@ def _swap_experts(w, a: int = 0, b: int = 1):
 
 
 def moe_kernel_phase(device, cfg) -> dict:
-    """The four dual kernels on expert-stacked packs at ``cfg``'s widths
+    """The four dual kernels, then ``w4a16_gemm``
+    (``stacked_w4a16_phase``), on expert-stacked packs at ``cfg``'s widths
     (OLMoE: E = 64, gate_up 2048 -> 2 x 1024 fused, down 1024 -> 2048, rank
     128, group 128), GEMV at Cp in ``MOE_GEMV_CPS`` and GEMM at
     ``MOE_GEMM_CPS``, a_bits 4 and 8: each stacked launch ``torch.equal`` to
@@ -3020,14 +3052,107 @@ def moe_kernel_phase(device, cfg) -> dict:
         del wb
     del cases, down, gate_up
     torch.cuda.empty_cache()
+    table["w4a16_gemm"] = stacked_w4a16_phase(device, cfg)
     return table
+
+
+def _swap_expert_packs(wp, a: int = 0, b: int = 1):
+    """A copy of stacked ``wp`` whose experts ``a`` and ``b`` trade packs:
+    the planted fault of ``w4a16_gemm``'s expert axis."""
+    out = wp.clone()
+    out[[a, b]] = out[[b, a]]
+    return out
+
+
+def stacked_w4a16_phase(device, cfg) -> dict:
+    """``w4a16_gemm`` on expert-stacked packs at ``cfg``'s widths (OLMoE: E =
+    64, gate/up 2048 -> 1024, down 1024 -> 2048, group 128) at every Cp in
+    ``W4A16_MOE_CPS`` (the decode schedule up to 32 rows, the 64 x 64 tile
+    above), and the column-split schedule at ``W4A16_COL_CASE``: each
+    stacked launch's rows at rel <= ``W4A16_REL_MAX`` against the f32 plain
+    version and within ``W4A16_TOL`` of the bf16 one, each expert's slice
+    ``torch.equal`` to that expert launched alone; experts 0 and 1 with
+    their packs swapped must fail that check; timed (device ms from a CUDA
+    graph, host µs, the plain version, one bf16 ``torch.bmm`` of the same
+    (E, Cp, K) x (E, K, N), the bound). Returns the stacked row at
+    ``W4A16_MOE_TABLE``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.w4a16_gemm import w4a16_gemm
+
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    ce, ck, cn, ccps = W4A16_COL_CASE
+    gen = torch.Generator(device=device).manual_seed(11)
+    row, worst_err, worst_rel = None, 0.0, 0.0
+    for lname, ee, k, n, cps in (("gate/up", e, d, f, W4A16_MOE_CPS),
+                                 ("down", e, f, d, W4A16_MOE_CPS),
+                                 ("column", ce, ck, cn, ccps)):
+        wq, ws = ref.quantize_rows_ref(
+            torch.randn(ee, k, n, generator=gen, device=device) * 0.05, 128, 4)
+        wp = ref.pack_rows_groupsplit(wq, 128)
+        del wq
+        wp_f = _swap_expert_packs(wp)
+        wb = torch.randn(ee, k, n, generator=gen, device=device).to(torch.bfloat16)
+        for cp in cps:
+            x = (torch.randn(ee, cp, k, generator=gen, device=device) * 2).to(torch.bfloat16)
+            y_k = w4a16_gemm(x, wp, ws)
+            y32 = ref.w4a16_gemm_f32(x, wp, ws)
+            y_p = y32.to(torch.bfloat16)  # the bf16 plain version
+            torch.cuda.synchronize()
+            err = (y_k.float() - y_p.float()).abs().max().item()
+            rel = _rel_rows(y_k, y32).max().item()
+            worst_err, worst_rel = max(worst_err, err), max(worst_rel, rel)
+            name = f"w4a16_gemm stacked {lname} E={ee} Cp={cp}"
+            if not torch.allclose(y_k.float(), y_p.float(), **W4A16_TOL):
+                fail(f"{name}: kernel vs plain version beyond atol {W4A16_TOL['atol']} / rtol "
+                     f"{W4A16_TOL['rtol']} (max |d| {err})")
+            if not rel <= W4A16_REL_MAX:
+                fail(f"{name}: kernel vs f32 plain version rel {rel} per row > {W4A16_REL_MAX}")
+            alone = torch.stack([w4a16_gemm(x[i], wp[i], ws[i]) for i in range(ee)])
+            if not torch.equal(alone, y_k):
+                bad = int((alone != y_k).flatten(1).any(dim=1).sum())
+                fail(f"{name}: {bad} experts differ from one-expert launches")
+            y_f = w4a16_gemm(x, wp_f, ws)
+            torch.cuda.synchronize()
+            caught = not torch.equal(y_f, alone)
+            print(f"kernel planted fault ({name}: experts 0 and 1 swap packs) -> "
+                  f"{'caught' if caught else 'MISSED'}; experts 0, 1 differ: "
+                  f"{not torch.equal(y_f[:2], alone[:2])}, experts 2.. equal: "
+                  f"{torch.equal(y_f[2:], alone[2:])}", flush=True)
+            if not caught:
+                fail(f"{name}: swapped experts' packs pass the equality check")
+            t_k = graph_ms(lambda: w4a16_gemm(x, wp, ws))
+            t_h = host_us(lambda: w4a16_gemm(x, wp, ws))
+            t_p = cuda_ms(lambda: ref.w4a16_gemm_ref(x, wp, ws), iters=1, warmup=0)
+            t_lib = cuda_ms(lambda: torch.bmm(x, wb), iters=20)
+            nbytes = ee * (k * n // 2 + (k // 128) * n * 4 + cp * k * 2 + cp * n * 2)
+            t_b, t_o = nbytes / HBM_BYTES_S * 1e3, 2 * ee * cp * n * k / BF16_OPS_S * 1e3
+            t_b, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+            print(f"kernel w4a16_gemm        stacked {lname:8s} E={ee} Cp={cp:4d} K={k:5d} "
+                  f"N={n:5d} close max_abs_err={err:.5f} max_rel={rel:.5f} (limit "
+                  f"{W4A16_REL_MAX}) experts == one-expert launches device_ms={t_k:.4f} "
+                  f"host_us={t_h:.1f} plain_ms={t_p:.4f} bf16_bmm_ms={t_lib:.4f} "
+                  f"bound_ms={t_b:.4f} ({by}) share={t_b / t_k:.3f} vs_bmm={t_k / t_lib:.2f}x",
+                  flush=True)
+            if (lname, cp) == W4A16_MOE_TABLE:
+                row = dict(ms=t_k, host_us=t_h, plain_ms=t_p, library_ms=t_lib, bound_ms=t_b,
+                           bound_by=by, cp=cp)
+        del wp, ws, wp_f, wb
+        torch.cuda.empty_cache()
+    print(f"kernel w4a16_gemm stacked E={e} close and experts == one-expert launches at "
+          f"Cp={list(W4A16_MOE_CPS)} (column schedule: E={ce} Cp={list(ccps)}); max rel per row "
+          f"{worst_rel:.5f} (limit {W4A16_REL_MAX})", flush=True)
+    return dict(max_abs_err=worst_err, **row)
 
 
 class MoEServed(Served):
     """An OLMoE model served as :class:`Served` does, its linears checked as
     one stacked launch per (layer, linear call): every model call (a decode,
-    verify or ragged step, a prefill) runs q/k/v (fused), o, the experts'
-    gate/up (fused) and down, each one dual launch for all experts."""
+    verify or ragged step, a prefill) runs, W4A4, q/k/v (fused), o, the
+    experts' gate/up (fused) and down, each one dual launch for all experts;
+    W4A16, ``w4a16_gemm`` seven times a layer (q, k, v, o and the experts'
+    stacked gate, up and down: W4A16 siblings are never fused)."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -3040,6 +3165,10 @@ class MoEServed(Served):
         1200 s."""
 
     def _linears(self, mode, eng, got, routes) -> None:
+        self.host_step_ms[mode] = _step_ms(eng, mode)
+        if self.kind == "w4a16":  # 7 launches a layer: q, k, v, o, experts gate, up, down
+            super()._linears(mode, eng, got, routes)
+            return
         L, cuda = self.cfg.n_layers, self.device.type == "cuda"
         name = f"{self.tag} {mode}"
         calls = eng.stats["decode_steps"] + eng.compile_stats()["prefill_calls"]
@@ -3060,7 +3189,6 @@ class MoEServed(Served):
                     fail(f"kernel {kname} never launched on the {name} path")
                 self.launches[kname] = got.get(kname, 0)
         mem = eng.memory()
-        self.host_step_ms[mode] = _step_ms(eng, mode)
         print(f"serve {name} dual launches={n_launch} == 4 x {L} layers x {calls} model calls "
               f"(qkv, o, experts gate_up, experts down; one launch for all "
               f"{self.cfg.n_experts} experts) host_step_ms={_step_ms(eng, mode):.3f} "
@@ -3102,13 +3230,16 @@ def _drops_run(served, device) -> None:
 def olmoe_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2048,
                 rank: int = 128) -> dict:
     """OLMoE-1B-7B at full width (``cfg``'s depth), random weights from seed
-    0: the stacked dual kernels (``moe_kernel_phase``), the attention
-    kernels at one query head per KV head, then W4A4 packs (quantized once,
-    fused) served in the four modes at ``OLMOE_CF`` (drop-free) with the
-    serve phase's checks (routes, one stacked launch per linear call, one
-    capture, solo == interleaved, spec == paged, graph step == eager step),
-    paged and ragged again under the sanitizers, and one paged run at the
-    published capacity factor. Returns the kernel and attention tables."""
+    0: the stacked dual kernels and ``w4a16_gemm`` (``moe_kernel_phase``),
+    the attention kernels at one query head per KV head, then W4A4 packs
+    (quantized once, fused) served in the four modes at ``OLMOE_CF``
+    (drop-free) with the serve phase's checks (routes, one stacked launch
+    per linear call, one capture, solo == interleaved, spec == paged, graph
+    step == eager step), paged and ragged again under the sanitizers, one
+    paged run at the published capacity factor, and the W4A16 packs (the
+    experts stacked, every linear one ``w4a16_gemm`` launch) served in the
+    four modes with the same checks. Returns the kernel and attention
+    tables."""
     import numpy as np
     import torch
 
@@ -3127,6 +3258,7 @@ def olmoe_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
     t2 = time.perf_counter()
     params = olmoe.init_params(cfg, seed=0, device=device)
     bf16_bytes = _param_bytes(params)
+    qp16 = quantize_params(params, cfg, QuantSpec("w4a16"))
     _sync(device)
     t3 = time.perf_counter()
     qp = quantize_params(params, cfg, QuantSpec("w4a4", rank=rank, group_size=128))
@@ -3137,7 +3269,8 @@ def olmoe_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
     qp = fuse_params(qp)
     total, active = olmoe.count_params(cfg)
     print(f"olmoe params total={total} active={active} param_bytes bf16={bf16_bytes} "
-          f"w4a4={_param_bytes(qp)} ({bf16_bytes / _param_bytes(qp):.2f}x); init_s={t3 - t2:.2f} "
+          f"w4a4={_param_bytes(qp)} ({bf16_bytes / _param_bytes(qp):.2f}x) "
+          f"w4a16={_param_bytes(qp16)}; init+w4a16_quantize_s={t3 - t2:.2f} "
           f"w4a4_quantize_s={t4 - t3:.2f} ({(t4 - t3) / cfg.n_layers:.2f} s a layer: "
           f"{3 * cfg.n_experts} expert linears in 3 batched SVDs + 4 attention linears)",
           flush=True)
@@ -3163,10 +3296,184 @@ def olmoe_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
     launches = dict(served.launches)
     del served, published, qp
     torch.cuda.empty_cache()
+    w16 = MoEServed("olmoe w4a16", cfg.replace(capacity_factor=OLMOE_CF), qp16, "w4a16",
+                    prompts, device, max_len)
+    for mode in MODES:
+        w16.serve(mode, against_eager=True)
+    for mode, times in w16.step_times.items():
+        times["busy_share_graph"] = ((times["graph_kernel_ms"] or times["replay_events_ms"])
+                                     / w16.host_step_ms[mode])
+        print(f"serve step times {json.dumps({'setting': w16.tag, 'mode': mode, **times})}",
+              flush=True)
+    launches.update(w16.launches)
+    del w16, qp16
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
     print(f"olmoe phase seconds: stacked kernels {t1 - t0:.1f} attention {t2 - t1:.1f} "
-          f"init+quantize {t5 - t2:.1f} serve {t6 - t5:.1f} capacity_1.25 {t7 - t6:.1f}",
-          flush=True)
+          f"init+quantize {t5 - t2:.1f} serve {t6 - t5:.1f} capacity_1.25 {t7 - t6:.1f} "
+          f"w4a16_serve {t8 - t7:.1f}", flush=True)
     print(f"olmoe tables {json.dumps({**tables, 'launches': launches})}", flush=True)
+    return tables
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the other dense configs and the VLM family at full width
+# ---------------------------------------------------------------------------
+
+# depth of each config's run: qwen2-1.5b whole, the others cut to keep the
+# whole script near 1000 s (PERF.md section 4)
+DENSE_LAYERS = {"qwen2-1.5b": 28, "stablelm-12b": 4, "phi4-mini-3.8b": 6,
+                "internlm2-1.8b": 8, "internvl2-2b": 8}
+# the engine modes each config is served in (paged, with the prefix cache,
+# unless named here)
+DENSE_MODES = {"qwen2-1.5b": ("paged", "ragged"), "internvl2-2b": ("bucketed", "paged")}
+
+
+class DenseServed(Served):
+    """A W4A4 dense model served as :class:`Served` does, with its dual
+    launches counted in every mode: each model call runs qkv (fused), o,
+    gate_up (fused) and down, four launches a layer."""
+
+    def _linears(self, mode, eng, got, routes) -> None:
+        super()._linears(mode, eng, got, routes)
+        L, cuda = self.cfg.n_layers, self.device.type == "cuda"
+        calls = eng.stats["decode_steps"] + eng.compile_stats()["prefill_calls"]
+        want = 4 * L * calls
+        n_routes = sum(v for key, v in routes.items() if key.startswith("dual"))
+        n_launch = sum(got.get(kname, 0) for kname in MOE_KERNELS)
+        if n_routes != want or (cuda and n_launch != want):
+            fail(f"{self.tag} {mode}: {n_routes} dual routes and {n_launch} launches, want "
+                 f"{want} (4 x {L} layers x {calls} model calls): {routes} {got}")
+        print(f"serve {self.tag} {mode} dual launches={n_launch} == 4 x {L} layers x {calls} "
+              f"model calls (qkv, o, gate_up, down)", flush=True)
+
+
+class VLMServed(DenseServed):
+    """The ``vlm`` family served as :class:`DenseServed` does, every request
+    carrying its own seeded patch set (``Request.frontend``): checks that no
+    engine looks up the prefix cache, and that the patches reach the model
+    (two patch sets, two different first logits)."""
+
+    def __init__(self, *args, patches, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.patches = patches
+        self.engines: list = []
+
+    def request(self, i):
+        req = super().request(i)
+        req.frontend = {"patches": self.patches[i]}
+        return req
+
+    def engine(self, mode, **kw):
+        import warnings
+
+        with warnings.catch_warnings():  # paged vlm: no prefix cache, by design
+            warnings.simplefilter("ignore")
+            eng = super().engine(mode, **kw)
+        self.engines.append(eng)
+        return eng
+
+    def prefill_logits(self) -> None:
+        """Kernel vs plain logits (equal) of one prompt behind its patches,
+        and the same prompt behind another patch set (must differ)."""
+        import torch
+
+        from repro_torch.kernels import dispatch
+        from repro_torch.models import dense
+
+        toks = torch.as_tensor(self.prompts[4][None, :], device=self.device, dtype=torch.long)
+
+        def logits(patches, plain=False):
+            state = dense.init_decode_state(self.cfg, 1, toks.shape[1] + self.cfg.n_patches,
+                                            device=self.device)
+            prev = dispatch.set_force_ref(plain)
+            try:
+                return dense.prefill(self.qp, self.cfg, toks, state, patches=patches)[0].float()
+            finally:
+                dispatch.set_force_ref(prev)
+
+        lk, lp = logits(self.patches[4]), logits(self.patches[4], plain=True)
+        if not torch.equal(lk, lp):
+            fail(f"{self.tag}: prefill logits through the kernels != plain versions (max |d| "
+                 f"{(lk - lp).abs().max().item()})")
+        other = logits(self.patches[5])
+        rel = (torch.linalg.norm(other - lk) / torch.linalg.norm(lk)).item()
+        if torch.equal(other, lk):
+            fail(f"{self.tag}: two patch sets give the same first logits")
+        print(f"serve {self.tag} prefill logits kernel == plain: equal ({self.cfg.n_patches} "
+              f"patch rows + {toks.shape[1]} tokens); another patch set: rel {rel:.4f} (differ)",
+              flush=True)
+
+    def serve(self, mode, against_eager: bool = False) -> list:
+        reqs = super().serve(mode, against_eager)
+        looked = [eng.stats["prefix_lookups"] for eng in self.engines]
+        if any(looked) or any(eng.prefix_cache is not None for eng in self.engines):
+            fail(f"{self.tag} {mode}: frontend requests looked up the prefix cache: {looked}")
+        print(f"serve {self.tag} {mode} prefix_lookups == 0 in {len(self.engines)} engines "
+              f"(frontend requests skip the prefix cache)", flush=True)
+        return reqs
+
+
+def dense_phase(device, card: str, prompt_lens=PROMPT_LENS, max_len: int = 2048,
+                rank: int = 128) -> dict:
+    """Each config of ``DENSE_LAYERS`` at full width and that depth, random
+    weights from seed 0, W4A4 packs (rank 128, group 128, fused) served in
+    its ``DENSE_MODES`` with the serve phase's checks (kernel-vs-plain
+    logits, routes, four dual launches a layer a model call, the attention
+    kernel once a layer a step, one capture, solo == interleaved, page
+    invariants); ``internvl2-2b`` with a seeded patch set per request
+    (``VLMServed``). Before each new (heads, KV heads, head_dim) the
+    attention kernels at it (``attention_phase``). Returns the attention
+    tables by head shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import QuantSpec, get_config
+    from repro_torch.core.twinquant import fuse_params, quantize_params
+    from repro_torch.models import dense
+
+    tables, secs = {}, {}
+    for name, layers in DENSE_LAYERS.items():
+        t0 = time.perf_counter()
+        full = get_config(name)
+        cfg = full.replace(n_layers=layers)
+        heads = f"H={cfg.n_heads},KV={cfg.n_kv_heads},hd={cfg.head_dim}"
+        print(f"dense config {name} family={cfg.family} d_model={cfg.d_model} heads="
+              f"{cfg.n_heads}/{cfg.n_kv_heads} (g={cfg.n_heads // cfg.n_kv_heads}) head_dim="
+              f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab} padded_vocab={cfg.padded_vocab} "
+              f"qkv_bias={cfg.qkv_bias} rope_fraction={cfg.rope_fraction} tied="
+              f"{cfg.tie_embeddings} n_patches={cfg.n_patches} n_layers={layers} (of "
+              f"{full.n_layers}) card=\"{card}\"", flush=True)
+        if heads not in tables:
+            tables[heads] = attention_phase(device, dict(B=8, H=cfg.n_heads, KV=cfg.n_kv_heads,
+                                                         hd=cfg.head_dim, page=16, maxp=128))
+        t1 = time.perf_counter()
+        params = dense.init_params(cfg, seed=0, device=device)
+        qp = fuse_params(quantize_params(params, cfg, QuantSpec("w4a4", rank=rank,
+                                                                group_size=128)))
+        del params
+        _sync(device)
+        t2 = time.perf_counter()
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
+        tag = f"{name} w4a4"
+        if cfg.family == "vlm":
+            gen = torch.Generator(device=device).manual_seed(5)
+            patches = [torch.randn(1, cfg.n_patches, cfg.d_model, generator=gen,
+                                   device=device).to(torch.bfloat16) for _ in prompts]
+            served = VLMServed(tag, cfg, qp, "w4a4", prompts, device, max_len, patches=patches)
+        else:
+            served = DenseServed(tag, cfg, qp, "w4a4", prompts, device, max_len)
+        served.prefill_logits()
+        for mode in DENSE_MODES.get(name, ("paged",)):
+            served.serve(mode)
+        del served, qp
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        secs[name] = dict(attention=round(t1 - t0, 1), init_quantize=round(t2 - t1, 1),
+                          serve=round(t3 - t2, 1))
+        print(f"dense {name} seconds {json.dumps(secs[name])}", flush=True)
+    print(f"dense tables {json.dumps(tables)}", flush=True)
     return tables
 
 
@@ -3191,6 +3498,9 @@ def main() -> None:
                     help="build, then run the calibration phase alone (no result line)")
     ap.add_argument("--olmoe-only", action="store_true",
                     help="build, then run the OLMoE phase alone (no result line)")
+    ap.add_argument("--dense-only", action="store_true",
+                    help="build, then run the other dense configs' and the VLM phase alone "
+                         "(no result line)")
     ap.add_argument("--src", metavar="DIR",
                     help="import repro_torch from DIR (another tree's src) instead")
     args = ap.parse_args()
@@ -3235,12 +3545,17 @@ def main() -> None:
         calibration_phase(device, card, get_config("llama3-8b"))
         print(f"calib phase total seconds {time.perf_counter() - t:.1f}", flush=True)
         return
-    if args.olmoe_only:
+    if args.olmoe_only or args.dense_only:
         from repro_torch.configs import get_config
 
-        t = time.perf_counter()
-        olmoe_phase(device, card, get_config("olmoe-1b-7b").replace(n_layers=OLMOE_LAYERS))
-        print(f"olmoe phase total seconds {time.perf_counter() - t:.1f}", flush=True)
+        if args.olmoe_only:
+            t = time.perf_counter()
+            olmoe_phase(device, card, get_config("olmoe-1b-7b").replace(n_layers=OLMOE_LAYERS))
+            print(f"olmoe phase total seconds {time.perf_counter() - t:.1f}", flush=True)
+        if args.dense_only:
+            t = time.perf_counter()
+            dense_phase(device, card)
+            print(f"dense phase total seconds {time.perf_counter() - t:.1f}", flush=True)
         return
     if args.lifecycle_only:
         from repro_torch.configs import QuantSpec, get_config
@@ -3278,6 +3593,10 @@ def main() -> None:
     t = time.perf_counter()
     olmoe_phase(device, card, get_config("olmoe-1b-7b").replace(n_layers=OLMOE_LAYERS))
     secs["olmoe_1b_7b"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    dense_phase(device, card)
+    secs["dense_configs"] = time.perf_counter() - t
     print(f"phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
 
     rows = []

@@ -1,7 +1,8 @@
 """Model configuration for the port: its own copy of ``ModelConfig`` /
 ``QuantSpec`` and the registry, restricted to the families the port serves
 (``dense``: the paper's two evaluation models ``llama3-8b`` and
-``qwen3-8b``; ``moe``: ``olmoe-1b-7b``).
+``qwen3-8b``, and ``qwen2-1.5b``, ``stablelm-12b``, ``phi4-mini-3.8b``,
+``internlm2-1.8b``; ``moe``: ``olmoe-1b-7b``; ``vlm``: ``internvl2-2b``).
 
 ``get_config(name)`` returns the full-scale config, ``get_config(name,
 reduced=True)`` the small smoke-test reduction (same code paths).
@@ -37,7 +38,7 @@ class ModelConfig:
     """Decoder-only transformer configuration (dense or MoE FFN)."""
 
     name: str = ""
-    family: str = "dense"
+    family: str = "dense"  # dense | moe | vlm
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -57,6 +58,8 @@ class ModelConfig:
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.001
+    # VLM: patch embeddings the frontend stub prepends to the prompt
+    n_patches: int = 0
     quant: QuantSpec = QuantSpec()
 
     @property
@@ -71,9 +74,14 @@ class ModelConfig:
 _REGISTRY: dict[str, ModelConfig] = {}
 _REDUCED: dict[str, ModelConfig] = {}
 
-ARCH_IDS = ["llama3-8b", "qwen3-8b", "olmoe-1b-7b"]
+# the reference's ARCH_IDS in its order, less the families not ported yet
+ARCH_IDS = ["olmoe-1b-7b", "qwen2-1.5b", "stablelm-12b", "phi4-mini-3.8b", "internlm2-1.8b",
+            "internvl2-2b", "llama3-8b", "qwen3-8b"]
 
-_MODULES = {"llama3-8b": "llama3_8b", "qwen3-8b": "qwen3_8b", "olmoe-1b-7b": "olmoe_1b_7b"}
+_MODULES = {"llama3-8b": "llama3_8b", "qwen3-8b": "qwen3_8b", "qwen2-1.5b": "qwen2_1_5b",
+            "stablelm-12b": "stablelm_12b", "phi4-mini-3.8b": "phi4_mini_3_8b",
+            "internlm2-1.8b": "internlm2_1_8b", "olmoe-1b-7b": "olmoe_1b_7b",
+            "internvl2-2b": "internvl2_2b"}
 
 
 def register(full: ModelConfig, reduced: ModelConfig) -> None:

@@ -7,8 +7,10 @@
   int4 weights, bf16 activations), looping over the decoder layers where
   the reference vmaps over its stacked layer axis. An MoE layer's
   :class:`~repro_torch.models.common.ExpertLinear` (E, K, N) becomes one
-  expert-stacked pack (one batched SVD over the E experts), as the
-  reference's vmap over the stacked expert axis.
+  expert-stacked pack, as the reference's vmap over the stacked expert
+  axis: one batched SVD over the E experts (W4A4 / W4A8), or the group-wise
+  RTN of every expert at once (W4A16; elementwise and a max per group, so
+  each expert's slice is its pack made alone, bit for bit).
 * :func:`fuse_params` merges sibling packs that consume the same activation
   (q/k/v -> ``qkv``, gate/up -> ``gate_up``) into one
   :class:`~repro_torch.models.common.TwinQuantLinearGroup`, which
@@ -98,9 +100,11 @@ def _pack_one(lin, spec: QuantSpec) -> TwinQuantLinear:
     return TwinQuantLinear(tq, lin.b)
 
 
-def _pack_one_w4a16(lin: Linear, spec: QuantSpec) -> W4A16Linear:
-    """bf16 linear -> weight-only pack (group-wise RTN int4, group-split)."""
-    k = lin.w.shape[0]
+def _pack_one_w4a16(lin, spec: QuantSpec) -> W4A16Linear:
+    """bf16 linear -> weight-only pack (group-wise RTN int4, group-split); an
+    :class:`ExpertLinear` (E, K, N) -> an expert-stacked pack (``wp`` (E,
+    K/2, N), ``ws`` (E, K/G, N))."""
+    k = lin.w.shape[-2]
     g = min(spec.group_size, k)
     wq, ws = quantize_rows_ref(lin.w.to(torch.float32), g, 4)
     return W4A16Linear(pack_rows_groupsplit(wq, g), ws, lin.b)
@@ -129,10 +133,6 @@ def quantize_params(params: nn.Module, cfg: ModelConfig, spec: QuantSpec) -> nn.
         if isinstance(mod, (Linear, ExpertLinear)):
             if not _eligible(path + "/w", mod.w):
                 return mod
-            if isinstance(mod, ExpertLinear) and spec.mode == "w4a16":
-                raise NotImplementedError(
-                    f"{path}: W4A16 expert packs need w4a16_gemm with an expert axis, which "
-                    "the port does not have yet (ROADMAP Queue 1)")
             return pack_one(mod, spec)
         if isinstance(mod, _LEAVES):
             return mod

@@ -5,6 +5,13 @@
 //
 //   y (M, N) bf16 = x (M, K) bf16 @ dq(wp (K/2, N) int4 pairs, ws (K/G, N) f32)
 //
+// Expert axis (an MoE layer's stacked experts, the reference's jax.vmap over
+// its pallas_call): every kernel below runs gridDim.z = E, and a block first
+// offsets x, wp, ws and out by its expert's element strides (W4Exp; all 0
+// for E = 1). Nothing crosses experts and the schedule does not depend on
+// E, so an expert's slice of a launch is that expert launched alone, bit
+// for bit.
+//
 // Arithmetic contract (the plain version, ref.w4a16_gemm_ref):
 //   * nibbles: group-split rows, byte j of a group holds row j (low nibble,
 //     (p << 28) >> 28) and row j + G/2 (high nibble, (p << 24) >> 28);
@@ -76,6 +83,11 @@ struct __align__(16) W4Smem {
   __nv_bfloat16 b[W4_GMAX][W4_LDB];   // the group being multiplied, k-major (k, n)
 };
 
+// Per-expert element strides of x, wp, ws and out (blockIdx.z is the expert).
+struct W4Exp {
+  long long x, wp, ws, out;
+};
+
 __device__ __forceinline__ void w4_cp16(void* smem, const void* gmem) {
   unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -125,7 +137,12 @@ __device__ __forceinline__ void w4_stage(W4Smem& sm, int st, int g, const __nv_b
 __global__ void __launch_bounds__(W4_THREADS)
 w4a16_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wp,
                   const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int M, int N,
-                  int K, int G) {
+                  int K, int G, W4Exp ex) {
+  // expert blockIdx.z's operands
+  x += blockIdx.z * ex.x;
+  wp += blockIdx.z * ex.wp;
+  ws += blockIdx.z * ex.ws;
+  out += blockIdx.z * ex.out;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   W4Smem& sm = *reinterpret_cast<W4Smem*>(smem_raw);
   const int n0 = blockIdx.x * W4_BN, m0 = blockIdx.y * W4_BM;
@@ -319,7 +336,12 @@ template <int RM, int KS>
 __global__ void __launch_bounds__(256)
 w4a16_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wp,
                     const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int M, int N,
-                    int K) {
+                    int K, W4Exp ex) {
+  // expert blockIdx.z's operands
+  x += blockIdx.z * ex.x;
+  wp += blockIdx.z * ex.wp;
+  ws += blockIdx.z * ex.ws;
+  out += blockIdx.z * ex.out;
   constexpr int G = 16 * KS, HALF = G / 2, LDX = G + 8, VPR = G / 8;
   constexpr int S = W4D_STAGES, SLOT = w4d_slot_bytes(RM, G);
   constexpr int MT = RM >= 16 ? RM / 16 : 1;  // m16 tiles (RM = 8: one, rows 8-15 zero)
@@ -472,7 +494,12 @@ template <int RM, int KS>
 __global__ void __launch_bounds__(128)
 w4a16_col_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wp,
                  const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int M, int N,
-                 int K) {
+                 int K, W4Exp ex) {
+  // expert blockIdx.z's operands
+  x += blockIdx.z * ex.x;
+  wp += blockIdx.z * ex.wp;
+  ws += blockIdx.z * ex.ws;
+  out += blockIdx.z * ex.out;
   constexpr int G = 16 * KS, HALF = G / 2, LDX = G + 8, VPR = G / 8;
   constexpr int S = W4C_STAGES, SLOT = w4c_slot_bytes(RM, G);
   constexpr int MT = RM >= 16 ? RM / 16 : 1;
@@ -596,8 +623,8 @@ w4a16_col_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
 }
 
 template <int RM, int KS>
-static int launch_col(const void* x, const void* wp, const void* ws, void* out, int M, int N,
-                      int K, cudaStream_t st) {
+static int launch_col(const void* x, const void* wp, const void* ws, void* out, int E, int M,
+                      int N, int K, W4Exp ex, cudaStream_t st) {
   const size_t smem = w4c_smem_bytes(RM, 16 * KS);
   cudaError_t e = cudaFuncSetAttribute(w4a16_col_kernel<RM, KS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -605,15 +632,15 @@ static int launch_col(const void* x, const void* wp, const void* ws, void* out, 
   e = cudaFuncSetAttribute(w4a16_col_kernel<RM, KS>,
                            cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (e != cudaSuccess) return (int)e;
-  w4a16_col_kernel<RM, KS><<<N / 64, 128, smem, st>>>(
+  w4a16_col_kernel<RM, KS><<<dim3(N / 64, 1, E), 128, smem, st>>>(
       (const __nv_bfloat16*)x, (const int8_t*)wp, (const float*)ws, (__nv_bfloat16*)out, M, N,
-      K);
+      K, ex);
   return (int)cudaGetLastError();
 }
 
 template <int RM, int KS>
-static int launch_decode(const void* x, const void* wp, const void* ws, void* out, int M, int N,
-                         int K, cudaStream_t st) {
+static int launch_decode(const void* x, const void* wp, const void* ws, void* out, int E,
+                         int M, int N, int K, W4Exp ex, cudaStream_t st) {
   const size_t smem = w4d_smem_bytes(RM, 16 * KS);
   cudaError_t e = cudaFuncSetAttribute(w4a16_decode_kernel<RM, KS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -622,36 +649,36 @@ static int launch_decode(const void* x, const void* wp, const void* ws, void* ou
   e = cudaFuncSetAttribute(w4a16_decode_kernel<RM, KS>,
                            cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (e != cudaSuccess) return (int)e;
-  w4a16_decode_kernel<RM, KS><<<N / 16, 32 * W4D_WARPS, smem, st>>>(
+  w4a16_decode_kernel<RM, KS><<<dim3(N / 16, 1, E), 32 * W4D_WARPS, smem, st>>>(
       (const __nv_bfloat16*)x, (const int8_t*)wp, (const float*)ws, (__nv_bfloat16*)out, M, N,
-      K);
+      K, ex);
   return (int)cudaGetLastError();
 }
 
 template <int RM>
-static int launch_rows(const void* x, const void* wp, const void* ws, void* out, int M, int N,
-                       int K, int G, cudaStream_t st) {
+static int launch_rows(const void* x, const void* wp, const void* ws, void* out, int E, int M,
+                       int N, int K, int G, W4Exp ex, cudaStream_t st) {
   if (N >= W4D_COL_N) {
     switch (G / 16) {
-      case 1: return launch_col<RM, 1>(x, wp, ws, out, M, N, K, st);
-      case 2: return launch_col<RM, 2>(x, wp, ws, out, M, N, K, st);
-      case 3: return launch_col<RM, 3>(x, wp, ws, out, M, N, K, st);
-      case 4: return launch_col<RM, 4>(x, wp, ws, out, M, N, K, st);
-      case 5: return launch_col<RM, 5>(x, wp, ws, out, M, N, K, st);
-      case 6: return launch_col<RM, 6>(x, wp, ws, out, M, N, K, st);
-      case 7: return launch_col<RM, 7>(x, wp, ws, out, M, N, K, st);
-      default: return launch_col<RM, 8>(x, wp, ws, out, M, N, K, st);
+      case 1: return launch_col<RM, 1>(x, wp, ws, out, E, M, N, K, ex, st);
+      case 2: return launch_col<RM, 2>(x, wp, ws, out, E, M, N, K, ex, st);
+      case 3: return launch_col<RM, 3>(x, wp, ws, out, E, M, N, K, ex, st);
+      case 4: return launch_col<RM, 4>(x, wp, ws, out, E, M, N, K, ex, st);
+      case 5: return launch_col<RM, 5>(x, wp, ws, out, E, M, N, K, ex, st);
+      case 6: return launch_col<RM, 6>(x, wp, ws, out, E, M, N, K, ex, st);
+      case 7: return launch_col<RM, 7>(x, wp, ws, out, E, M, N, K, ex, st);
+      default: return launch_col<RM, 8>(x, wp, ws, out, E, M, N, K, ex, st);
     }
   }
   switch (G / 16) {
-    case 1: return launch_decode<RM, 1>(x, wp, ws, out, M, N, K, st);
-    case 2: return launch_decode<RM, 2>(x, wp, ws, out, M, N, K, st);
-    case 3: return launch_decode<RM, 3>(x, wp, ws, out, M, N, K, st);
-    case 4: return launch_decode<RM, 4>(x, wp, ws, out, M, N, K, st);
-    case 5: return launch_decode<RM, 5>(x, wp, ws, out, M, N, K, st);
-    case 6: return launch_decode<RM, 6>(x, wp, ws, out, M, N, K, st);
-    case 7: return launch_decode<RM, 7>(x, wp, ws, out, M, N, K, st);
-    default: return launch_decode<RM, 8>(x, wp, ws, out, M, N, K, st);
+    case 1: return launch_decode<RM, 1>(x, wp, ws, out, E, M, N, K, ex, st);
+    case 2: return launch_decode<RM, 2>(x, wp, ws, out, E, M, N, K, ex, st);
+    case 3: return launch_decode<RM, 3>(x, wp, ws, out, E, M, N, K, ex, st);
+    case 4: return launch_decode<RM, 4>(x, wp, ws, out, E, M, N, K, ex, st);
+    case 5: return launch_decode<RM, 5>(x, wp, ws, out, E, M, N, K, ex, st);
+    case 6: return launch_decode<RM, 6>(x, wp, ws, out, E, M, N, K, ex, st);
+    case 7: return launch_decode<RM, 7>(x, wp, ws, out, E, M, N, K, ex, st);
+    default: return launch_decode<RM, 8>(x, wp, ws, out, E, M, N, K, ex, st);
   }
 }
 
@@ -663,22 +690,27 @@ extern "C" int w4a16_smem_bytes(int M, int N, int G) {
   return (int)w4d_smem_bytes(rm, G);
 }
 
-// x (M, K) bf16, wp (K/2, N) int8, ws (K/G, N) f32, out (M, N) bf16, all
-// contiguous and 16-byte aligned; N % 64 == 0, K % G == 0, G % 16 == 0,
-// G <= 128 (contracts.validate_w4a16). Returns the cudaError of the launch.
-extern "C" int w4a16_gemm(const void* x, const void* wp, const void* ws, void* out, int M,
-                          int N, int K, int G, void* stream) {
+// x (E, M, K) bf16, wp (E, K/2, N) int8, ws (E, K/G, N) f32, out (E, M, N)
+// bf16 (E = 1: the 2-D operands), all 16-byte aligned, each expert's slice
+// contiguous and its start s_* elements after the previous one's (s_* = 0
+// for E = 1); N % 64 == 0, K % G == 0, G % 16 == 0, G <= 128
+// (contracts.validate_w4a16). One launch for all E experts. Returns the
+// cudaError of the launch.
+extern "C" int w4a16_gemm(const void* x, const void* wp, const void* ws, void* out, int E,
+                          int M, int N, int K, int G, long long s_x, long long s_wp,
+                          long long s_ws, long long s_out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (M <= 8) return launch_rows<8>(x, wp, ws, out, M, N, K, G, st);
-  if (M <= 16) return launch_rows<16>(x, wp, ws, out, M, N, K, G, st);
-  if (M <= W4D_M_MAX) return launch_rows<32>(x, wp, ws, out, M, N, K, G, st);
+  const W4Exp ex = {s_x, s_wp, s_ws, s_out};
+  if (M <= 8) return launch_rows<8>(x, wp, ws, out, E, M, N, K, G, ex, st);
+  if (M <= 16) return launch_rows<16>(x, wp, ws, out, E, M, N, K, G, ex, st);
+  if (M <= W4D_M_MAX) return launch_rows<32>(x, wp, ws, out, E, M, N, K, G, ex, st);
   const size_t smem = sizeof(W4Smem);
   cudaError_t e = cudaFuncSetAttribute(w4a16_gemm_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(N / W4_BN, (M + W4_BM - 1) / W4_BM);
+  dim3 grid(N / W4_BN, (M + W4_BM - 1) / W4_BM, E);
   w4a16_gemm_kernel<<<grid, W4_THREADS, smem, st>>>(
       (const __nv_bfloat16*)x, (const int8_t*)wp, (const float*)ws, (__nv_bfloat16*)out, M, N,
-      K, G);
+      K, G, ex);
   return (int)cudaGetLastError();
 }

@@ -8,8 +8,10 @@ packs (W4A16), fused packs from ``fuse_params``, or the simulation dicts of
 :class:`~repro_torch.models.dense.DenseModel`, unstacking the ``(L, ...)``
 layer axis into one module per layer. An MoE layer's experts stay stacked,
 E leading: bf16 ``(E, K, N)`` weights become one
-:class:`~repro_torch.models.common.ExpertLinear`, packs one expert-stacked
-pack. :func:`calib_result_from_numpy` and
+:class:`~repro_torch.models.common.ExpertLinear`, TwinQuant packs one
+expert-stacked pack and weight-only packs (``wp`` (E, K/2, N), ``ws`` (E,
+K/G, N)) one expert-stacked :class:`~repro_torch.models.common.W4A16Linear`.
+A ``vlm`` model's tree is its dense backbone's. :func:`calib_result_from_numpy` and
 :func:`gl_params_from_numpy` carry a calibration's result and a ``GLParams``
 across the same way. bf16 arrays are recognised by dtype name and moved bit for bit
 through a 16-bit integer view, so no bf16 numpy extension is needed here.

@@ -17,7 +17,9 @@
   in whole 64-column blocks, groups that are whole 16-deep MMA steps and fit
   its shared tile, and its shared memory against the budget for the regime
   M selects (:func:`w4a16_launch`; M is covered by a guarded grid, so any
-  M >= 1 launches).
+  M >= 1 launches). An expert-stacked weight-only pack (``wp`` (E, K/2, N),
+  ``ws`` (E, K/G, N)) is checked the same way and launches over a grid
+  axis of E.
 * :func:`check_paged_decode_args` / :func:`check_ragged_args` — shape
   consistency of a block-table attention call, run at its dispatch entry.
 * :func:`validate_paged_decode` / :func:`validate_ragged_attention` — what
@@ -78,6 +80,7 @@ __all__ = [
 SMEM_BUDGET_BYTES = 232_448  # 227 KB: the most one H100 block can use
 MAX_SEGMENTS = 4  # segment table size compiled into the kernels
 _GMAX = 128  # largest scale group the kernels' shared tiles hold
+_GRID_Z_MAX = 65535  # gridDim.z limit: the expert axis of a stacked launch
 ATT_QV_MAX = 32  # query vectors (rows x query heads of one KV head) an attention block
 ATT_PAGE_MAX = 64  # page rows an attention block folds as one tile
 _ATT_HD_MAX = 256  # head dims a lane set of 32 x 8 covers
@@ -139,7 +142,9 @@ def w4a16_launch(m: int, n: int, group: int) -> tuple[int, int]:
     rows, the block's 16 columns of packed rows and their scales, and two
     rounds of parked terms. Prefill: the 64 x 64
     tile's ``W4Smem`` (two x tiles, two groups of packed rows and scales, one
-    dequantized bf16 group)."""
+    dequantized bf16 group). The figures are a block's, whatever the expert
+    count: an expert-stacked launch runs the same blocks over E
+    (``gridDim.z``)."""
     if m <= W4A16_DECODE_M:
         rows = 8 if m <= 8 else 16 if m <= 16 else 32
         if n >= W4A16_DECODE_COL_N:  # 64 columns a block, one warp per 16, no K split
@@ -223,15 +228,19 @@ def validate_dual_gemm(m, n, k, r, group, rgroup, block_n, *, kind: str = "dual_
 
 
 def validate_w4a16(m: int, n: int, k: int, group: int, block_m: int, block_n: int,
-                   block_k: int, *, kind: str = "w4a16_gemm") -> None:
+                   block_k: int, *, experts: int = 1, kind: str = "w4a16_gemm") -> None:
     """Contract for the weight-only int4 GEMM launch on Hopper: the grid
     covers M with guarded tiles (any M >= 1, no padding), N in whole
-    ``block_n`` tiles, K in whole ``block_k`` steps of whole scale groups;
-    groups are whole 16-deep MMA steps and fit the kernel's shared tile; the
-    block's shared memory (decode or prefill regime, by M) fits the 227 KB
-    budget."""
+    ``block_n`` tiles, K in whole ``block_k`` steps of whole scale groups,
+    and ``experts`` (an expert-stacked pack's E; M is then an expert's rows)
+    in its z axis; groups are whole 16-deep MMA steps and fit the kernel's
+    shared tile; the block's shared memory (decode or prefill regime, by M)
+    fits the 227 KB budget."""
     if m < 1:
         raise ContractError(f"[{kind}] M={m} must be positive")
+    if not 1 <= experts <= _GRID_Z_MAX:
+        raise ContractError(f"[{kind}] E={experts} experts outside the grid's z range "
+                            f"[1, {_GRID_Z_MAX}]")
     hint = "the grid's tiles must cover the operand exactly"
     divisible(n, block_n, "N % block_n", kind=kind, hint=hint)
     divisible(k, block_k, "K % block_k", kind=kind, hint=hint)
@@ -329,10 +338,12 @@ def check_twinquant_group_pack(gw, k: int, *, kind: str = "dual_fused") -> None:
 
 
 def check_w4a16_pack(wp, ws, k: int, group: int, *, kind: str = "w4a16") -> None:
-    """Consistency contract for a weight-only (packed, scales) pair."""
+    """Consistency contract for a weight-only (packed, scales) pair: 2-D,
+    or expert-stacked (3-D with one leading E)."""
     problems = []
-    if wp.ndim != 2 or ws.ndim != 2:
-        problems.append(f"expected 2-D (wp, ws), got {tuple(wp.shape)}, {tuple(ws.shape)}")
+    if wp.ndim not in (2, 3) or ws.ndim != wp.ndim or wp.shape[:-2] != ws.shape[:-2]:
+        problems.append(f"expected 2-D (wp, ws), or 3-D with one leading expert count, got "
+                        f"{tuple(wp.shape)}, {tuple(ws.shape)}")
     elif wp.dtype != torch.int8:
         problems.append(f"wp: expected packed int8 nibbles, got {wp.dtype}")
     elif not ws.dtype.is_floating_point:

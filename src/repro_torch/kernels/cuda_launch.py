@@ -5,8 +5,9 @@ scratch (one allocation a call).
 
 An expert-stacked pack (every tensor with a leading E) launches once for
 all experts: the C entry takes E and the per-expert element strides of x,
-each pack tensor, the scratch and out (:func:`expert_strides`), and every
-kernel inside it runs ``gridDim.z = E``.
+each pack tensor, the scratch and out (:func:`expert_strides`; the
+weight-only ``w4a16_gemm`` passes its four itself), and every kernel inside
+it runs ``gridDim.z = E``.
 
 Every wrapper counts its own launches here (``launch_counts()``), bumped
 exactly where it calls its CUDA entry and nowhere else, so a run can show

@@ -305,14 +305,15 @@ def fused_linear(x: torch.Tensor,
     )
 
 
-def classify_w4a16(m: int, n: int, k: int, group: int) -> Route:
-    """Route a weight-only call: the kernel (path ``prefill``, every M) or,
-    where its contract refuses the shape, the plain version."""
+def classify_w4a16(m: int, n: int, k: int, group: int, *, experts: int = 1) -> Route:
+    """Route a weight-only call (``experts`` > 1: a stacked launch, M an
+    expert's rows): the kernel (path ``prefill``, every M) or, where its
+    contract refuses the shape, the plain version."""
     if k % group != 0 or group % 2 != 0:
         return Route(PATH_REF, None, f"K={k} not tileable by group={group}", "k_group")
     blocks = w4a16_blocks(group)
     try:
-        validate_w4a16(m, n, k, group, *blocks)
+        validate_w4a16(m, n, k, group, *blocks, experts=experts)
     except ContractError as e:
         return Route(PATH_REF, None, str(e), "prefill_untileable")
     return Route(PATH_PREFILL, blocks, "weight-only kernel schedule")
@@ -320,17 +321,19 @@ def classify_w4a16(m: int, n: int, k: int, group: int) -> Route:
 
 def w4a16_linear(x: torch.Tensor, wp: torch.Tensor, ws: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *, group: int = 128) -> torch.Tensor:
-    """Weight-only quantized linear: (..., K) -> (..., N) bf16, routed."""
+    """Weight-only quantized linear: (..., K) -> (..., N) bf16, routed; an
+    expert-stacked pack (``wp`` (E, K/2, N)) takes (E, Cp, K) -> (E, Cp, N)
+    in one launch, routed on Cp."""
     k = x.shape[-1]
     n = wp.shape[-1]
     check_w4a16_pack(wp, ws, k, group)
     batch_shape = x.shape[:-1]
-    m = math.prod(batch_shape)
-    x2 = x.reshape(m, k)
+    experts = wp.shape[0] if wp.ndim == 3 else None
+    m, x2 = _rows("w4a16", x, experts)
     if _force_ref:
         route = Route(PATH_REF, None, "set_force_ref(True)", "forced")
     else:
-        route = classify_w4a16(m, n, k, group)
+        route = classify_w4a16(m, n, k, group, experts=experts or 1)
     _require_cpu_for_ref("w4a16", route, x)
     _record("w4a16", route)
     if route.path == PATH_REF:

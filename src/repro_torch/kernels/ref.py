@@ -389,7 +389,11 @@ def dual_gemm_ref(x: torch.Tensor, w: TwinQuantWeights) -> torch.Tensor:
 
 def w4a16_gemm_f32(x: torch.Tensor, wp: torch.Tensor, ws: torch.Tensor,
                    group: int = 128) -> torch.Tensor:
-    """:func:`w4a16_gemm_ref` before its final bf16 cast: (M, N) float32."""
+    """:func:`w4a16_gemm_ref` before its final bf16 cast: (M, N) float32, or
+    (E, M, N) for an expert-stacked pack."""
+    if wp.ndim == 3:  # each expert alone, stacked (the reference's vmap)
+        return torch.stack([w4a16_gemm_f32(x[e], wp[e], ws[e], group)
+                            for e in range(wp.shape[0])])
     wq = unpack_rows_groupsplit(wp, group)
     k, n = wq.shape
     xb = x.to(torch.bfloat16)
@@ -407,5 +411,7 @@ def w4a16_gemm_ref(x: torch.Tensor, wp: torch.Tensor, ws: torch.Tensor,
     """Weight-only quantized GEMM: x (M, K) bf16, wp (K/2, N) packed int4,
     ws (K/G, N) f32 -> (M, N) bf16. Weights dequantize to bf16 as
     ``bf16(f32(q) * s)``; each group's dot is added to an f32 accumulator in
-    ascending group order; one bf16 cast at the end."""
+    ascending group order; one bf16 cast at the end. An expert-stacked pack
+    (``wp`` (E, K/2, N), ``ws`` (E, K/G, N)) takes x (E, M, K) -> (E, M,
+    N), each expert computed alone."""
     return w4a16_gemm_f32(x, wp, ws, group).to(torch.bfloat16)

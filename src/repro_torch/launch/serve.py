@@ -172,7 +172,11 @@ class Request:
     never fires a token again); a raising callback is detached with a
     warning. ``priority`` orders preemption victims (lower goes first);
     ``deadline_steps`` / ``deadline_s`` bound the request's life in engine
-    steps / seconds from ``submit()``."""
+    steps / seconds from ``submit()``. ``frontend`` holds the family's
+    prefill extras: for ``vlm``, ``{"patches": (1, n_patches, D)}``, the
+    stub frontend's patch embeddings (on the engine's device), which take
+    cache rows before the prompt and keep the request out of the prefix
+    cache."""
 
     prompt: Any  # (S,) integer token ids
     max_new: int = 16
@@ -189,6 +193,7 @@ class Request:
     priority: int = 0
     deadline_steps: Optional[int] = None
     deadline_s: Optional[float] = None
+    frontend: dict = dataclasses.field(default_factory=dict, repr=False)  # vlm patches
     status: str = RequestState.NEW
     error: Optional[str] = None
     error_detail: Optional[str] = None
@@ -404,7 +409,8 @@ def _ngram_draft(hist: list, k: int) -> list:
 
 
 # families whose decode state is fully page-addressable (caches + pos only),
-# so a prompt prefix maps onto shared pages with no residual per-slot state
+# so a prompt prefix maps onto shared pages with no residual per-slot state;
+# not vlm: token hashes cannot identify a request's patches
 _PREFIX_FAMILIES = ("dense", "moe", "mla_moe")
 # families whose decode_step takes (B, sq) rows through the paged kernel
 _SPEC_FAMILIES = ("dense", "moe")
@@ -465,6 +471,9 @@ class ContinuousBatchingEngine:
         self.max_len = max_len
         self.on_truncation = on_truncation
         self.preemption = bool(preemption)
+        # a vlm prefill prepends n_patches rows to the cache: capacity and
+        # page math count them with the prompt
+        self._extra_rows = cfg.n_patches if cfg.family == "vlm" else 0
         self._layout = C.paged_layout(self.model.init_decode_state, cfg, max_len)
         self._pool_keys = tuple(k for k, (_, seq) in self._layout.items() if seq is not None)
         self._slot_keys = tuple(k for k in self._layout if k not in self._pool_keys)
@@ -594,16 +603,18 @@ class ContinuousBatchingEngine:
                 f"prompt contains token ids outside the model vocab [0, {self.cfg.vocab}): "
                 f"{bad} — rejected at submit()"
             )
-        if not 1 <= n < self.max_len:
-            raise ValueError(f"prompt length {n} must leave room in max_len={self.max_len}")
-        if n + req.max_new > self.max_len:
-            msg = (f"request will truncate: prompt {n} + max_new {req.max_new} > max_len "
-                   f"{self.max_len}")
+        rows = n + self._extra_rows  # cache rows the prompt takes
+        if not n or rows >= self.max_len:
+            raise ValueError(f"prompt length {n} (+{self._extra_rows} frontend rows) must "
+                             f"leave room in max_len={self.max_len}")
+        if rows + req.max_new > self.max_len:
+            msg = (f"request will truncate: prompt rows {rows} + max_new {req.max_new} > "
+                   f"max_len {self.max_len}")
             if self.on_truncation == "reject":
                 raise ValueError(msg)
             warnings.warn(msg, stacklevel=2)
         if self.allocator is not None:
-            worst = -(-min(n + req.max_new, self.max_len) // self.page_size)
+            worst = -(-min(rows + req.max_new, self.max_len) // self.page_size)
             if worst > self.n_pages:
                 raise ValueError(f"request needs up to {worst} pages but the pool only has "
                                  f"{self.n_pages}; it could never be admitted")
@@ -633,12 +644,14 @@ class ContinuousBatchingEngine:
         return max(n, min(1 << max(3, (n - 1).bit_length()), cap))
 
     def _run_prefill(self, tokens: np.ndarray, off: int = 0,
-                     shared_pages: Optional[list[int]] = None):
+                     shared_pages: Optional[list[int]] = None, frontend=None):
         """One batched prefill of ``tokens`` (the prompt, or the suffix after
-        ``off`` prefix-cached tokens), bucket-padded. Returns (last_logits np
-        (V,), sub_state, bucket)."""
+        ``off`` prefix-cached tokens), bucket-padded, with the request's
+        ``frontend`` extras (patch rows before the prompt). Returns
+        (last_logits np (V,), sub_state, bucket)."""
+        frontend = frontend or {}
         s_real = len(tokens)
-        bucket = self._bucket(s_real, self.max_len - off)
+        bucket = self._bucket(s_real, self.max_len - off - self._extra_rows)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :s_real] = tokens
         prefix = None
@@ -647,12 +660,12 @@ class ContinuousBatchingEngine:
             prefix = {k: self.state[k][:, ids].reshape(self.state[k].shape[0], 1,
                                                        off, *self.state[k].shape[3:])
                       for k in self._pool_keys}
-        key = (bucket, off)
+        key = (bucket, off, tuple(sorted(frontend)))
         self._prefill_shapes[key] = self._prefill_shapes.get(key, 0) + 1
         t0 = time.monotonic()
         logits, sub = self.model.prefill(
             self.params, self.cfg, upload(toks, self.device), self._sub_template,
-            length=upload(np.array([s_real], np.int64), self.device), prefix=prefix,
+            length=upload(np.array([s_real], np.int64), self.device), prefix=prefix, **frontend,
         )
         with sync_point(self.device):
             last = logits[0, -1].float().cpu().numpy()  # sync-point
@@ -709,10 +722,10 @@ class ContinuousBatchingEngine:
         one, + the quota left, capped at max_len) in pages, prefix-cache
         hits first. Returns (tokens matched, shared pages, own pages), or
         None when the pool cannot hold it."""
-        need = min(len(prompt) + req.max_new - len(req.out), self.max_len)
+        need = min(len(prompt) + self._extra_rows + req.max_new - len(req.out), self.max_len)
         n_res = -(-need // self.page_size)
         m_tok, shared = 0, []
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and not req.frontend:
             self.stats["prefix_lookups"] += 1
             m_tok, shared = self.prefix_cache.match(prompt)
             if shared and bucket_prefix:
@@ -758,7 +771,7 @@ class ContinuousBatchingEngine:
         if self.allocator is None:
             self._set_status(req, RequestState.PREFILL)
             try:
-                last, sub, _ = self._run_prefill(prompt)
+                last, sub, _ = self._run_prefill(prompt, frontend=req.frontend)
                 if C.nonfinite_rows(last[None, :], self.cfg.vocab):
                     raise _SlotFault("nan_logits", "non-finite prefill logits")
                 self._insert(sub, i)
@@ -773,13 +786,14 @@ class ContinuousBatchingEngine:
             self._set_status(req, RequestState.PREFILL)
             try:
                 last, sub, bucket = self._run_prefill(prompt[m_tok:], off=m_tok,
-                                                      shared_pages=shared)
+                                                      shared_pages=shared, frontend=req.frontend)
                 if C.nonfinite_rows(last[None, :], self.cfg.vocab):
                     raise _SlotFault("nan_logits", "non-finite prefill logits")
                 self._insert(sub, i)
-                self._write_pages(sub, pages[:min(-(-bucket // self.page_size), len(pages))])
+                n_write = -(-(bucket + self._extra_rows) // self.page_size)
+                self._write_pages(sub, pages[:min(n_write, len(pages))])
                 self._map_row(i, shared + pages)
-                if self.prefix_cache is not None:
+                if self.prefix_cache is not None and not req.frontend:
                     self.prefix_cache.register(prompt, shared + pages)
             except Exception as e:  # noqa: BLE001 — a faulty request fails alone
                 self._map_row(i, [])
@@ -864,7 +878,7 @@ class ContinuousBatchingEngine:
         any exit, so the count holds there too."""
         if self.ragged:
             return int(self._pos_host[i])
-        return len(req._prompt_host) + len(req.out)
+        return len(req._prompt_host) + self._extra_rows + len(req.out)
 
     def cancel(self, request) -> bool:
         """Cancel a queued or live request, given by ``request_id`` or as the
@@ -919,7 +933,7 @@ class ContinuousBatchingEngine:
         request resumes on its uninterrupted timeline: the effective prompt
         is that timeline."""
         committed = self._committed_rows(i, req)
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and not req.frontend:
             self.prefix_cache.register(self._effective_prompt(req)[:committed],
                                        [int(p) for p in self._bt[i] if p >= 0])
         self._set_status(req, RequestState.PREEMPTED)
@@ -1233,7 +1247,7 @@ class ContinuousBatchingEngine:
                 req._last_logits = last[i]
                 self._set_status(req, RequestState.DECODE)
                 # the prompt's pages are whole only once its last chunk lands
-                if self.prefix_cache is not None:
+                if self.prefix_cache is not None and not req.frontend:
                     self.prefix_cache.register(req._prompt,
                                                [int(p) for p in self._bt[i] if p >= 0])
         self._admit()
@@ -1308,8 +1322,9 @@ class ContinuousBatchingEngine:
     # -- introspection ------------------------------------------------------
 
     def compile_stats(self) -> dict:
-        """Launch-shape inventory: every distinct (bucket, prefix offset) is
-        one prefill shape, O(log max_len) under any traffic; the ragged step
+        """Launch-shape inventory: every distinct (bucket, prefix offset,
+        frontend) is one prefill shape, O(log max_len) per (offset, frontend)
+        variant under any traffic; the ragged step
         has one (token_budget) shape, the speculative decode one (batch,
         spec_k) shape. ``decode_graphs`` / ``spec_graphs`` /
         ``ragged_graphs`` count the mode's step-graph captures (one per
@@ -1322,7 +1337,7 @@ class ContinuousBatchingEngine:
             "prefill_traces": len(self._prefill_shapes),
             "prefill_calls": sum(self._prefill_shapes.values()),
             "prefill_buckets": sorted({k[0] for k in self._prefill_shapes}),
-            "prefill_variants": len({k[1] for k in self._prefill_shapes}),
+            "prefill_variants": len({k[1:] for k in self._prefill_shapes}),
             "decode_traces": 1 if (self.stats["decode_steps"] and not self.ragged
                                    and not self.speculation) else 0,
             "ragged_traces": len(self._ragged_shapes),

@@ -135,7 +135,10 @@ class W4A16Linear(nn.Module):
     """A weight-only int4 pack (buffers ``wp`` (K/2, N) int8, ``ws`` (K/G, N)
     f32 and an optional bias ``b``), applied through
     ``dispatch.w4a16_linear``. The scale group comes from the shapes, as in
-    the reference: ``group = 2 * wp.shape[-2] / ws.shape[-2]``."""
+    the reference: ``group = 2 * wp.shape[-2] / ws.shape[-2]``. An MoE
+    layer's experts are one expert-stacked pack (``wp`` (E, K/2, N), ``ws``
+    (E, K/G, N)): x (E, Cp, K) -> (E, Cp, N) in one launch. W4A16 siblings
+    are never fused (``linear_group`` runs one launch each)."""
 
     def __init__(self, wp: torch.Tensor, ws: torch.Tensor, b: Optional[torch.Tensor] = None):
         super().__init__()

@@ -1,5 +1,8 @@
-"""Dense decoder-only transformer (llama3 / qwen3): modules, init and the
-serving entry points.
+"""Dense decoder-only transformer (llama3, qwen3, qwen2, stablelm, phi4,
+internlm2; and the ``vlm`` family's backbone, internvl2): modules, init and
+the serving entry points. A VLM request prepends its frontend's patch
+embeddings to the prompt (``patches`` in :func:`forward` and
+:func:`prefill`, the reference's ``_embed``).
 
 The reference scan-stacks its layers as ``(L, ...)`` arrays; here each
 decoder layer is a :class:`DenseLayer` in an ``nn.ModuleList``, with the
@@ -20,7 +23,7 @@ from repro_torch.kernels.paged_attention import pool_rows
 from repro_torch.models import common as C
 
 __all__ = ["DenseLayer", "DenseModel", "init_params", "forward", "forward_with_taps",
-           "init_decode_state", "prefill", "decode_step", "ragged_step"]
+           "init_decode_state", "prefill", "decode_step", "ragged_step", "count_params"]
 
 
 class DenseLayer(nn.Module):
@@ -75,6 +78,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     return DenseModel(embed, layers, ones(), head)
 
 
+def _embed(params: DenseModel, tokens: torch.Tensor, patches=None) -> torch.Tensor:
+    """Token embeddings (B, S, D), after the patch rows (B, P, D) if given."""
+    x = C.embed_lookup(params.embed, tokens)
+    if patches is not None:  # VLM: prepend the stub frontend's patch embeddings
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    return x
+
+
 def _norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return C.per_draft_row(lambda y: C.rmsnorm(y, w, cfg.norm_eps), x)
 
@@ -96,9 +107,11 @@ def _block(lp: DenseLayer, x: torch.Tensor, cfg: ModelConfig, positions: torch.T
 
 
 @torch.no_grad()
-def forward(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab), causal."""
-    x = C.embed_lookup(params.embed, tokens)
+def forward(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor,
+            patches=None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S[, +P], padded_vocab), causal; ``patches``
+    (B, P, D) come first."""
+    x = _embed(params, tokens, patches)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
     for lp in params.layers:
@@ -135,19 +148,23 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=C.DTYPE,
 
 @torch.no_grad()
 def prefill(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor, state: dict,
-            length=None, prefix=None):
+            patches=None, length=None, prefix=None):
     """Run the prompt, filling a copy of the cache. Returns (last_logits
     (B, 1, V), state). ``length`` (B,) marks the real prompt length when
     ``tokens`` is padded to a bucket: attention is causal, so the pad tail
     cannot perturb real positions, and logits / ``pos`` come from position
     ``length - 1``. ``state`` itself is left unchanged.
 
+    ``patches`` (B, P, D) (the ``vlm`` family) are prepended to the prompt:
+    the cache's first P rows hold them, and the real length seen through
+    them is ``length + P`` (the reference's ``eff``).
+
     ``prefix`` = {"k": (L, B, m, KV, hd), "v": ...} is an already-cached
     post-RoPE prompt prefix (the engine's prefix cache, gathered from shared
     pages): ``tokens`` then holds only the suffix, every suffix query
     attends [prefix; causal suffix], positions start at m, the returned
     cache rows hold the suffix only (from row 0) and ``pos`` counts m too."""
-    x = C.embed_lookup(params.embed, tokens)
+    x = _embed(params, tokens, patches)
     b, s, _ = x.shape
     off = 0 if prefix is None else prefix["k"].shape[2]
     positions = off + torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
@@ -159,9 +176,12 @@ def prefill(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor, state: d
                          prefix_kv=None if prefix is None else (prefix["k"][i], prefix["v"][i]))
         k_cache[i, :, :s] = k.to(k_cache.dtype)
         v_cache[i, :, :s] = v.to(v_cache.dtype)
+    # the patch rows prepended to the prompt are all real
+    eff = None if length is None else (
+        torch.as_tensor(length, device=x.device).reshape(-1) + (s - tokens.shape[1]))
     new_state = {"k": k_cache, "v": v_cache,
-                 "pos": off + C.prefill_pos(length, b, s, x.device)}
-    return _unembed(params, cfg, C.select_at_length(x, length)), new_state
+                 "pos": off + C.prefill_pos(eff, b, s, x.device)}
+    return _unembed(params, cfg, C.select_at_length(x, eff)), new_state
 
 
 @torch.no_grad()
@@ -242,3 +262,20 @@ def ragged_step(params: DenseModel, cfg: ModelConfig, state: dict, tokens: torch
     counts = (slot.long()[None, :] == torch.arange(b, device=x.device)[:, None]).sum(dim=1)
     state["pos"].copy_(ctx.long() + counts)
     return _unembed(params, cfg, x[0][logit_idx.long()][None])[0], state
+
+
+# ---------------------------------------------------------------------------
+# parameter counting
+# ---------------------------------------------------------------------------
+
+
+def count_params(cfg: ModelConfig) -> tuple[int, int]:
+    """(total, active) parameters of ``cfg``, as the reference counts them
+    (the embedding once more for an untied head; equal for a dense model)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    attn = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + cfg.n_heads * hd * d
+    mlp = 3 * d * f
+    per_layer = attn + mlp + 2 * d
+    emb = cfg.padded_vocab * d * (1 if cfg.tie_embeddings else 2)
+    total = cfg.n_layers * per_layer + emb + d
+    return total, total

@@ -5,10 +5,11 @@ path waits for the multi-GPU slice).
 
 An MoE block is a :class:`MoEFFN`: the f32 router (D, E), the experts as
 one expert-stacked module per linear under ``experts`` (bf16
-:class:`~repro_torch.models.common.ExpertLinear` or stacked TwinQuant packs,
-``gate``/``up`` fused into ``gate_up`` by ``fuse_params``) and an optional
-shared-expert MLP. With packs, each expert linear is ONE launch over all E
-experts (the reference's vmap over its ``pallas_call``).
+:class:`~repro_torch.models.common.ExpertLinear`, stacked TwinQuant packs
+with ``gate``/``up`` fused into ``gate_up`` by ``fuse_params``, or stacked
+weight-only packs, never fused: ``gate``, ``up``, ``down`` one launch each)
+and an optional shared-expert MLP. With packs, each expert linear is ONE
+launch over all E experts (the reference's vmap over its ``pallas_call``).
 
 Everything on the step path keeps fixed shapes and makes no host sync, so a
 decode, verify or ragged step captures as one CUDA graph: the capacity is a

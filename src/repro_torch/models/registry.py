@@ -3,12 +3,17 @@
     init_params(cfg, seed, device) -> params
     forward(params, cfg, tokens) -> logits (dense) | (logits, aux) (moe)
     init_decode_state(cfg, batch, max_len, device=...) -> state
-    prefill(params, cfg, tokens, state, length=None) -> (logits, state)
+    prefill(params, cfg, tokens, state[, patches], length=None, prefix=None)
+        -> (logits, state)
     decode_step(params, cfg, state, tokens) -> (logits, state)
     ragged_step(params, cfg, state, tokens, slot, pos, ctx, logit_idx)
         -> (logits, state)
+    count_params(cfg) -> (total, active)
 
-The ``dense`` (llama3, qwen3) and ``moe`` (OLMoE) families are ported.
+The ``dense`` (llama3, qwen3, qwen2, stablelm, phi4, internlm2), ``moe``
+(OLMoE) and ``vlm`` (internvl2: the dense backbone behind a patch frontend)
+families are ported. ``vlm`` has no ``ragged_step``, as in the reference:
+the engine serves it bucketed or paged.
 """
 
 from __future__ import annotations
@@ -27,6 +32,19 @@ _DENSE = SimpleNamespace(
     prefill=dense.prefill,
     decode_step=dense.decode_step,
     ragged_step=dense.ragged_step,
+    count_params=dense.count_params,
+)
+
+
+# dense's entry points (its prefill takes the patches) without a
+# ragged_step, as the reference's
+_VLM = SimpleNamespace(
+    init_params=dense.init_params,
+    forward=dense.forward,
+    init_decode_state=dense.init_decode_state,
+    prefill=dense.prefill,
+    decode_step=dense.decode_step,
+    count_params=dense.count_params,
 )
 
 
@@ -37,9 +55,10 @@ _MOE = SimpleNamespace(
     prefill=olmoe.prefill,
     decode_step=olmoe.decode_step,
     ragged_step=olmoe.ragged_step,
+    count_params=olmoe.count_params,
 )
 
-_FAMILIES = {"dense": _DENSE, "moe": _MOE}
+_FAMILIES = {"dense": _DENSE, "vlm": _VLM, "moe": _MOE}
 
 
 def get_model(cfg: ModelConfig) -> SimpleNamespace:

@@ -291,8 +291,13 @@ def test_quantize_params_packs_experts_stacked(packed):
 
 
 def test_w4a16_expert_packs_are_not_ported_yet(packed):
-    with pytest.raises(NotImplementedError, match="expert axis"):
-        quantize_params(packed[0], TQC, QuantSpec("w4a16"))
+    """Once refused (no expert axis on ``w4a16_gemm``); now each expert
+    linear packs into one expert-stacked weight-only pack, E leading
+    (``tests/test_torch_moe_w4a16.py`` holds them to the reference)."""
+    ex = quantize_params(packed[0], TQC, QuantSpec("w4a16")).layers[0].moe.experts
+    E, d, f = QKW["n_experts"], QKW["d_model"], QKW["d_ff_expert"]
+    assert isinstance(ex["gate"], C.W4A16Linear) and ex["gate"].wp.shape == (E, d // 2, f)
+    assert ex["down"].wp.shape == (E, f // 2, d) and ex["down"].ws.shape == (E, f // 128, d)
 
 
 def _stacked_pack(e, k, n, r, seed):
