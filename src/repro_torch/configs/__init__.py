@@ -2,7 +2,8 @@
 ``QuantSpec`` and the registry, restricted to the families the port serves
 (``dense``: the paper's two evaluation models ``llama3-8b`` and
 ``qwen3-8b``, and ``qwen2-1.5b``, ``stablelm-12b``, ``phi4-mini-3.8b``,
-``internlm2-1.8b``; ``moe``: ``olmoe-1b-7b``; ``vlm``: ``internvl2-2b``).
+``internlm2-1.8b``; ``moe``: ``olmoe-1b-7b``; ``mla_moe``:
+``deepseek-v3-671b``; ``vlm``: ``internvl2-2b``).
 
 ``get_config(name)`` returns the full-scale config, ``get_config(name,
 reduced=True)`` the small smoke-test reduction (same code paths).
@@ -35,10 +36,11 @@ class QuantSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Decoder-only transformer configuration (dense or MoE FFN)."""
+    """Decoder-only transformer configuration (dense or MoE FFN; GQA or
+    MLA attention)."""
 
     name: str = ""
-    family: str = "dense"  # dense | moe | vlm
+    family: str = "dense"  # dense | moe | mla_moe | vlm
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -56,8 +58,16 @@ class ModelConfig:
     top_k: int = 0
     n_shared_experts: int = 0
     d_ff_expert: int = 0
+    first_k_dense: int = 0  # leading dense layers (DeepSeek-V3 style)
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.001
+    # MLA (DeepSeek-V3; family "mla_moe" selects it)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    mtp: bool = False  # multi-token-prediction aux layer+head
     # VLM: patch embeddings the frontend stub prepends to the prompt
     n_patches: int = 0
     quant: QuantSpec = QuantSpec()
@@ -75,13 +85,13 @@ _REGISTRY: dict[str, ModelConfig] = {}
 _REDUCED: dict[str, ModelConfig] = {}
 
 # the reference's ARCH_IDS in its order, less the families not ported yet
-ARCH_IDS = ["olmoe-1b-7b", "qwen2-1.5b", "stablelm-12b", "phi4-mini-3.8b", "internlm2-1.8b",
-            "internvl2-2b", "llama3-8b", "qwen3-8b"]
+ARCH_IDS = ["olmoe-1b-7b", "deepseek-v3-671b", "qwen2-1.5b", "stablelm-12b", "phi4-mini-3.8b",
+            "internlm2-1.8b", "internvl2-2b", "llama3-8b", "qwen3-8b"]
 
 _MODULES = {"llama3-8b": "llama3_8b", "qwen3-8b": "qwen3_8b", "qwen2-1.5b": "qwen2_1_5b",
             "stablelm-12b": "stablelm_12b", "phi4-mini-3.8b": "phi4_mini_3_8b",
             "internlm2-1.8b": "internlm2_1_8b", "olmoe-1b-7b": "olmoe_1b_7b",
-            "internvl2-2b": "internvl2_2b"}
+            "internvl2-2b": "internvl2_2b", "deepseek-v3-671b": "deepseek_v3_671b"}
 
 
 def register(full: ModelConfig, reduced: ModelConfig) -> None:

@@ -8,9 +8,10 @@
   the reference vmaps over its stacked layer axis. An MoE layer's
   :class:`~repro_torch.models.common.ExpertLinear` (E, K, N) becomes one
   expert-stacked pack, as the reference's vmap over the stacked expert
-  axis: one batched SVD over the E experts (W4A4 / W4A8), or the group-wise
-  RTN of every expert at once (W4A16; elementwise and a max per group, so
-  each expert's slice is its pack made alone, bit for bit).
+  axis: batched SVDs over chunks of experts (W4A4 / W4A8; ``EXPERT_CHUNK_
+  BYTES`` of f32 each, so DeepSeek-V3's 256 experts fit beside the model),
+  or the group-wise RTN of a chunk at once (W4A16; elementwise and a max
+  per group, so each expert's slice is its pack made alone, bit for bit).
 * :func:`fuse_params` merges sibling packs that consume the same activation
   (q/k/v -> ``qkv``, gate/up -> ``gate_up``) into one
   :class:`~repro_torch.models.common.TwinQuantLinearGroup`, which
@@ -32,8 +33,10 @@
   comparisons of the paper's ablation run on this path.
 
 The rewriters return a new model and leave their input untouched; tensors
-that do not change are shared, not copied. Exclusions (kept bf16):
-embeddings and the lm head.
+that do not change are shared, not copied. Exclusions (kept bf16, the
+reference's ``EXCLUDE``): embeddings, the lm head, MoE routers, MLA's
+``wkv_b`` (an einsum operand of the absorbed decode) and DeepSeek's
+``mtp/proj``.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ EXCLUDE = re.compile(r"(embed|head|router|wkv_b|mtp/proj)")
 FUSE_GROUPS = (
     (("q", "k", "v"), "qkv", ("attn",)),
     (("gate", "up"), "gate_up", None),
+    (("wq_a", "wkv_a"), "wqkv_a", None),
 )
 
 
@@ -89,25 +93,64 @@ def _eligible(path_str: str, w: torch.Tensor) -> bool:
     return k % 256 == 0 and n % 2 == 0 and k >= 256
 
 
+# f32 bytes of one chunk of an expert stack packed at once: DeepSeek-V3's
+# (256, 7168, 2048) stack is 15 GB in f32, and its SVD's u and the residual
+# as much again, so the experts are packed a chunk at a time (36 of them)
+EXPERT_CHUNK_BYTES = 2 << 30
+
+
+def _expert_chunks(w: torch.Tensor):
+    """``w`` (K, N) whole, or an expert stack (E, K, N) in slices of
+    ``EXPERT_CHUNK_BYTES`` of f32, each in f32."""
+    if w.ndim == 2:
+        yield w.to(torch.float32)
+        return
+    c = max(1, EXPERT_CHUNK_BYTES // (w.shape[-2] * w.shape[-1] * 4))
+    for i in range(0, w.shape[0], c):
+        yield w[i:i + c].to(torch.float32)
+
+
+def _cat(ts: list) -> torch.Tensor:
+    return ts[0] if len(ts) == 1 else torch.cat(ts)
+
+
+def _cat_experts(parts: list):
+    """Chunk packs (a dataclass of tensors) concatenated along the expert
+    axis; a single part as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    tensors = {f.name: _cat([getattr(p, f.name) for p in parts])
+               for f in dataclasses.fields(parts[0])
+               if isinstance(getattr(parts[0], f.name), torch.Tensor)}
+    return dataclasses.replace(parts[0], **tensors)
+
+
 def _pack_one(lin, spec: QuantSpec) -> TwinQuantLinear:
     """bf16 linear -> TwinQuant pack (SVD split, sqrt-balanced); an
-    :class:`ExpertLinear` -> an expert-stacked pack."""
+    :class:`ExpertLinear` -> an expert-stacked pack, a chunk of experts at
+    a time (one batched SVD each; every expert's pack is the one it gets
+    in a single batch)."""
     k, n = lin.w.shape[-2:]
     r = min(spec.rank, k // 2, n)
     r = max(2, r // 2 * 2)
-    U, V, R = svd_decompose(lin.w.to(torch.float32), r)
-    tq = pack_twinquant_weights(U, V, R, a_bits=spec.a_bits, group=min(spec.group_size, k))
+    tq = _cat_experts([
+        pack_twinquant_weights(*svd_decompose(w, r), a_bits=spec.a_bits,
+                               group=min(spec.group_size, k))
+        for w in _expert_chunks(lin.w)])
     return TwinQuantLinear(tq, lin.b)
 
 
 def _pack_one_w4a16(lin, spec: QuantSpec) -> W4A16Linear:
     """bf16 linear -> weight-only pack (group-wise RTN int4, group-split); an
     :class:`ExpertLinear` (E, K, N) -> an expert-stacked pack (``wp`` (E,
-    K/2, N), ``ws`` (E, K/G, N))."""
-    k = lin.w.shape[-2]
-    g = min(spec.group_size, k)
-    wq, ws = quantize_rows_ref(lin.w.to(torch.float32), g, 4)
-    return W4A16Linear(pack_rows_groupsplit(wq, g), ws, lin.b)
+    K/2, N), ``ws`` (E, K/G, N)), a chunk of experts at a time."""
+    g = min(spec.group_size, lin.w.shape[-2])
+    wps, wss = [], []
+    for w in _expert_chunks(lin.w):
+        wq, ws = quantize_rows_ref(w, g, 4)
+        wps.append(pack_rows_groupsplit(wq, g))
+        wss.append(ws)
+    return W4A16Linear(_cat(wps), _cat(wss), lin.b)
 
 
 def _rebuild(mod: nn.Module, children: dict) -> nn.Module:
@@ -168,8 +211,9 @@ def fuse_linear_packs(packs: list) -> TwinQuantLinearGroup:
 @torch.no_grad()
 def fuse_params(params: nn.Module) -> nn.Module:
     """Merge sibling quantized packs that share an input into fused groups:
-    ``attn/{q,k,v}`` -> ``attn/qkv`` and ``{gate,up}`` -> ``gate_up`` under
-    any parent (``mlp``, an MoE layer's stacked ``experts``). Non-pack
+    ``attn/{q,k,v}`` -> ``attn/qkv``, ``{gate,up}`` -> ``gate_up`` under
+    any parent (``mlp``, an MoE layer's stacked ``experts``) and MLA's
+    ``{wq_a,wkv_a}`` -> ``wqkv_a``. Non-pack
     siblings (bf16, partially quantized groups) stay as they are."""
 
     def visit(mod: nn.Module, key: str) -> nn.Module:

@@ -1,7 +1,8 @@
 """Bridge from the reference's parameter trees to the port's modules.
 
-:func:`params_from_numpy` takes the JAX package's dense or OLMoE params as
-a nested dict of numpy arrays (``jax.tree.map(np.asarray, params)``) — bf16
+:func:`params_from_numpy` takes the JAX package's dense, OLMoE or DeepSeek
+params as a nested dict of numpy arrays (``jax.tree.map(np.asarray,
+params)``) — bf16
 weights, TwinQuant packs from ``quantize_params`` (W4A4 / W4A8), weight-only
 packs (W4A16), fused packs from ``fuse_params``, or the simulation dicts of
 ``simulate_quantize_params`` — and builds the port's
@@ -11,7 +12,10 @@ E leading: bf16 ``(E, K, N)`` weights become one
 :class:`~repro_torch.models.common.ExpertLinear`, TwinQuant packs one
 expert-stacked pack and weight-only packs (``wp`` (E, K/2, N), ``ws`` (E,
 K/G, N)) one expert-stacked :class:`~repro_torch.models.common.W4A16Linear`.
-A ``vlm`` model's tree is its dense backbone's. :func:`calib_result_from_numpy` and
+A ``vlm`` model's tree is its dense backbone's. A DeepSeek tree's
+``dense_layers`` and ``moe_layers`` become one ``layers`` list (dense first)
+of :class:`~repro_torch.models.deepseek.MLALayer`, and its ``mtp`` block an
+:class:`~repro_torch.models.deepseek.MTP`. :func:`calib_result_from_numpy` and
 :func:`gl_params_from_numpy` carry a calibration's result and a ``GLParams``
 across the same way. bf16 arrays are recognised by dtype name and moved bit for bit
 through a 16-bit integer view, so no bf16 numpy extension is needed here.
@@ -36,7 +40,9 @@ from repro_torch.models.common import (
     TwinQuantLinearGroup,
     W4A16Linear,
 )
+from repro_torch.models.deepseek import MTP, DeepSeekModel, MLALayer
 from repro_torch.models.dense import DenseLayer, DenseModel
+from repro_torch.models.mla import MLAAttention
 from repro_torch.models.moe_layer import MoEFFN
 from repro_torch.models.olmoe import OLMoELayer
 
@@ -97,11 +103,41 @@ def _moe(mt: dict, dev) -> MoEFFN:
     return MoEFFN(to_torch(mt["router"], dev), experts, shared)
 
 
+def _mla_layer(lt: dict, dev) -> MLALayer:
+    """One MLA layer of the reference's tree (``attn`` with its norms, and
+    ``mlp`` or ``moe``)."""
+    at = lt["attn"]
+    attn = MLAAttention({k: _linear(v, dev) for k, v in at.items() if isinstance(v, dict)},
+                        to_torch(at["q_norm"], dev), to_torch(at["kv_norm"], dev))
+    ln1, ln2 = to_torch(lt["ln1"], dev), to_torch(lt["ln2"], dev)
+    if "moe" in lt:
+        return MLALayer(attn, ln1, ln2, moe=_moe(lt["moe"], dev))
+    return MLALayer(attn, ln1, ln2, mlp={k: _linear(v, dev) for k, v in lt["mlp"].items()})
+
+
+def _deepseek(tree: dict, cfg: ModelConfig, dev) -> DeepSeekModel:
+    """The reference's DeepSeek tree: ``dense_layers`` and ``moe_layers``
+    stacked apart (dense first in ``layers``), ``mtp`` unstacked."""
+    nd = cfg.first_k_dense
+    layers = [_mla_layer(_layer_slice(tree["dense_layers"], i), dev) for i in range(nd)]
+    layers += [_mla_layer(_layer_slice(tree["moe_layers"], i), dev)
+               for i in range(cfg.n_layers - nd)]
+    mtp = None
+    if "mtp" in tree:
+        mt = tree["mtp"]
+        mtp = MTP(_linear(mt["proj"], dev), _mla_layer(mt["layer"], dev),
+                  to_torch(mt["ln_in"], dev))
+    return DeepSeekModel(to_torch(tree["embed"], dev), layers, to_torch(tree["ln_f"], dev),
+                         _linear(tree["head"], dev), mtp)
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> DenseModel:
-    """The reference's dense or OLMoE params (numpy leaves, layers stacked
-    on axis 0) as the port's model on ``device`` (the card unless asked
-    otherwise)."""
+    """The reference's dense, OLMoE or DeepSeek params (numpy leaves, layers
+    stacked on axis 0) as the port's model on ``device`` (the card unless
+    asked otherwise)."""
     dev = resolve_device(device)
+    if "dense_layers" in tree:
+        return _deepseek(tree, cfg, dev)
     layers = []
     for i in range(cfg.n_layers):
         lt = _layer_slice(tree["layers"], i)

@@ -24,15 +24,17 @@ replay after ``dispatch.set_fusion`` / ``set_force_ref`` changed what the
 capture recorded; nothing falls back to the eager step. Off the card, or
 with capture off, every step runs eagerly from the same buffers.
 
-:func:`sync_point` marks a sanctioned host sync (the logits download, the
-position read, the capture): it lifts ``torch.cuda.set_sync_debug_mode``,
-which ``analysis.sanitizers.guarded_decode`` sets to "error", for its
-region.
+:func:`collector_off` holds Python's cyclic collector off while a graph is
+captured. :func:`sync_point` marks a sanctioned host sync (the logits
+download, the position read, the capture): it lifts
+``torch.cuda.set_sync_debug_mode``, which
+``analysis.sanitizers.guarded_decode`` sets to "error", for its region.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, Optional
 
 import numpy as np
@@ -40,7 +42,7 @@ import torch
 
 from repro_torch.kernels import cuda_launch, dispatch
 
-__all__ = ["StepGraph", "sync_point", "upload"]
+__all__ = ["StepGraph", "collector_off", "sync_point", "upload"]
 
 
 @contextlib.contextmanager
@@ -56,6 +58,22 @@ def sync_point(device: torch.device):
         yield
     finally:
         torch.cuda.set_sync_debug_mode(prev)
+
+
+@contextlib.contextmanager
+def collector_off():
+    """Python's cyclic garbage collector held off for the region (a CUDA
+    graph capture): an unreachable engine's graph, freed by a collection
+    in the middle of a capture, destroys its executable while the stream
+    captures, and that invalidates the capture. What became garbage is
+    collected after the region."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def upload(a, device: torch.device, out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -145,7 +163,7 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         # torch.cuda.graph synchronises the device before it captures: a
         # sanctioned sync, once per engine
-        with sync_point(self.device):
+        with sync_point(self.device), collector_off():
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.graph(graph, stream=self._stream):
                 out = self._record()

@@ -23,7 +23,9 @@ from repro_torch.kernels.paged_attention import pool_rows
 from repro_torch.models import common as C
 
 __all__ = ["DenseLayer", "DenseModel", "init_params", "forward", "forward_with_taps",
-           "init_decode_state", "prefill", "decode_step", "ragged_step", "count_params"]
+           "init_decode_state", "prefill", "decode_step", "ragged_step", "count_params",
+           "run_layers", "prefill_layers", "decode_layers", "ragged_layers", "gqa_prefill",
+           "gqa_decode"]
 
 
 class DenseLayer(nn.Module):
@@ -97,13 +99,144 @@ def _unembed(params: DenseModel, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
     return C.linear(params.head, x)
 
 
-def _block(lp: DenseLayer, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-           prefix_kv=None, mask=None):
-    h = C.rmsnorm(x, lp.ln1, cfg.norm_eps)
-    att, k, v = C.gqa_prefill_attn(lp.attn, h, cfg, positions, prefix_kv=prefix_kv, mask=mask)
+def _mlp(lp, h: torch.Tensor) -> torch.Tensor:
+    return C.mlp_apply(lp.mlp, h)
+
+
+def _layer(lp, x: torch.Tensor, cfg: ModelConfig, attend, ffn, norm=None):
+    """One pre-norm decoder layer: ``attend(lp, h) -> (out, rows)`` on the
+    first norm's output, then ``ffn(lp, h)`` on the second's, each added to
+    the stream. Returns (x, rows): the layer's new cache rows by state key."""
+    norm = norm or (lambda y, w: C.rmsnorm(y, w, cfg.norm_eps))
+    att, rows = attend(lp, norm(x, lp.ln1))
     x = x + att
-    x = x + C.mlp_apply(lp.mlp, C.rmsnorm(x, lp.ln2, cfg.norm_eps))
-    return x, k, v
+    return x + ffn(lp, norm(x, lp.ln2)), rows
+
+
+def gqa_prefill(lp, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, mask=None,
+                prefix=None):
+    """The GQA attention step of a prefill: ``prefix`` holds this layer's
+    cached ``k`` / ``v`` rows. Returns (out, {"k", "v"})."""
+    pkv = None if prefix is None else (prefix["k"], prefix["v"])
+    att, k, v = C.gqa_prefill_attn(lp.attn, h, cfg, positions, prefix_kv=pkv, mask=mask)
+    return att, {"k": k, "v": v}
+
+
+def gqa_decode(lp, h: torch.Tensor, cfg: ModelConfig, cache: dict, bt, pos: torch.Tensor):
+    """The GQA attention step of a decode: over this layer's pools through
+    the paged kernel (``bt`` given), else over its dense cache. Returns
+    (out, {"k", "v"}), the rows of this step."""
+    if bt is not None:
+        att, kt, vt = C.paged_attn(lp.attn, h, cfg, cache["k"], cache["v"], bt, pos)
+    else:
+        att, kt, vt = C.attention_decode_ro(lp.attn, h, cfg, cache["k"], cache["v"], pos)
+    return att, {"k": kt, "v": vt}
+
+
+def run_layers(params, cfg: ModelConfig, x: torch.Tensor, ffn,
+               attend=gqa_prefill) -> torch.Tensor:
+    """The causal forward's layers over the embedded ``x`` (B, S, D)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+    for lp in params.layers:
+        x, _ = _layer(lp, x, cfg, lambda l, h: attend(l, h, cfg, positions), ffn)
+    return x
+
+
+def prefill_layers(params, cfg: ModelConfig, x: torch.Tensor, state: dict, ffn,
+                   attend=gqa_prefill, length=None, prefix=None):
+    """The prefill layer loop of every family: the embedded prompt ``x`` (B,
+    S, D) through ``params.layers`` (``attend(lp, h, cfg, positions, mask,
+    prefix)`` then ``ffn(lp, h)``), each layer's rows written into a copy of
+    its cache (every state key but ``pos``) from row 0. ``prefix`` =
+    {key: (L, B, m, ...)} is a cached prompt prefix: positions start at m,
+    queries see it whole (``C.prefix_attn_mask``) and ``pos`` counts it.
+    Returns (x, new_state); ``state`` itself is left unchanged."""
+    b, s, _ = x.shape
+    off = 0 if prefix is None else next(iter(prefix.values())).shape[2]
+    positions = off + torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+    mask = None if prefix is None else C.prefix_attn_mask(s, off, x.device)
+    caches = {k: v.clone() for k, v in state.items() if k != "pos"}
+    for i, lp in enumerate(params.layers):
+        pre = None if prefix is None else {k: v[i] for k, v in prefix.items()}
+        x, rows = _layer(lp, x, cfg, lambda l, h: attend(l, h, cfg, positions, mask, pre), ffn)
+        for k, r in rows.items():
+            caches[k][i, :, :s] = r.to(caches[k].dtype)
+    return x, {**caches, "pos": off + C.prefill_pos(length, b, s, x.device)}
+
+
+def _commit(state: dict, rows: dict, write) -> None:
+    """Each state key's rows of every layer, stacked (L, ...), written in
+    place by ``write(cache, rows)``."""
+    for k, ts in rows.items():
+        write(state[k], torch.stack(ts))
+
+
+def decode_layers(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor, ffn,
+                  attend=gqa_decode):
+    """The decode layer loop of every family: tokens (B, sq) -> (logits (B,
+    sq, V), state). ``attend(lp, h, cfg, cache, bt, pos)`` gets this layer's
+    slice of every cache key (pools when ``"bt"`` is in state) and returns
+    the step's rows by key; they are written into ``state``'s caches (dense)
+    or pools (paged) in place after all layers ran, and ``state["pos"]``
+    advances by sq in place: the returned state is ``state`` itself, its
+    tensors the same objects, so a captured step reads and writes the same
+    memory at every replay. The norms run one draft column at a time
+    (``C.per_draft_row``; see :func:`decode_step`)."""
+    x = C.embed_lookup(params.embed, tokens)
+    b, sq = tokens.shape
+    pos = C.slot_positions(state["pos"], b)[:, 0]
+    bt = state.get("bt")
+    keys = [k for k in state if k not in ("pos", "bt")]
+    if bt is not None:  # where each row lands, found before the layers launch
+        p0 = state[keys[0]]
+        slots = torch.arange(b, device=x.device)[:, None].expand(b, sq).reshape(-1)
+        where = pool_rows(bt, slots, C.slot_positions(pos, b, sq).reshape(-1),
+                          p0.shape[2], p0.shape[1])
+    rows = {k: [] for k in keys}
+    for i, lp in enumerate(params.layers):
+        cache = {k: state[k][i] for k in keys}
+        x, new = _layer(lp, x, cfg, lambda l, h: attend(l, h, cfg, cache, bt, pos), ffn,
+                        lambda y, w: _norm(y, w, cfg))
+        for k in keys:
+            rows[k].append(new[k])
+    if bt is not None:
+        _commit(state, rows, lambda c, t: C.write_page_rows(
+            c, t.reshape(t.shape[0], b * sq, *t.shape[3:]), where))
+    else:
+        _commit(state, rows, lambda c, t: C.update_cache_slot_stacked(c, t, pos))
+    state["pos"].copy_(pos + sq)
+    return _unembed(params, cfg, x), state
+
+
+def ragged_layers(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
+                  slot: torch.Tensor, pos: torch.Tensor, ctx: torch.Tensor,
+                  logit_idx: torch.Tensor, ffn):
+    """The ragged layer loop of the GQA families (see :func:`ragged_step`):
+    each layer's attention through ``C.ragged_attn`` over its pools, then
+    ``ffn(lp, h)``; the rows committed to the pools and ``pos`` set in
+    place. Returns (logits (B, V), state)."""
+    x = C.embed_lookup(params.embed, tokens[None, :])
+    kp0 = state["k"]
+    where = pool_rows(state["bt"], slot, pos, kp0.shape[2], kp0.shape[1])
+
+    def attend(i):
+        def fn(lp, h):
+            att, kt, vt = C.ragged_attn(lp.attn, h, cfg, state["k"][i], state["v"][i],
+                                        state["bt"], slot, pos, ctx)
+            return att, {"k": kt, "v": vt}
+        return fn
+
+    rows = {"k": [], "v": []}
+    for i, lp in enumerate(params.layers):
+        x, new = _layer(lp, x, cfg, attend(i), ffn)
+        for k in rows:
+            rows[k].append(new[k])
+    _commit(state, rows, lambda c, t: C.write_page_rows(c, t, where))
+    b = ctx.shape[0]
+    counts = (slot.long()[None, :] == torch.arange(b, device=x.device)[:, None]).sum(dim=1)
+    state["pos"].copy_(ctx.long() + counts)
+    return _unembed(params, cfg, x[0][logit_idx.long()][None])[0], state
 
 
 @torch.no_grad()
@@ -111,12 +244,7 @@ def forward(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor,
             patches=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S[, +P], padded_vocab), causal; ``patches``
     (B, P, D) come first."""
-    x = _embed(params, tokens, patches)
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
-    for lp in params.layers:
-        x, _, _ = _block(lp, x, cfg, positions)
-    return _unembed(params, cfg, x)
+    return _unembed(params, cfg, run_layers(params, cfg, _embed(params, tokens, patches), _mlp))
 
 
 @torch.no_grad()
@@ -165,22 +293,10 @@ def prefill(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor, state: d
     attends [prefix; causal suffix], positions start at m, the returned
     cache rows hold the suffix only (from row 0) and ``pos`` counts m too."""
     x = _embed(params, tokens, patches)
-    b, s, _ = x.shape
-    off = 0 if prefix is None else prefix["k"].shape[2]
-    positions = off + torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
-    mask = None if prefix is None else C.prefix_attn_mask(s, off, x.device)
-    k_cache = state["k"].clone()
-    v_cache = state["v"].clone()
-    for i, lp in enumerate(params.layers):
-        x, k, v = _block(lp, x, cfg, positions, mask=mask,
-                         prefix_kv=None if prefix is None else (prefix["k"][i], prefix["v"][i]))
-        k_cache[i, :, :s] = k.to(k_cache.dtype)
-        v_cache[i, :, :s] = v.to(v_cache.dtype)
     # the patch rows prepended to the prompt are all real
     eff = None if length is None else (
-        torch.as_tensor(length, device=x.device).reshape(-1) + (s - tokens.shape[1]))
-    new_state = {"k": k_cache, "v": v_cache,
-                 "pos": off + C.prefill_pos(eff, b, s, x.device)}
+        torch.as_tensor(length, device=x.device).reshape(-1) + (x.shape[1] - tokens.shape[1]))
+    x, new_state = prefill_layers(params, cfg, x, state, _mlp, length=eff, prefix=prefix)
     return _unembed(params, cfg, C.select_at_length(x, eff)), new_state
 
 
@@ -191,7 +307,7 @@ def decode_step(params: DenseModel, cfg: ModelConfig, state: dict, tokens: torch
     pools (paged, ``"bt"`` in state) in place after all layers ran, and
     ``state["pos"]`` advances by sq in place: the returned state is ``state``
     itself, its tensors the same objects, so a captured step reads and
-    writes the same memory at every replay.
+    writes the same memory at every replay (:func:`decode_layers`).
 
     ``sq > 1`` stacks speculative draft rows (paged state only): the paged
     branch routes ``dispatch.paged_decode``, whose row i equals a one-row
@@ -200,37 +316,7 @@ def decode_step(params: DenseModel, cfg: ModelConfig, state: dict, tokens: torch
     gives some rows other bits at B * sq rows than at B. The linears are
     row-independent kernels, and the bf16 head gives every row the same bits
     stacked (``chip_smoke.py``'s speculative probe checks both)."""
-    x = C.embed_lookup(params.embed, tokens)
-    b, sq = tokens.shape
-    pos = C.slot_positions(state["pos"], b)[:, 0]
-    paged = "bt" in state
-    if paged:  # where each row lands, found before the layers launch
-        kp0 = state["k"]
-        slots = torch.arange(b, device=x.device)[:, None].expand(b, sq).reshape(-1)
-        where = pool_rows(state["bt"], slots, C.slot_positions(pos, b, sq).reshape(-1),
-                          kp0.shape[2], kp0.shape[1])
-    kts, vts = [], []
-    for i, lp in enumerate(params.layers):
-        h = _norm(x, lp.ln1, cfg)
-        if paged:
-            att, kt, vt = C.paged_attn(lp.attn, h, cfg, state["k"][i], state["v"][i],
-                                       state["bt"], pos)
-        else:
-            att, kt, vt = C.attention_decode_ro(lp.attn, h, cfg, state["k"][i], state["v"][i],
-                                                pos)
-        x = x + att
-        x = x + C.mlp_apply(lp.mlp, _norm(x, lp.ln2, cfg))
-        kts.append(kt)
-        vts.append(vt)
-    if paged:
-        kvh, hd = cfg.n_kv_heads, cfg.head_dim
-        C.write_page_rows(state["k"], torch.stack(kts).reshape(-1, b * sq, kvh, hd), where)
-        C.write_page_rows(state["v"], torch.stack(vts).reshape(-1, b * sq, kvh, hd), where)
-    else:
-        C.update_cache_slot_stacked(state["k"], torch.stack(kts), pos)
-        C.update_cache_slot_stacked(state["v"], torch.stack(vts), pos)
-    state["pos"].copy_(pos + sq)
-    return _unembed(params, cfg, x), state
+    return decode_layers(params, cfg, state, tokens, _mlp)
 
 
 @torch.no_grad()
@@ -244,24 +330,7 @@ def ragged_step(params: DenseModel, cfg: ModelConfig, state: dict, tokens: torch
     the pools in place and ``state["pos"]`` becomes ``ctx +`` the rows
     scheduled per slot, in place; returns (logits (B, V), state), the state
     being ``state`` itself."""
-    x = C.embed_lookup(params.embed, tokens[None, :])
-    kp0 = state["k"]
-    where = pool_rows(state["bt"], slot, pos, kp0.shape[2], kp0.shape[1])
-    kts, vts = [], []
-    for i, lp in enumerate(params.layers):
-        h = C.rmsnorm(x, lp.ln1, cfg.norm_eps)
-        att, kt, vt = C.ragged_attn(lp.attn, h, cfg, state["k"][i], state["v"][i], state["bt"],
-                                    slot, pos, ctx)
-        x = x + att
-        x = x + C.mlp_apply(lp.mlp, C.rmsnorm(x, lp.ln2, cfg.norm_eps))
-        kts.append(kt)
-        vts.append(vt)
-    C.write_page_rows(state["k"], torch.stack(kts), where)
-    C.write_page_rows(state["v"], torch.stack(vts), where)
-    b = ctx.shape[0]
-    counts = (slot.long()[None, :] == torch.arange(b, device=x.device)[:, None]).sum(dim=1)
-    state["pos"].copy_(ctx.long() + counts)
-    return _unembed(params, cfg, x[0][logit_idx.long()][None])[0], state
+    return ragged_layers(params, cfg, state, tokens, slot, pos, ctx, logit_idx, _mlp)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.kernels.ref import _exact_matmuls
 from repro_torch.models import common as C
 
-__all__ = ["MoEFFN", "moe_init", "route", "moe_ffn", "record_drops"]
+__all__ = ["MoEFFN", "moe_init", "route", "moe_ffn", "layer_ffn", "record_drops"]
 
 _drop_log: Optional[list] = None
 
@@ -194,3 +194,18 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig, *, per_draft_row: bool
     if p.shared is not None:
         out = out + C.mlp_apply(p.shared, xf)
     return out.reshape(b, s, d), aux
+
+
+def layer_ffn(cfg: ModelConfig, *, per_draft_row: bool = False, aux: Optional[list] = None):
+    """A layer's FFN for the shared layer loop (``dense.run_layers`` and
+    the others): the MoE block of a layer whose ``moe`` is set (its aux
+    loss appended to ``aux`` when given), the dense SwiGLU ``mlp`` of one
+    without (DeepSeek-V3's ``first_k_dense`` layers)."""
+    def ffn(lp, h):
+        if lp.moe is None:
+            return C.mlp_apply(lp.mlp, h)
+        m, a = moe_ffn(lp.moe, h, cfg, per_draft_row=per_draft_row)
+        if aux is not None:
+            aux.append(a)
+        return m
+    return ffn

@@ -4,9 +4,10 @@ reference's serving entry points (``repro/models/olmoe.py``).
 
 Each decoder layer is an :class:`OLMoELayer` (``attn``, ``moe``, ``ln1``,
 ``ln2``); the model is a :class:`~repro_torch.models.dense.DenseModel`
-holding them (embedding, layers, final norm, head). The decode paths write
-the caches, pools and positions in place, as the dense family's do, so one
-CUDA graph holds a whole step.
+holding them (embedding, layers, final norm, head). The entry points run
+the dense family's layer loops (``dense.prefill_layers``, ``decode_layers``,
+``ragged_layers``) with the MoE block as the FFN, so the decode paths write
+the caches, pools and positions in place and one CUDA graph holds a step.
 """
 
 from __future__ import annotations
@@ -18,10 +19,9 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
-from repro_torch.kernels.paged_attention import pool_rows
 from repro_torch.models import common as C
 from repro_torch.models import dense as D
-from repro_torch.models.moe_layer import MoEFFN, moe_ffn, moe_init
+from repro_torch.models.moe_layer import MoEFFN, layer_ffn, moe_init
 
 __all__ = ["OLMoELayer", "init_params", "forward", "init_decode_state", "prefill",
            "decode_step", "ragged_step", "count_params"]
@@ -67,25 +67,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     return D.DenseModel(embed, layers, ones(), head)
 
 
-def _block(lp: OLMoELayer, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-           prefix_kv=None, mask=None):
-    h = C.rmsnorm(x, lp.ln1, cfg.norm_eps)
-    att, k, v = C.gqa_prefill_attn(lp.attn, h, cfg, positions, prefix_kv=prefix_kv, mask=mask)
-    x = x + att
-    m, aux = moe_ffn(lp.moe, C.rmsnorm(x, lp.ln2, cfg.norm_eps), cfg)
-    return x + m, k, v, aux
-
-
 @torch.no_grad()
 def forward(params: D.DenseModel, cfg: ModelConfig, tokens: torch.Tensor):
     """tokens (B, S) -> (logits (B, S, padded_vocab), aux), causal; aux is
     the router load-balancing loss averaged over the layers."""
-    x = C.embed_lookup(params.embed, tokens)
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+    auxes: list = []
+    x = D.run_layers(params, cfg, C.embed_lookup(params.embed, tokens), layer_ffn(cfg, aux=auxes))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in params.layers:
-        x, _, _, a = _block(lp, x, cfg, positions)
+    for a in auxes:
         aux = aux + a
     return D._unembed(params, cfg, x), aux / cfg.n_layers
 
@@ -102,21 +91,8 @@ def prefill(params: D.DenseModel, cfg: ModelConfig, tokens: torch.Tensor, state:
     """Prompt prefill; ``length`` / ``prefix`` as in ``dense.prefill``
     (bucket padding and cached-prefix suffix prefill). Pad positions route
     through the experts and take capacity, as in the reference."""
-    x = C.embed_lookup(params.embed, tokens)
-    b, s, _ = x.shape
-    off = 0 if prefix is None else prefix["k"].shape[2]
-    positions = off + torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
-    mask = None if prefix is None else C.prefix_attn_mask(s, off, x.device)
-    k_cache = state["k"].clone()
-    v_cache = state["v"].clone()
-    for i, lp in enumerate(params.layers):
-        x, k, v, _ = _block(lp, x, cfg, positions, mask=mask,
-                            prefix_kv=None if prefix is None else (prefix["k"][i],
-                                                                   prefix["v"][i]))
-        k_cache[i, :, :s] = k.to(k_cache.dtype)
-        v_cache[i, :, :s] = v.to(v_cache.dtype)
-    new_state = {"k": k_cache, "v": v_cache,
-                 "pos": off + C.prefill_pos(length, b, s, x.device)}
+    x, new_state = D.prefill_layers(params, cfg, C.embed_lookup(params.embed, tokens), state,
+                                    layer_ffn(cfg), length=length, prefix=prefix)
     return D._unembed(params, cfg, C.select_at_length(x, length)), new_state
 
 
@@ -125,38 +101,7 @@ def decode_step(params: D.DenseModel, cfg: ModelConfig, state: dict, tokens: tor
     """tokens (B, sq) -> (logits (B, sq, V), state), in place as
     ``dense.decode_step``; sq > 1 stacks speculative draft rows (paged state
     only), whose norms and router logits run one draft column at a time."""
-    x = C.embed_lookup(params.embed, tokens)
-    b, sq = tokens.shape
-    pos = C.slot_positions(state["pos"], b)[:, 0]
-    paged = "bt" in state
-    if paged:  # where each row lands, found before the layers launch
-        kp0 = state["k"]
-        slots = torch.arange(b, device=x.device)[:, None].expand(b, sq).reshape(-1)
-        where = pool_rows(state["bt"], slots, C.slot_positions(pos, b, sq).reshape(-1),
-                          kp0.shape[2], kp0.shape[1])
-    kts, vts = [], []
-    for i, lp in enumerate(params.layers):
-        h = D._norm(x, lp.ln1, cfg)
-        if paged:
-            att, kt, vt = C.paged_attn(lp.attn, h, cfg, state["k"][i], state["v"][i],
-                                       state["bt"], pos)
-        else:
-            att, kt, vt = C.attention_decode_ro(lp.attn, h, cfg, state["k"][i], state["v"][i],
-                                                pos)
-        x = x + att
-        m, _ = moe_ffn(lp.moe, D._norm(x, lp.ln2, cfg), cfg, per_draft_row=True)
-        x = x + m
-        kts.append(kt)
-        vts.append(vt)
-    if paged:
-        kvh, hd = cfg.n_kv_heads, cfg.head_dim
-        C.write_page_rows(state["k"], torch.stack(kts).reshape(-1, b * sq, kvh, hd), where)
-        C.write_page_rows(state["v"], torch.stack(vts).reshape(-1, b * sq, kvh, hd), where)
-    else:
-        C.update_cache_slot_stacked(state["k"], torch.stack(kts), pos)
-        C.update_cache_slot_stacked(state["v"], torch.stack(vts), pos)
-    state["pos"].copy_(pos + sq)
-    return D._unembed(params, cfg, x), state
+    return D.decode_layers(params, cfg, state, tokens, layer_ffn(cfg, per_draft_row=True))
 
 
 @torch.no_grad()
@@ -167,25 +112,7 @@ def ragged_step(params: D.DenseModel, cfg: ModelConfig, state: dict, tokens: tor
     route through the experts and take capacity like bucketed-prefill pad
     tokens (keep ``capacity_factor`` generous for the token budget when
     exact equality with other modes matters)."""
-    x = C.embed_lookup(params.embed, tokens[None, :])
-    kp0 = state["k"]
-    where = pool_rows(state["bt"], slot, pos, kp0.shape[2], kp0.shape[1])
-    kts, vts = [], []
-    for i, lp in enumerate(params.layers):
-        h = C.rmsnorm(x, lp.ln1, cfg.norm_eps)
-        att, kt, vt = C.ragged_attn(lp.attn, h, cfg, state["k"][i], state["v"][i], state["bt"],
-                                    slot, pos, ctx)
-        x = x + att
-        m, _ = moe_ffn(lp.moe, C.rmsnorm(x, lp.ln2, cfg.norm_eps), cfg)
-        x = x + m
-        kts.append(kt)
-        vts.append(vt)
-    C.write_page_rows(state["k"], torch.stack(kts), where)
-    C.write_page_rows(state["v"], torch.stack(vts), where)
-    b = ctx.shape[0]
-    counts = (slot.long()[None, :] == torch.arange(b, device=x.device)[:, None]).sum(dim=1)
-    state["pos"].copy_(ctx.long() + counts)
-    return D._unembed(params, cfg, x[0][logit_idx.long()][None])[0], state
+    return D.ragged_layers(params, cfg, state, tokens, slot, pos, ctx, logit_idx, layer_ffn(cfg))
 
 
 def count_params(cfg: ModelConfig) -> tuple[int, int]:

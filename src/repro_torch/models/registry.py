@@ -2,6 +2,7 @@
 
     init_params(cfg, seed, device) -> params
     forward(params, cfg, tokens) -> logits (dense) | (logits, aux) (moe)
+        | (logits, aux, hidden) (mla_moe)
     init_decode_state(cfg, batch, max_len, device=...) -> state
     prefill(params, cfg, tokens, state[, patches], length=None, prefix=None)
         -> (logits, state)
@@ -11,9 +12,10 @@
     count_params(cfg) -> (total, active)
 
 The ``dense`` (llama3, qwen3, qwen2, stablelm, phi4, internlm2), ``moe``
-(OLMoE) and ``vlm`` (internvl2: the dense backbone behind a patch frontend)
-families are ported. ``vlm`` has no ``ragged_step``, as in the reference:
-the engine serves it bucketed or paged.
+(OLMoE), ``mla_moe`` (DeepSeek-V3) and ``vlm`` (internvl2: the dense
+backbone behind a patch frontend) families are ported. ``mla_moe`` and
+``vlm`` have no ``ragged_step``, as in the reference: the engine serves
+them bucketed or paged.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from __future__ import annotations
 from types import SimpleNamespace
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models import dense, olmoe
+from repro_torch.models import deepseek, dense, olmoe
 
 __all__ = ["get_model"]
 
@@ -58,7 +60,16 @@ _MOE = SimpleNamespace(
     count_params=olmoe.count_params,
 )
 
-_FAMILIES = {"dense": _DENSE, "vlm": _VLM, "moe": _MOE}
+_MLA_MOE = SimpleNamespace(
+    init_params=deepseek.init_params,
+    forward=deepseek.forward,
+    init_decode_state=deepseek.init_decode_state,
+    prefill=deepseek.prefill,
+    decode_step=deepseek.decode_step,
+    count_params=deepseek.count_params,
+)
+
+_FAMILIES = {"dense": _DENSE, "vlm": _VLM, "moe": _MOE, "mla_moe": _MLA_MOE}
 
 
 def get_model(cfg: ModelConfig) -> SimpleNamespace:

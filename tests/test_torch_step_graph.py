@@ -11,6 +11,9 @@ exact counts. Capture itself needs the card: the ``gpu`` test captures one
 paged step and holds its logits ``torch.equal`` to the eager step's.
 """
 
+import contextlib
+import gc
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ from repro_torch.interop import to_torch
 from repro_torch.kernels import cuda_launch, dispatch
 from repro_torch.kernels.paged_attention import pool_rows, write_page_rows
 from repro_torch.launch.serve import ContinuousBatchingEngine, Request
+from repro_torch.launch import step_graph
 from repro_torch.launch.step_graph import StepGraph
 from repro_torch.models import common as C
 from repro_torch.models import dense as TD
@@ -274,6 +278,40 @@ def test_replay_adds_captured_counts_once_and_capture_adds_none(params):
     finally:
         dispatch.set_fusion(prev)
     assert sg.replays == 3
+
+
+def test_capture_holds_the_collector_off(monkeypatch):
+    """A collection in the middle of a capture would free an unreachable
+    engine's graph while the stream captures, which invalidates the
+    capture: the cyclic collector is off for the capture (driven here with
+    stand-ins for the CUDA calls) and on again after it, also when the step
+    raises."""
+    seen = []
+
+    class _Stream:
+        def wait_stream(self, other):
+            pass
+
+    @contextlib.contextmanager
+    def capture(graph, stream=None):
+        seen.append(gc.isenabled())
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", capture)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+    monkeypatch.setattr(step_graph, "sync_point", lambda device: contextlib.nullcontext())
+    sg = StepGraph(lambda tokens: tokens * 2, {"tokens": torch.ones((2, 1))}, "cpu",
+                   capture=False)
+    sg._stream = _Stream()
+    assert gc.isenabled()
+    sg._capture()
+    assert seen == [False] and gc.isenabled() and sg.captures == 1
+    assert sg.out.tolist() == [[2.0], [2.0]]
+    sg.fn = lambda tokens: tokens / "x"
+    with pytest.raises(TypeError):
+        sg._capture()
+    assert seen == [False, False] and gc.isenabled() and sg.captures == 1
 
 
 def test_step_graph_inputs_checked(params):
