@@ -9,6 +9,8 @@
     python3 chip_smoke.py --olmoe-only      # build, then the OLMoE phase
     python3 chip_smoke.py --dense-only      # build, then the other dense configs and the VLM
     python3 chip_smoke.py --deepseek-only   # build, then DeepSeek-V3 (mla_moe)
+    python3 chip_smoke.py --whisper-only    # build, then Whisper-base (encdec)
+    python3 chip_smoke.py --zamba2-only     # build, then Zamba2-1.2B (mamba_hybrid)
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -169,7 +171,50 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    random stacks at E = 256 (gate/up and down) at every Cp the served W4A16
    runs give (``DS_W4A16_CPS``), checked as phase 7 checks it with the
    plain version over ``DS_EXPERTS``; and the W4A16 packs served
-   bucketed and paged (``w4a16_gemm`` 7 and 10 launches a layer).
+   bucketed and paged (``w4a16_gemm`` 7 and 10 launches a layer);
+10. whisper-base — the ``encdec`` family at full width and depth (6 + 6
+   layers, d_model 512, 8 heads of 64, d_ff 2048, 1500 frames, vocab
+   51865), random weights from seed 0 and each request's frames
+   (``Request.frontend``) from seed 11, ``max_len`` 448 (the decoder
+   context), prompts of 3 … 440 tokens (``WHISPER_PROMPTS``, each
+   request's ``max_new`` cut to fit): the paged kernel at H = KV = 8, hd 64
+   (phase 3's checks, its planted faults and the stacked-vs-sequential
+   identity; no ragged kernel: neither family has a ragged step); W4A4
+   (rank 128, fused) and W4A16 packs, every distinct linear through its
+   kernel at every M the runs give (``WHISPER_LINEAR_MS``: decode 8, the
+   buckets, the 1500-row encoder; the cross-attention k/v fused at call
+   time), W4A4 ``torch.equal`` to the plain version, W4A16 within phase 3a's
+   limits (``family_linears_phase``); W4A4 served bucketed and paged, W4A16
+   paged (``FamilyServed``): kernel routes only, the linears' launches per
+   model call as counted (6 a decoder layer a step; 4 an encoder and 7 a
+   decoder layer a prefill; W4A16 8, 6 and 10), the paged kernel once a
+   layer a step, one capture, a graph step == the eager step, solo ==
+   interleaved for requests with different frames, no prefix-cache lookup
+   (the paged engine warns), the paging invariant (``layouts_agree``: the
+   requests served paged with the paged kernel's plain version in its
+   place give the bucketed tokens; the kernel's own paged tokens printed
+   against them), the paged kernel on the served state in each paged run
+   (``kernel_step``: at a steady step, each paged launch of the step on
+   its own inputs within ``ATT_REL_MAX`` per (row, head) of the f32 plain
+   version, a slot reading one wrong page caught, and the step's logits
+   within ``PAGED_STEP_REL`` of the same step with the plain version, W4A4
+   0.5 and W4A16 0.05), the ragged and speculative engines warning and falling
+   back with the paged run's tokens, W4A4 prefill logits kernel == plain,
+   each prompt's prefill ms a bucket row;
+11. zamba2-1.2b — the ``mamba_hybrid`` family at full width (d_model 2048,
+   64 SSM heads of 64, state 64, conv 4, the shared block 32 heads of 64 on
+   the 4096-wide concat, d_ff 8192, vocab 32000) and depth
+   ``ZAMBA_LAYERS`` (8 of 38: one shared-block invocation and the 2 rest
+   layers), random weights from seed 0, ``max_len`` 512, prompts
+   ``ZAMBA_PROMPTS`` (3 … 200 tokens: the 200-token forward runs two SSD
+   chunks): the paged kernel at H = KV = 32, hd
+   64; W4A4 and W4A16 packs through their kernels at every served M
+   (``ZAMBA_LINEAR_MS``: the prefill's per-token steps 1, decode 8, the
+   forward's 128 and 256; ``in_proj`` N = 8384); then phase 10's serve checks (the
+   linears 2 a Mamba block and 7 a shared-block invocation a model step, a
+   prefill the forward plus one step a bucket row; W4A16 2 and 8; the paged
+   kernel once an invocation a step), with each prompt's prefill ms a
+   bucket row (the reference's per-token state fill).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -180,8 +225,10 @@ llama3-8b's W4A16 and W4A4 ragged-mode runs of phase 4 alone) and
 ``--lifecycle-only`` (phases 1-2, then the lifecycle phase on llama3-8b's
 W4A4 packs), ``--calib-only`` (phases 1-2, then phase 6) and
 ``--olmoe-only`` (phases 1-2, then phase 7), ``--dense-only`` (phases
-1-2, then phase 8; with ``--olmoe-only``, 7 then 8) and ``--deepseek-only``
-(phases 1-2, then phase 9);
+1-2, then phase 8; with ``--olmoe-only``, 7 then 8), ``--deepseek-only``
+(phases 1-2, then phase 9), ``--whisper-only`` (phases 1-2, then phase 10)
+and ``--zamba2-only`` (phases 1-2, then phase 11; any of these flags
+together run their phases in that order);
 ``--timing-only`` times the four dual wrappers at their table cases,
 ``w4a16_gemm`` at the four llama3-8b shapes and M in
 ``W4A16_MS``, the paged decode kernel at its table case (sq 1 and 4,
@@ -196,6 +243,7 @@ archive``).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -1091,12 +1139,13 @@ def _bound_ragged(rc) -> tuple[float, str]:
     return _bound_attn(nbytes, flops)
 
 
-def attention_phase(device, att: dict = ATT) -> dict:
+def attention_phase(device, att: dict = ATT, ragged: bool = True) -> dict:
     """The paged-decode and ragged kernels against their plain versions at
     the heads and pools of ``att`` (llama3-8b's by default), timed beside
     the plain version and SDPA over a dense view; plus the
     stacked-vs-sequential identity of the paged kernel and the
-    one-vs-two-launch identity of the ragged kernel."""
+    one-vs-two-launch identity of the ragged kernel. ``ragged=False``
+    leaves the ragged kernel out (a family without a ragged step)."""
     import torch
 
     from repro_torch.kernels import build, contracts
@@ -1215,6 +1264,10 @@ def attention_phase(device, att: dict = ATT) -> dict:
           f"({int(mapped.sum())} mapped slots, lens {list(lens)}, chunk {PAGED_CHUNK})",
           flush=True)
     del ks, vs
+    if not ragged:
+        del pools
+        torch.cuda.empty_cache()
+        return table
 
     # -- ragged: T = 256 rows, decode rows + a chunk behind committed pages +
     #    a cold chunk + pad rows
@@ -1498,7 +1551,8 @@ CHECK_STEP = 6
 # steps each reading takes
 STEP_TIMED = {("w4a16", "paged"), ("w4a4", "paged"), ("w4a4", "ragged"),
               ("olmoe w4a4", "paged"), ("olmoe w4a16", "paged"), ("deepseek w4a4", "paged"),
-              ("deepseek w4a16", "paged")}
+              ("deepseek w4a16", "paged"), ("whisper w4a4", "paged"), ("whisper w4a16", "paged"),
+              ("zamba2 w4a4", "paged"), ("zamba2 w4a16", "paged")}
 STEP_REPS = 10
 # profiler name prefixes of the hand-written kernels (csrc/*.cu)
 HANDWRITTEN = ("tq_", "pd_", "rg_", "w4a16_")
@@ -3847,7 +3901,7 @@ def deepseek_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int
           f"(dense layer {pack_s[0]:.2f} s, MoE layer {pack_s[1]:.2f} s: "
           f"{3 * cfg.n_experts} expert linears in chunks of batched SVDs, mtp "
           f"{pack_s[-1]:.2f} s) w4a16_quantize_s={t4 - t3:.2f}", flush=True)
-    del params, layers, ex, bf
+    del params, layers, lp, ex, bf  # lp: the bf16 MoE layer, 23 GB at full width
     torch.cuda.empty_cache()
     rng = np.random.default_rng(9)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
@@ -3877,7 +3931,12 @@ def deepseek_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int
     t7 = time.perf_counter()
     launches = dict(served.launches)
     del served, published, qp
+    gc.collect()  # the engines' graphs and pools, should a cycle hold them
     torch.cuda.empty_cache()
+    if device.type == "cuda":
+        print(f"deepseek memory_allocated before the stacked w4a16_gemm="
+              f"{torch.cuda.memory_allocated(device)} (the W4A16 packs: {_param_bytes(qp16)})",
+              flush=True)
     # w4a16_gemm on random stacks at E = 256 once the W4A4 model is gone
     # (the packs are made 16 experts at a time)
     tables["stacked"]["w4a16_gemm"] = stacked_w4a16_phase(
@@ -3903,6 +3962,550 @@ def deepseek_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int
           f"w4a16_serve {t9 - t8:.1f}", flush=True)
     print(f"deepseek tables {json.dumps({**tables, 'launches': launches})}", flush=True)
     return tables
+
+
+# ---------------------------------------------------------------------------
+# phases 10-11: Whisper-base (encdec: cross-attention over per-slot encoder
+# rows) and Zamba2-1.2B (mamba_hybrid: the Mamba2 recurrence beside the
+# shared block's paged cache)
+# ---------------------------------------------------------------------------
+
+WHISPER_MAX_LEN = 448  # whisper's decoder context
+# buckets 8 .. 448 (the cap); each request's max_new is cut to fit the context
+WHISPER_PROMPTS = (3, 6, 8, 20, 40, 64, 100, 128, 200, 256, 300, 440)
+WHISPER_ATT = dict(B=8, H=8, KV=8, hd=64, page=16, maxp=128)
+# rows the served runs give the 2-D linears: decode (8 slots) and the
+# prefill bucket 8, the buckets 32 .. 448, the 1500-row encoder and the
+# cross-attention k/v
+WHISPER_LINEAR_MS = (8, 32, 64, 128, 256, 448, 1500)
+# zamba2's 38 layers cut to 8 (1 shared-block invocation + 2 rest layers):
+# its prefill fills the state one eager decode step per bucket row, ~28-35 ms
+# a row at 14 layers, so 38 layers would take the phase past its ~150 s, and
+# 14 layers took the whole script to 1122.9 s, past its ~1100 s (PERF.md
+# section 4)
+ZAMBA_LAYERS = 8
+ZAMBA_MAX_LEN = 512
+# buckets 8 .. 256; the 200-token prompt's forward runs two SSD chunks (the
+# carried inter-chunk state) and the shared block's attention over both.
+# The prefill costs one eager step a bucket row, so the rest stay short
+# (480 bucket rows a served run)
+ZAMBA_PROMPTS = (3, 6, 8, 12, 20, 30, 40, 200, 9, 16, 10, 5)
+ZAMBA_ATT = dict(B=8, H=32, KV=32, hd=64, page=16, maxp=128)
+# rows the served runs give the linears: the prefill's per-token steps (1),
+# decode (8), the forward over prompts padded to CHUNKs (128, 256)
+ZAMBA_LINEAR_MS = (1, 8, 128, 256)
+FAMILY_MODES = ("bucketed", "paged")  # W4A4; W4A16 paged
+# the paged kernel on the served state (``FamilyServed.kernel_step``): per
+# slot, the relative L2 error of a step's logits with the kernel against
+# the same step with its plain version in its place (teacher-forced, one
+# state). The kernel folds the softmax in f32 and rounds once where the
+# plain version rounds in bf16: the logits moved by rel ~0.008 in bf16 /
+# W4A16 and 0.19-0.23 in W4A4 (Whisper at full size from one state, NVIDIA
+# H100 80GB HBM3, 700 W), whose 4-bit activations carry last-bit
+# differences on. The kernel's own outputs are
+# held at ``ATT_REL_MAX`` on the same step
+PAGED_STEP_REL = {"w4a4": 0.5, "w4a16": 0.05}
+# neither family has a ragged_step or multi-row paged decode (the reference's
+# gates): these fall back to bucketed prefill + one-token decode, warning
+FALLBACKS = {"ragged=True": dict(paged=True, ragged=True, token_budget=256,
+                                 prefix_caching=False),
+             "speculation=True": dict(paged=True, speculation=True, spec_k=4,
+                                      prefix_caching=False)}
+
+
+def family_linears_phase(tag: str, device, qp, qp16, ms, extra=()) -> None:
+    """Every distinct W4A4 linear shape of ``qp`` (and the call-time fused
+    groups in ``extra``: (name, group weights)) through the dual kernels at
+    each M of ``ms``, ``torch.equal`` to the plain version; every distinct
+    W4A16 shape of ``qp16`` through ``w4a16_gemm``, per row within
+    ``W4A16_REL_MAX`` of the f32 plain version and ``W4A16_TOL`` of the bf16
+    one."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.twinquant_dual_gemm import dual_gemm, dual_gemm_group
+    from repro_torch.kernels.twinquant_dual_gemv import dual_gemv, dual_gemv_group
+    from repro_torch.kernels.w4a16_gemm import w4a16_gemm
+    from repro_torch.models.common import TwinQuantLinear, TwinQuantLinearGroup, W4A16Linear
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    seen = {}
+    for name, mod in qp.named_modules():
+        if isinstance(mod, (TwinQuantLinear, TwinQuantLinearGroup)):
+            w = mod.weights()
+            gw = w if isinstance(w, ref.TwinQuantGroupWeights) else ref.as_group(w)
+            seen.setdefault((gw.kdim, gw.seg_n, gw.seg_r), (name, w))
+    for name, w in extra:
+        seen.setdefault((w.kdim, w.seg_n, w.seg_r), (name, w))
+    for (k, seg_n, _), (name, w) in seen.items():
+        group = isinstance(w, ref.TwinQuantGroupWeights)
+        gw = w if group else ref.as_group(w)
+        for m in ms:
+            kern = ((dual_gemv_group if group else dual_gemv) if m <= 8 else
+                    (dual_gemm_group if group else dual_gemm))
+            x = (torch.randn(m, k, generator=gen, device=device) * 2).to(torch.bfloat16)
+            y_k, y_p = kern(x, w), ref.dual_gemm_group_ref(x, gw)
+            _sync(device)
+            if not torch.equal(y_k, y_p):
+                fail(f"{tag} {name} M={m}: kernel != plain version ({_unequal(y_k, y_p)})")
+        print(f"kernel {tag} w4a4  {name:28s} K={k:5d} N={list(seg_n)} r={gw.rank} M={list(ms)}: "
+              f"kernel == plain", flush=True)
+    seen16 = {}
+    for name, mod in qp16.named_modules():
+        if isinstance(mod, W4A16Linear):
+            seen16.setdefault(tuple(mod.wp.shape), (name, mod))
+    for (_, n), (name, mod) in seen16.items():
+        k, worst = mod.wp.shape[0] * 2, 0.0
+        for m in ms:
+            x = (torch.randn(m, k, generator=gen, device=device) * 2).to(torch.bfloat16)
+            y_k, y32 = w4a16_gemm(x, mod.wp, mod.ws), ref.w4a16_gemm_f32(x, mod.wp, mod.ws)
+            _sync(device)
+            rel = _rel_rows(y_k, y32).max().item()
+            worst = max(worst, rel)
+            if not torch.allclose(y_k.float(), y32.to(torch.bfloat16).float(), **W4A16_TOL):
+                fail(f"{tag} w4a16 {name} M={m}: kernel vs plain version beyond atol "
+                     f"{W4A16_TOL['atol']} / rtol {W4A16_TOL['rtol']}")
+            if not rel <= W4A16_REL_MAX:
+                fail(f"{tag} w4a16 {name} M={m}: kernel vs f32 plain version rel {rel} per row "
+                     f"> {W4A16_REL_MAX}")
+        print(f"kernel {tag} w4a16 {name:28s} K={k:5d} N={n:5d} M={list(ms)}: close, max rel "
+              f"per row {worst:.5f} (limit {W4A16_REL_MAX})", flush=True)
+
+
+class FamilyServed(Served):
+    """An ``encdec`` or ``mamba_hybrid`` model served as :class:`Served`
+    does, with the families' own counts: each model call's quantized-linear
+    launches (``per_step`` a decode step, ``per_prefill(bucket)`` a
+    prefill), the paged kernel ``att_per_step`` times a decode step, no
+    prefix-cache lookup; a graph step checked against the eager step (no
+    eager run). ``frames`` (Whisper) gives each request its own frame
+    embeddings; each request's ``max_new`` fits ``max_len``."""
+
+    def __init__(self, *args, per_step: int, per_prefill, att_per_step: int, frames=None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.per_step, self.per_prefill, self.att_per_step = per_step, per_prefill, att_per_step
+        self.frames = frames
+        self.engines: list = []
+        self.stepped: set = set()
+        self.host_step_ms: dict = {}
+        self.prefills: dict = {}
+
+    def request(self, i):
+        req = super().request(i)
+        req.max_new = min(req.max_new, self.max_len - len(self.prompts[i]))
+        if self.frames is not None:
+            req.frontend = {"frames": self.frames[i]}
+        return req
+
+    def engine(self, mode, **kw):
+        import warnings
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = super().engine(mode, **kw)
+        if mode != "bucketed" and not any("prefix_caching" in str(w.message) for w in caught):
+            fail(f"{self.tag} {mode}: the paged engine did not warn that the family serves "
+                 f"no prefix cache")
+        self.engines.append(eng)
+        # each admission's prefill, timed (it ends in the logits download)
+        rec = self.prefills.setdefault(mode, [])
+        run = eng._run_prefill
+
+        def timed(tokens, *a, **k):
+            t = time.perf_counter()
+            out = run(tokens, *a, **k)
+            rec.append((len(tokens), out[2], time.perf_counter() - t))
+            return out
+
+        eng._run_prefill = timed
+        if mode == "paged" and not kw and mode not in self.stepped:  # the served run
+            self.stepped.add(mode)
+            _after_step(eng, CHECK_STEP, lambda: self.kernel_step(eng))
+        return eng
+
+    def kernel_step(self, eng) -> None:
+        """The paged kernel held on the served state. From the state after
+        a steady step, the engine's step runs eagerly (the same tokens)
+        with the kernel, each of its launches checked on its own inputs:
+        every active slot's output per (row, head) within ``ATT_REL_MAX``
+        of the f32 plain version, while the control, the plain version
+        with the longest slot reading another slot's first page, lands
+        beyond it on that slot. Then the same step with the plain version
+        in the kernel's place: every active slot's logits within
+        ``PAGED_STEP_REL`` of the kernel step's. The state and the launch
+        and route counts are put back."""
+        from repro_torch.kernels import cuda_launch, dispatch
+        from repro_torch.kernels.paged_attention import paged_decode_ref
+
+        sg, limit, kernel = eng.step_graph, PAGED_STEP_REL[self.kind], dispatch.paged_decode_kernel
+        launches, routes = cuda_launch.launch_counts(), dispatch.dispatch_counters()
+        snap = _clone_state(eng.state)
+        active = [i for i, r in enumerate(eng.slots) if r is not None]
+        pos = snap["pos"].tolist()
+        bad = max(active, key=lambda i: pos[i])
+        other = next(i for i in active if i != bad)
+        bt_bad = snap["bt"].clone()
+        bt_bad[bad, 0] = snap["bt"][other, 0]
+        calls = []
+
+        def checked(q, kp, vp, kt, vt, bt, p, **kw):
+            out = kernel(q, kp, vp, kt, vt, bt, p, **kw)
+            y = out[0] if isinstance(out, tuple) else out
+            f32 = _f32(q, kp, vp, kt, vt)
+            y32 = paged_decode_ref(*f32, bt, p, commit=False)
+            y_bad = paged_decode_ref(*f32, bt_bad, p, commit=False)
+            calls.append((_rel_rows(y, y32)[active].max().item(),
+                          _rel_rows(y_bad, y32)[bad].max().item()))
+            return out
+
+        def step(attn):
+            _restore_state(eng.state, snap)
+            dispatch.paged_decode_kernel = attn
+            try:
+                return sg.fn(**sg.buffers)[:, -1].float()
+            finally:
+                dispatch.paged_decode_kernel = kernel
+
+        y_k, y_p = step(checked), step(paged_decode_ref)
+        _restore_state(eng.state, snap)
+        del snap
+        cuda_launch.reset_launch_counts()
+        cuda_launch.add_launch_counts(launches)
+        dispatch.reset_dispatch_counters()
+        dispatch.add_dispatch_counts(routes)
+        if len(calls) != self.att_per_step:
+            fail(f"{self.tag} paged: the step launched the paged kernel {len(calls)} times, "
+                 f"want {self.att_per_step}")
+        worst, caught = max(c[0] for c in calls), min(c[1] for c in calls)
+        if not worst <= ATT_REL_MAX:
+            fail(f"{self.tag} paged: the kernel on the served state: max rel per (row, head) "
+                 f"{worst} vs the f32 plain version > {ATT_REL_MAX}")
+        if not caught > ATT_REL_MAX:
+            fail(f"{self.tag} paged: the control (slot {bad} reads slot {other}'s first page) "
+                 f"gives rel {caught} <= {ATT_REL_MAX}: the check would not see it")
+        rel = _rel_rows(y_k, y_p)[active]
+        if not rel.max().item() <= limit:
+            fail(f"{self.tag} paged: the kernel step's logits vs the plain step's: rel per slot "
+                 f"{[round(v, 4) for v in rel.tolist()]} > {limit}")
+        print(f"serve {self.tag} paged kernel on the served state (step "
+              f"{eng.stats['decode_steps']}, {len(active)} slots at {[pos[i] for i in active]}, "
+              f"{len(calls)} launches): max rel per (row, head) vs the f32 plain version "
+              f"{worst:.5f} (limit {ATT_REL_MAX}); control (slot {bad} reads one wrong page) "
+              f"min rel {caught:.5f} -> caught; the step's logits vs the plain step's: rel per "
+              f"slot max {rel.max().item():.5f} (limit {limit})", flush=True)
+
+    def prefill_logits(self) -> None:
+        """Kernel vs plain logits of one prompt through the model entry
+        point (Whisper's prefill behind its frames; Zamba2's forward):
+        equal for the dual kernels."""
+        import torch
+
+        from repro_torch.kernels import dispatch
+        from repro_torch.models.registry import get_model
+
+        model = get_model(self.cfg)
+        toks = torch.as_tensor(self.prompts[4][None, :], device=self.device, dtype=torch.long)
+
+        def logits(plain):
+            prev = dispatch.set_force_ref(plain)
+            try:
+                if self.frames is None:
+                    return model.forward(self.qp, self.cfg, toks).float()
+                st = model.init_decode_state(self.cfg, 1, self.max_len, device=self.device)
+                return model.prefill(self.qp, self.cfg, toks, st, frames=self.frames[4])[0].float()
+            finally:
+                dispatch.set_force_ref(prev)
+
+        lk, lp = logits(False), logits(True)
+        if not torch.equal(lk, lp):
+            fail(f"{self.tag}: prefill logits through the kernels != plain versions "
+                 f"(max |d| {(lk - lp).abs().max().item()})")
+        print(f"serve {self.tag} prefill logits kernel == plain: equal ({toks.shape[1]} tokens)",
+              flush=True)
+
+    def _linears(self, mode, eng, got, routes) -> None:
+        cuda = self.device.type == "cuda"
+        name = f"{self.tag} {mode}"
+        self.host_step_ms[mode] = _step_ms(eng, mode)
+        steps = eng.stats["decode_steps"]
+        buckets = [b for (b, _, _), n in eng._prefill_shapes.items() for _ in range(n)]
+        want = self.per_step * steps + sum(self.per_prefill(b) for b in buckets)
+        w16 = self.kind == "w4a16"
+        kinds = ("w4a16_gemm",) if w16 else MOE_KERNELS
+        pre = "w4a16" if w16 else "dual"
+        n_routes = sum(v for key, v in routes.items() if key.startswith(pre))
+        n_launch = sum(got.get(k, 0) for k in kinds)
+        if n_routes != want or any(not key.startswith((pre, "paged_decode")) for key in routes):
+            fail(f"{name}: want {want} routes ({self.per_step} a decode step x {steps}, the "
+                 f"prefills of buckets {sorted(set(buckets))}), routes {routes}")
+        if cuda and n_launch != want:
+            fail(f"{name}: {kinds} launched {n_launch} times, want one per linear call: {want} "
+                 f"({got})")
+        for kname in kinds:
+            if cuda and got.get(kname, 0) <= 0:
+                fail(f"kernel {kname} never launched on the {name} path")
+            self.launches.setdefault(kname, got.get(kname, 0))
+        print(f"serve {name} launches={n_launch} == {self.per_step} a decode step x {steps} + "
+              f"the prefills ({len(buckets)} calls, buckets {sorted(set(buckets))}); "
+              f"host_step_ms={self.host_step_ms[mode]:.3f}", flush=True)
+
+    def _attention(self, mode, eng, got, routes) -> None:
+        """The paged kernel launches ``att_per_step`` times a decode step."""
+        cuda = self.device.type == "cuda"
+        steps, want = eng.stats["decode_steps"], self.att_per_step * eng.stats["decode_steps"]
+        routed = routes.get("paged_decode/kernel", 0)
+        if routed != want:
+            fail(f"{self.tag} {mode}: paged_decode/kernel routed {routed} times, want "
+                 f"{self.att_per_step} x {steps} steps")
+        if cuda and got.get("paged_decode_kernel", 0) != want:
+            fail(f"{self.tag} {mode}: paged_decode_kernel launched "
+                 f"{got.get('paged_decode_kernel')} times, want {want}")
+        self.launches.setdefault("paged_decode_kernel", got.get("paged_decode_kernel", 0))
+
+    def _against_eager(self, mode, reqs, got, routes, eng) -> None:
+        """No eager run (the step check above holds a graph step to the eager
+        one); the graph step's device time against its host step."""
+        times = self.step_times.get(mode)
+        if times is None:
+            return
+        ms_g = self.host_step_ms[mode]
+        dev_g = times["graph_kernel_ms"] or times["replay_events_ms"]
+        times.update(host_step_ms_graph=ms_g, busy_share_graph=dev_g / ms_g)
+        print(f"serve {self.tag} {mode} step graph: host_step_ms={ms_g:.3f} device_ms_per_step "
+              f"(profiler kernel sum)={times['graph_kernel_ms']:.3f}, of it hand-written "
+              f"{times['graph_handwritten_ms']:.3f}; launches a step "
+              f"{times['graph_launches']:.0f}; replay (CUDA events) ms="
+              f"{times['replay_events_ms']:.3f}; busy_share={times['busy_share_graph']:.3f}",
+              flush=True)
+
+    def serve(self, mode, against_eager: bool = True) -> list:
+        reqs = super().serve(mode, against_eager)
+        looked = [e.stats["prefix_lookups"] for e in self.engines]
+        if any(looked) or any(e.prefix_cache is not None for e in self.engines):
+            fail(f"{self.tag} {mode}: the prefix cache was looked up: {looked}")
+        self.engines.clear()
+        pre = self.prefills.get(mode, [])
+        print(f"serve {self.tag} {mode} prefix_lookups == 0; prefill ms per token (prompt "
+              f"tokens, bucket: ms a bucket row) " + " ".join(
+                  f"{n},{b}:{s / b * 1e3:.3f}" for n, b, s in pre[:len(self.prompts)]),
+              flush=True)
+        return reqs
+
+    def fallbacks(self) -> None:
+        """Ragged and speculative engines warn and serve bucketed prefill +
+        one-token decode: the 3-token request gives the paged run's tokens."""
+        import warnings
+
+        for what, kw in FALLBACKS.items():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                eng = super().engine("bucketed", **kw)
+            if not any(what in str(w.message) for w in caught) or eng.ragged or eng.speculation:
+                fail(f"{self.tag}: {what} did not warn and fall back")
+            r = self.request(0)
+            eng.serve([r])
+            if r.out != self.outs["paged"][0].out:
+                fail(f"{self.tag}: the {what} fallback's tokens != the paged run's")
+            del eng
+        print(f"serve {self.tag} ragged=True and speculation=True warn and fall back (the "
+              f"{len(self.prompts[0])}-token request's tokens == the paged run's)", flush=True)
+
+    def layouts_agree(self) -> None:
+        """The paging invariant, as the reference holds it (its bucketed and
+        paged decodes both attend in plain code): the 12 requests served
+        paged with the paged kernel's plain version in its place (eager
+        steps) give the bucketed run's tokens. The kernel's own paged
+        tokens are printed against them, not gated (``kernel_step`` gates
+        the kernel on the served state): the kernel folds in f32 and
+        rounds once, the bucketed plain step rounds in bf16, and 4-bit
+        activations carry that last-bit difference into the logits (rel
+        ~0.2 from one state at W4A4, ~0.008 in bf16), where random weights
+        leave top-2 margins near 0."""
+        from repro_torch.kernels import dispatch
+        from repro_torch.kernels.paged_attention import paged_decode_ref
+
+        keep, dispatch.paged_decode_kernel = dispatch.paged_decode_kernel, paged_decode_ref
+        try:
+            eng = self.engine("paged", step_graphs=False)
+            reqs = self.requests()
+            eng.serve(reqs)
+        finally:
+            dispatch.paged_decode_kernel = keep
+        want = self.outs["bucketed"]
+        diff = [i for i, (a, b) in enumerate(zip(want, reqs)) if a.out != b.out]
+        if diff:
+            fail(f"{self.tag}: paged (plain attention) tokens != bucketed tokens for requests "
+                 f"{diff}")
+        first = [next((j for j, (x, y) in enumerate(zip(a.out, b.out)) if x != y), None)
+                 for a, b in zip(want, self.outs["paged"])]
+        print(f"serve {self.tag} paged with the plain attention == bucketed tokens: equal "
+              f"({len(reqs)} requests); the kernel's paged run vs bucketed: "
+              f"{sum(f is None for f in first)} of {len(first)} requests equal, first "
+              f"differing token per request {first} (not gated)", flush=True)
+
+
+def _family_step_times(served) -> None:
+    for mode, times in served.step_times.items():
+        print(f"serve step times {json.dumps({'setting': served.tag, 'mode': mode, **times})}",
+              flush=True)
+
+
+def whisper_phase(device, card: str, cfg, prompt_lens=WHISPER_PROMPTS,
+                  max_len: int = WHISPER_MAX_LEN, rank: int = 128) -> dict:
+    """Whisper-base at full width and depth (6 + 6 layers, 1500 frames),
+    random weights and frames from seeds: the paged kernel at H = KV = 8, hd
+    64 (``attention_phase``); W4A4 (rank 128, group 128, fused) and W4A16
+    packs, every linear through its kernel at every served M
+    (``family_linears_phase``); W4A4 served bucketed and paged, W4A16
+    paged, each request behind its own frames, with the serve phase's
+    checks (routes, launches per model call, one capture, graph step ==
+    eager step, solo == interleaved), no prefix-cache lookup, the paging
+    invariant (paged with the plain attention == bucketed tokens,
+    ``layouts_agree``), the paged kernel on the served state
+    (``kernel_step``, each paged run), and the ragged and speculative
+    fallbacks. Returns the attention table."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import QuantSpec
+    from repro_torch.core.twinquant import fuse_params, quantize_params
+    from repro_torch.kernels.ref import fuse_twinquant_weights
+    from repro_torch.models import encdec
+
+    t0 = time.perf_counter()
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    print(f"whisper config {cfg.name} family={cfg.family} d_model={cfg.d_model} heads="
+          f"{cfg.n_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab} "
+          f"n_frames={cfg.n_frames} n_layers={L} n_enc_layers={E} max_len={max_len} "
+          f"card=\"{card}\"", flush=True)
+    table = attention_phase(device, WHISPER_ATT, ragged=False)
+    t1 = time.perf_counter()
+    params = encdec.init_params(cfg, seed=0, device=device)
+    qp = fuse_params(quantize_params(params, cfg, QuantSpec("w4a4", rank=rank, group_size=128)))
+    qp16 = quantize_params(params, cfg, QuantSpec("w4a16"))
+    _sync(device)
+    total, _ = encdec.count_params(cfg)
+    print(f"whisper params={total} param_bytes bf16={_param_bytes(params)} "
+          f"w4a4={_param_bytes(qp)} w4a16={_param_bytes(qp16)}", flush=True)
+    del params
+    xa = qp.dec_layers[0].xattn
+    family_linears_phase("whisper", device, qp, qp16, WHISPER_LINEAR_MS, extra=[
+        ("dec_layers.0.xattn.kv (call time)",
+         fuse_twinquant_weights([xa["k"].weights(), xa["v"].weights()]))])
+    t2 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
+    gen = torch.Generator(device=device).manual_seed(11)
+    frames = [torch.randn(1, cfg.n_frames, cfg.d_model, generator=gen,
+                          device=device).to(torch.bfloat16) for _ in prompts]
+    # per decode step: qkv, o, xattn q, xattn o, up, down a layer; per
+    # prefill: the encoder's qkv, o, up, down a layer and the decoder's six
+    # and the cross-attention k/v (one launch, fused at call time) a layer
+    w4 = FamilyServed("whisper w4a4", cfg, qp, "w4a4", prompts, device, max_len,
+                      per_step=6 * L, per_prefill=lambda b: 4 * E + 7 * L, att_per_step=L,
+                      frames=frames)
+    w4.prefill_logits()
+    for mode in FAMILY_MODES:
+        w4.serve(mode)
+    w4.layouts_agree()
+    w4.fallbacks()
+    _family_step_times(w4)
+    launches = dict(w4.launches)
+    del w4, qp
+    t3 = time.perf_counter()
+    # W4A16 never fuses: q, k, v, o, xattn q, xattn o, up, down a decode
+    # layer; the encoder's six and the decoder's ten a prefill
+    w16 = FamilyServed("whisper w4a16", cfg, qp16, "w4a16", prompts, device, max_len,
+                       per_step=8 * L, per_prefill=lambda b: 6 * E + 10 * L, att_per_step=L,
+                       frames=frames)
+    w16.serve("paged")
+    _family_step_times(w16)
+    launches["w4a16_gemm"] = w16.launches["w4a16_gemm"]
+    del w16, qp16
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    print(f"whisper phase seconds: attention {t1 - t0:.1f} init_quantize_linears {t2 - t1:.1f} "
+          f"w4a4_serve {t3 - t2:.1f} w4a16_serve {t4 - t3:.1f}", flush=True)
+    print(f"whisper tables {json.dumps({**table, 'launches': launches})}", flush=True)
+    return table
+
+
+def zamba2_phase(device, card: str, cfg, prompt_lens=ZAMBA_PROMPTS,
+                 max_len: int = ZAMBA_MAX_LEN, rank: int = 128) -> dict:
+    """Zamba2-1.2B at full width (d 2048, 64 SSM heads of 64, state 64, the
+    shared block 32 x 64, d_ff 8192) and ``cfg``'s depth (``ZAMBA_LAYERS``),
+    random weights from seed 0: the paged kernel at H = KV = 32, hd 64;
+    W4A4 (fused: the shared block's gate/up) and W4A16 packs, every linear
+    through its kernel at every served M; W4A4 served bucketed and paged,
+    W4A16 paged, with the serve phase's checks, no prefix-cache lookup,
+    the paging invariant (``layouts_agree``), the paged kernel on the served
+    state (``kernel_step``) and the fallbacks; each prompt's prefill ms
+    per bucket row (the reference's per-token state fill). Returns the
+    attention table."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import QuantSpec
+    from repro_torch.core.twinquant import fuse_params, quantize_params
+    from repro_torch.models import mamba_hybrid
+
+    t0 = time.perf_counter()
+    n_seg, every, rest = mamba_hybrid._segments(cfg)
+    print(f"zamba2 config {cfg.name} family={cfg.family} d_model={cfg.d_model} d_inner="
+          f"{cfg.d_inner_ssm} ssm_heads={cfg.n_ssm_heads}x{cfg.ssm_head_dim} ssm_state="
+          f"{cfg.ssm_state} conv={cfg.ssm_conv} shared heads={cfg.n_heads}x{cfg.head_dim} d_ff="
+          f"{cfg.d_ff} vocab={cfg.vocab} n_layers={cfg.n_layers} (segments {n_seg} x {every} + "
+          f"rest {rest}) max_len={max_len} card=\"{card}\"", flush=True)
+    table = attention_phase(device, ZAMBA_ATT, ragged=False)
+    t1 = time.perf_counter()
+    params = mamba_hybrid.init_params(cfg, seed=0, device=device)
+    _sync(device)
+    ti = time.perf_counter()
+    qp = fuse_params(quantize_params(params, cfg, QuantSpec("w4a4", rank=rank, group_size=128)))
+    _sync(device)
+    tq = time.perf_counter()
+    qp16 = quantize_params(params, cfg, QuantSpec("w4a16"))
+    _sync(device)
+    total, _ = mamba_hybrid.count_params(cfg)
+    print(f"zamba2 params={total} (count_params at {cfg.n_layers} layers) param_bytes bf16="
+          f"{_param_bytes(params)} w4a4={_param_bytes(qp)} w4a16={_param_bytes(qp16)}; "
+          f"init_s={ti - t1:.2f} w4a4_quantize_s={tq - ti:.2f} "
+          f"w4a16_quantize_s={time.perf_counter() - tq:.2f}", flush=True)
+    del params
+    family_linears_phase("zamba2", device, qp, qp16, ZAMBA_LINEAR_MS)
+    t2 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
+    # per model step: in_proj and out_proj a block; q, k, v, o, gate_up,
+    # down and the adapter an invocation of the shared block. A prefill is
+    # the forward and one step per bucket row
+    step4 = 2 * cfg.n_layers + 7 * n_seg
+    w4 = FamilyServed("zamba2 w4a4", cfg, qp, "w4a4", prompts, device, max_len,
+                      per_step=step4, per_prefill=lambda b: (1 + b) * step4, att_per_step=n_seg)
+    w4.prefill_logits()
+    for mode in FAMILY_MODES:
+        w4.serve(mode)
+    w4.layouts_agree()
+    w4.fallbacks()
+    _family_step_times(w4)
+    launches = dict(w4.launches)
+    del w4, qp
+    t3 = time.perf_counter()
+    step16 = 2 * cfg.n_layers + 8 * n_seg  # gate and up apart
+    w16 = FamilyServed("zamba2 w4a16", cfg, qp16, "w4a16", prompts, device, max_len,
+                       per_step=step16, per_prefill=lambda b: (1 + b) * step16,
+                       att_per_step=n_seg)
+    w16.serve("paged")
+    _family_step_times(w16)
+    launches["w4a16_gemm"] = w16.launches["w4a16_gemm"]
+    del w16, qp16
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    print(f"zamba2 phase seconds: attention {t1 - t0:.1f} init_quantize_linears {t2 - t1:.1f} "
+          f"w4a4_serve {t3 - t2:.1f} w4a16_serve {t4 - t3:.1f}", flush=True)
+    print(f"zamba2 tables {json.dumps({**table, 'launches': launches})}", flush=True)
+    return table
 
 
 def main() -> None:
@@ -3931,6 +4534,10 @@ def main() -> None:
                          "(no result line)")
     ap.add_argument("--deepseek-only", action="store_true",
                     help="build, then run the DeepSeek-V3 phase alone (no result line)")
+    ap.add_argument("--whisper-only", action="store_true",
+                    help="build, then run the Whisper-base phase alone (no result line)")
+    ap.add_argument("--zamba2-only", action="store_true",
+                    help="build, then run the Zamba2-1.2B phase alone (no result line)")
     ap.add_argument("--src", metavar="DIR",
                     help="import repro_torch from DIR (another tree's src) instead")
     args = ap.parse_args()
@@ -3975,7 +4582,8 @@ def main() -> None:
         calibration_phase(device, card, get_config("llama3-8b"))
         print(f"calib phase total seconds {time.perf_counter() - t:.1f}", flush=True)
         return
-    if args.olmoe_only or args.dense_only or args.deepseek_only:
+    if (args.olmoe_only or args.dense_only or args.deepseek_only or args.whisper_only
+            or args.zamba2_only):
         from repro_torch.configs import get_config
 
         if args.olmoe_only:
@@ -3990,6 +4598,14 @@ def main() -> None:
             t = time.perf_counter()
             deepseek_phase(device, card, _deepseek_cfg())
             print(f"deepseek phase total seconds {time.perf_counter() - t:.1f}", flush=True)
+        if args.whisper_only:
+            t = time.perf_counter()
+            whisper_phase(device, card, get_config("whisper-base"))
+            print(f"whisper phase total seconds {time.perf_counter() - t:.1f}", flush=True)
+        if args.zamba2_only:
+            t = time.perf_counter()
+            zamba2_phase(device, card, get_config("zamba2-1.2b").replace(n_layers=ZAMBA_LAYERS))
+            print(f"zamba2 phase total seconds {time.perf_counter() - t:.1f}", flush=True)
         return
     if args.lifecycle_only:
         from repro_torch.configs import QuantSpec, get_config
@@ -4035,6 +4651,14 @@ def main() -> None:
     t = time.perf_counter()
     deepseek_phase(device, card, _deepseek_cfg())
     secs["deepseek_v3"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    whisper_phase(device, card, get_config("whisper-base"))
+    secs["whisper_base"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    zamba2_phase(device, card, get_config("zamba2-1.2b").replace(n_layers=ZAMBA_LAYERS))
+    secs["zamba2_1_2b"] = time.perf_counter() - t
     print(f"phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
 
     rows = []

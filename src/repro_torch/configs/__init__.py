@@ -3,7 +3,8 @@
 (``dense``: the paper's two evaluation models ``llama3-8b`` and
 ``qwen3-8b``, and ``qwen2-1.5b``, ``stablelm-12b``, ``phi4-mini-3.8b``,
 ``internlm2-1.8b``; ``moe``: ``olmoe-1b-7b``; ``mla_moe``:
-``deepseek-v3-671b``; ``vlm``: ``internvl2-2b``).
+``deepseek-v3-671b``; ``vlm``: ``internvl2-2b``; ``encdec``:
+``whisper-base``; ``mamba_hybrid``: ``zamba2-1.2b``).
 
 ``get_config(name)`` returns the full-scale config, ``get_config(name,
 reduced=True)`` the small smoke-test reduction (same code paths).
@@ -36,11 +37,11 @@ class QuantSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Decoder-only transformer configuration (dense or MoE FFN; GQA or
-    MLA attention)."""
+    """Model configuration: a decoder-only transformer (dense or MoE FFN;
+    GQA or MLA attention), an encoder-decoder, or a Mamba2 hybrid."""
 
     name: str = ""
-    family: str = "dense"  # dense | moe | mla_moe | vlm
+    family: str = "dense"  # dense | moe | mla_moe | vlm | encdec | mamba_hybrid
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -68,14 +69,36 @@ class ModelConfig:
     qk_rope_dim: int = 0
     v_head_dim: int = 0
     mtp: bool = False  # multi-token-prediction aux layer+head
+    # encoder-decoder (whisper)
+    n_enc_layers: int = 0
+    n_frames: int = 0  # encoder frontend stub: precomputed frame embeddings
     # VLM: patch embeddings the frontend stub prepends to the prompt
     n_patches: int = 0
+    # Mamba2 / hybrid (zamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_head_dim: int = 64
+    shared_attn_every: int = 0  # zamba2: shared attention block cadence
     quant: QuantSpec = QuantSpec()
 
     @property
     def padded_vocab(self) -> int:
         """Vocab padded to a multiple of 256."""
         return ((self.vocab + 255) // 256) * 256
+
+    @property
+    def d_inner_ssm(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner_ssm // self.ssm_head_dim if self.ssm_head_dim else 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch serve a 500k context (O(1) recurrent state)?"""
+        return self.family in ("xlstm", "mamba_hybrid")
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -86,12 +109,14 @@ _REDUCED: dict[str, ModelConfig] = {}
 
 # the reference's ARCH_IDS in its order, less the families not ported yet
 ARCH_IDS = ["olmoe-1b-7b", "deepseek-v3-671b", "qwen2-1.5b", "stablelm-12b", "phi4-mini-3.8b",
-            "internlm2-1.8b", "internvl2-2b", "llama3-8b", "qwen3-8b"]
+            "internlm2-1.8b", "internvl2-2b", "whisper-base", "zamba2-1.2b", "llama3-8b",
+            "qwen3-8b"]
 
 _MODULES = {"llama3-8b": "llama3_8b", "qwen3-8b": "qwen3_8b", "qwen2-1.5b": "qwen2_1_5b",
             "stablelm-12b": "stablelm_12b", "phi4-mini-3.8b": "phi4_mini_3_8b",
             "internlm2-1.8b": "internlm2_1_8b", "olmoe-1b-7b": "olmoe_1b_7b",
-            "internvl2-2b": "internvl2_2b", "deepseek-v3-671b": "deepseek_v3_671b"}
+            "internvl2-2b": "internvl2_2b", "deepseek-v3-671b": "deepseek_v3_671b",
+            "whisper-base": "whisper_base", "zamba2-1.2b": "zamba2_1_2b"}
 
 
 def register(full: ModelConfig, reduced: ModelConfig) -> None:

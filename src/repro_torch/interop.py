@@ -15,7 +15,13 @@ K/G, N)) one expert-stacked :class:`~repro_torch.models.common.W4A16Linear`.
 A ``vlm`` model's tree is its dense backbone's. A DeepSeek tree's
 ``dense_layers`` and ``moe_layers`` become one ``layers`` list (dense first)
 of :class:`~repro_torch.models.deepseek.MLALayer`, and its ``mtp`` block an
-:class:`~repro_torch.models.deepseek.MTP`. :func:`calib_result_from_numpy` and
+:class:`~repro_torch.models.deepseek.MTP`. A Whisper tree (``enc_layers``,
+``dec_layers``, ``ln_enc``; LayerNorms ``{w, b}``) becomes an
+:class:`~repro_torch.models.encdec.EncDecModel`; a Zamba2 tree (``m_layers``
+stacked ``(n_seg, every, ...)``, ``shared``, ``adapters``,
+``rest_layers``; f32 ``A_log`` / ``D`` / ``dt_bias``) a
+:class:`~repro_torch.models.mamba_hybrid.HybridModel`, both stacked axes
+unstacked. :func:`calib_result_from_numpy` and
 :func:`gl_params_from_numpy` carry a calibration's result and a ``GLParams``
 across the same way. bf16 arrays are recognised by dtype name and moved bit for bit
 through a 16-bit integer view, so no bf16 numpy extension is needed here.
@@ -42,6 +48,8 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.deepseek import MTP, DeepSeekModel, MLALayer
 from repro_torch.models.dense import DenseLayer, DenseModel
+from repro_torch.models.encdec import DecLayer, EncDecModel, EncLayer, LayerNorm
+from repro_torch.models.mamba_hybrid import HybridModel, MambaBlock, SharedBlock
 from repro_torch.models.mla import MLAAttention
 from repro_torch.models.moe_layer import MoEFFN
 from repro_torch.models.olmoe import OLMoELayer
@@ -131,13 +139,70 @@ def _deepseek(tree: dict, cfg: ModelConfig, dev) -> DeepSeekModel:
                          _linear(tree["head"], dev), mtp)
 
 
+def _ln(t: dict, dev) -> LayerNorm:
+    return LayerNorm(to_torch(t["w"], dev), to_torch(t["b"], dev))
+
+
+def _linears(t: dict, dev) -> dict:
+    return {k: _linear(v, dev) for k, v in t.items()}
+
+
+def _whisper(tree: dict, cfg: ModelConfig, dev) -> EncDecModel:
+    """The reference's Whisper tree: ``enc_layers`` and ``dec_layers``
+    unstacked, LayerNorms ``{w, b}``."""
+    enc = []
+    for i in range(cfg.n_enc_layers):
+        lt = _layer_slice(tree["enc_layers"], i)
+        enc.append(EncLayer(_linears(lt["attn"], dev), _linears(lt["mlp"], dev),
+                            _ln(lt["ln1"], dev), _ln(lt["ln2"], dev)))
+    dec = []
+    for i in range(cfg.n_layers):
+        lt = _layer_slice(tree["dec_layers"], i)
+        dec.append(DecLayer(_linears(lt["attn"], dev), _linears(lt["xattn"], dev),
+                            _linears(lt["mlp"], dev), _ln(lt["ln1"], dev), _ln(lt["ln2"], dev),
+                            _ln(lt["ln3"], dev)))
+    return EncDecModel(to_torch(tree["embed"], dev), enc, dec, _ln(tree["ln_enc"], dev),
+                       _ln(tree["ln_f"], dev))
+
+
+def _mamba(t: dict, dev) -> MambaBlock:
+    return MambaBlock(_linear(t["in_proj"], dev), _linear(t["out_proj"], dev),
+                      *(to_torch(t[k], dev) for k in ("ln", "conv", "A_log", "D", "dt_bias",
+                                                       "gn")))
+
+
+def _zamba(tree: dict, cfg: ModelConfig, dev) -> HybridModel:
+    """The reference's Zamba2 tree: ``m_layers`` (n_seg, every, ...),
+    ``adapters`` and ``rest_layers`` unstacked."""
+    ml = tree["m_layers"]
+    embed, ln_f, head = (to_torch(tree["embed"], dev), to_torch(tree["ln_f"], dev),
+                         _linear(tree["head"], dev))
+    n_seg, every = np.shape(ml["A_log"])[:2]
+    m_layers = [[_mamba(_layer_slice(_layer_slice(ml, s), j), dev) for j in range(every)]
+                for s in range(n_seg)]
+    st = tree["shared"]
+    shared = SharedBlock({k: _linear(v, dev) for k, v in st.items() if k not in
+                          ("ln1", "ln2", "mlp")}, _linears(st["mlp"], dev),
+                         to_torch(st["ln1"], dev), to_torch(st["ln2"], dev))
+    adapters = [_linear(_layer_slice(tree["adapters"], s), dev) for s in range(n_seg)]
+    rest = None
+    if "rest_layers" in tree:
+        rl = tree["rest_layers"]
+        rest = [_mamba(_layer_slice(rl, i), dev) for i in range(np.shape(rl["A_log"])[0])]
+    return HybridModel(embed, m_layers, ln_f, head, shared, adapters, rest)
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> DenseModel:
-    """The reference's dense, OLMoE or DeepSeek params (numpy leaves, layers
-    stacked on axis 0) as the port's model on ``device`` (the card unless
-    asked otherwise)."""
+    """The reference's dense, OLMoE, DeepSeek, Whisper or Zamba2 params
+    (numpy leaves, layers stacked on the leading axes) as the port's model
+    on ``device`` (the card unless asked otherwise)."""
     dev = resolve_device(device)
     if "dense_layers" in tree:
         return _deepseek(tree, cfg, dev)
+    if "enc_layers" in tree:
+        return _whisper(tree, cfg, dev)
+    if "m_layers" in tree:
+        return _zamba(tree, cfg, dev)
     layers = []
     for i in range(cfg.n_layers):
         lt = _layer_slice(tree["layers"], i)

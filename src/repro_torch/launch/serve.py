@@ -173,10 +173,11 @@ class Request:
     warning. ``priority`` orders preemption victims (lower goes first);
     ``deadline_steps`` / ``deadline_s`` bound the request's life in engine
     steps / seconds from ``submit()``. ``frontend`` holds the family's
-    prefill extras: for ``vlm``, ``{"patches": (1, n_patches, D)}``, the
-    stub frontend's patch embeddings (on the engine's device), which take
-    cache rows before the prompt and keep the request out of the prefix
-    cache."""
+    prefill extras (on the engine's device), which keep the request out of
+    the prefix cache: for ``vlm``, ``{"patches": (1, n_patches, D)}``, the
+    stub frontend's patch embeddings, which take cache rows before the
+    prompt; for ``encdec``, ``{"frames": (1, n_frames, D)}``, the encoder's
+    stub frame embeddings, which take no decoder rows."""
 
     prompt: Any  # (S,) integer token ids
     max_new: int = 16
@@ -193,7 +194,7 @@ class Request:
     priority: int = 0
     deadline_steps: Optional[int] = None
     deadline_s: Optional[float] = None
-    frontend: dict = dataclasses.field(default_factory=dict, repr=False)  # vlm patches
+    frontend: dict = dataclasses.field(default_factory=dict, repr=False)  # patches / frames
     status: str = RequestState.NEW
     error: Optional[str] = None
     error_detail: Optional[str] = None
@@ -410,7 +411,8 @@ def _ngram_draft(hist: list, k: int) -> list:
 
 # families whose decode state is fully page-addressable (caches + pos only),
 # so a prompt prefix maps onto shared pages with no residual per-slot state;
-# not vlm: token hashes cannot identify a request's patches
+# not vlm (token hashes cannot identify a request's patches), encdec (per-slot
+# encoder rows) or mamba_hybrid (per-slot recurrent state)
 _PREFIX_FAMILIES = ("dense", "moe", "mla_moe")
 # families whose decode_step takes (B, sq) rows through the paged kernel
 _SPEC_FAMILIES = ("dense", "moe")
@@ -676,7 +678,8 @@ class ContinuousBatchingEngine:
 
     def _insert(self, sub: dict, i: int) -> None:
         """Splice a batch-1 prefill state's per-slot leaves (all leaves when
-        dense) into slot ``i``, in place."""
+        dense) into slot ``i``, in place, each along its own slot axis (axis
+        2 for a hybrid's ``(n_seg, every, B, ...)`` recurrent leaves)."""
         keys = self._slot_keys if self.allocator is not None else tuple(self._layout)
         for k in keys:
             ax = self._layout[k][0]

@@ -248,8 +248,26 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm: f32 mean and two-pass variance, normalized in f32, cast to
+    x's dtype before the affine step."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    d = xf - mu
+    var = torch.mean(d * d, dim=-1, keepdim=True)
+    norm = (d * torch.rsqrt(var + eps)).to(x.dtype)
+    return norm * w.to(x.dtype) + b.to(x.dtype)
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(gate.to(torch.float32)).to(gate.dtype) * up
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh-approximate GELU (``jax.nn.gelu``'s default; PyTorch's
+    default is the erf form)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 # ---------------------------------------------------------------------------
@@ -408,13 +426,25 @@ def update_cache_slot_stacked(cache: torch.Tensor, t: torch.Tensor, pos: torch.T
     cache[:, slots, row] = torch.where(ok, t[:, :, 0].to(cache.dtype), cache[:, slots, row])
 
 
+def qkv(p: nn.ModuleDict, x: torch.Tensor, fuse: bool = True) -> tuple:
+    """q, k, v of ``x``: one fused launch (:func:`linear_group`), or with
+    ``fuse=False`` one :func:`linear` each, as a block whose q/k/v the
+    reference keeps apart (zamba2's shared block)."""
+    if fuse:
+        return linear_group(p, ("q", "k", "v"), "qkv", x)
+    return tuple(linear(p[n], x) for n in ("q", "k", "v"))
+
+
 def attention_decode_ro(p: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig,
-                        k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor):
+                        k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
+                        fuse: bool = True):
     """Read-only-cache decode attention: each slot attends its own cache
-    prefix [0, pos_b) plus the current token. Returns (out, k_t, v_t)."""
+    prefix [0, pos_b) plus the current token (the reference's write-then-
+    attend over ``<= pos``, with this step's row apart). Returns (out, k_t,
+    v_t)."""
     b, sq, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, kt, vt = linear_group(p, ("q", "k", "v"), "qkv", x)
+    q, kt, vt = qkv(p, x, fuse)
     q = q.reshape(b, sq, h, hd)
     kt = kt.reshape(b, sq, kvh, hd)
     vt = vt.reshape(b, sq, kvh, hd)
@@ -514,16 +544,17 @@ def scatter_rows_pages(pool: torch.Tensor, t: torch.Tensor, bt: torch.Tensor,
 
 
 def paged_attn(p: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, kp: torch.Tensor,
-               vp: torch.Tensor, bt: torch.Tensor, pos: torch.Tensor):
+               vp: torch.Tensor, bt: torch.Tensor, pos: torch.Tensor, fuse: bool = True):
     """One layer's decode attention straight over the paged pools: ``x (B,
     sq, D)`` holds each slot's rows (sq > 1: a speculative draft stack),
     ``kp/vp (P, page, KV, hd)`` one layer's pools, ``pos (B,)`` the committed
     prefix lengths. Routes ``dispatch.paged_decode`` with ``commit=False``
     (the caller commits every layer's rows once); no dense view of the
-    cache is built on the kernel path. Returns (out, k_t, v_t) post-RoPE."""
+    cache is built on the kernel path. Returns (out, k_t, v_t) post-RoPE;
+    ``fuse`` as in :func:`qkv`."""
     b, sq, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = linear_group(p, ("q", "k", "v"), "qkv", x)
+    q, k, v = qkv(p, x, fuse)
     q = q.reshape(b, sq, h, hd)
     k = k.reshape(b, sq, kvh, hd)
     v = v.reshape(b, sq, kvh, hd)
@@ -584,6 +615,21 @@ def select_at_length(x: torch.Tensor, length) -> torch.Tensor:
                       0, x.shape[1] - 1)
     idx = idx.expand(x.shape[0]) if idx.numel() == 1 else idx
     return torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[2]))
+
+
+def gate_state_update(new_state: dict, old_state: dict, valid: torch.Tensor,
+                      b_axis: dict) -> dict:
+    """Each slot's state update kept only where ``valid`` (B,) is True (a
+    bucketed prefill gates recurrent-state updates off for pad steps).
+    ``b_axis`` maps each key to its slot axis as a negative offset from the
+    trailing dims, uniform across a family's stacked layouts."""
+    out = {}
+    for key, new in new_state.items():
+        ax = b_axis[key] % new.ndim
+        shape = [1] * new.ndim
+        shape[ax] = valid.shape[0]
+        out[key] = torch.where(valid.reshape(shape), new, old_state[key])
+    return out
 
 
 def prefill_pos(length, batch: int, s: int, device=None) -> torch.Tensor:

@@ -24,8 +24,8 @@ from repro_torch.models import common as C
 
 __all__ = ["DenseLayer", "DenseModel", "init_params", "forward", "forward_with_taps",
            "init_decode_state", "prefill", "decode_step", "ragged_step", "count_params",
-           "run_layers", "prefill_layers", "decode_layers", "ragged_layers", "gqa_prefill",
-           "gqa_decode"]
+           "run_layers", "prefill_layers", "decode_layers", "ragged_layers", "commit_rows",
+           "gqa_prefill", "gqa_decode"]
 
 
 class DenseLayer(nn.Module):
@@ -88,10 +88,6 @@ def _embed(params: DenseModel, tokens: torch.Tensor, patches=None) -> torch.Tens
     return x
 
 
-def _norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return C.per_draft_row(lambda y: C.rmsnorm(y, w, cfg.norm_eps), x)
-
-
 def _unembed(params: DenseModel, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = C.rmsnorm(x, params.ln_f, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -103,14 +99,28 @@ def _mlp(lp, h: torch.Tensor) -> torch.Tensor:
     return C.mlp_apply(lp.mlp, h)
 
 
-def _layer(lp, x: torch.Tensor, cfg: ModelConfig, attend, ffn, norm=None):
-    """One pre-norm decoder layer: ``attend(lp, h) -> (out, rows)`` on the
-    first norm's output, then ``ffn(lp, h)`` on the second's, each added to
-    the stream. Returns (x, rows): the layer's new cache rows by state key."""
-    norm = norm or (lambda y, w: C.rmsnorm(y, w, cfg.norm_eps))
-    att, rows = attend(lp, norm(x, lp.ln1))
-    x = x + att
-    return x + ffn(lp, norm(x, lp.ln2)), rows
+def _steps(attend) -> list:
+    """A layer's attention steps: one callable or a sequence of them."""
+    return list(attend) if isinstance(attend, (list, tuple)) else [attend]
+
+
+def _rms(cfg: ModelConfig):
+    return lambda y, w: C.rmsnorm(y, w, cfg.norm_eps)
+
+
+def _layer(lp, x: torch.Tensor, steps, norm):
+    """One pre-norm layer: step i, ``fn(lp, h) -> out`` or ``(out, rows)``,
+    runs on ``norm(x, lp.ln<i>)`` (``ln1``, ``ln2``, ... in order) and its
+    output is added to the stream. Returns (x, rows): the cache rows the
+    steps returned, by state key."""
+    rows = {}
+    for i, fn in enumerate(steps, 1):
+        out = fn(lp, norm(x, getattr(lp, f"ln{i}")))
+        if isinstance(out, tuple):
+            out, new = out
+            rows.update(new)
+        x = x + out
+    return x, rows
 
 
 def gqa_prefill(lp, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, mask=None,
@@ -134,24 +144,29 @@ def gqa_decode(lp, h: torch.Tensor, cfg: ModelConfig, cache: dict, bt, pos: torc
 
 
 def run_layers(params, cfg: ModelConfig, x: torch.Tensor, ffn,
-               attend=gqa_prefill) -> torch.Tensor:
-    """The causal forward's layers over the embedded ``x`` (B, S, D)."""
+               attend=gqa_prefill, norm=None) -> torch.Tensor:
+    """The causal forward's layers over the embedded ``x`` (B, S, D):
+    ``attend(lp, h, cfg, positions)`` (one step or a sequence of them, on
+    ``ln1``, ``ln2``, ...), then ``ffn(lp, h)`` on the next norm; ``norm(y,
+    w)`` is the layer's norm (RMSNorm by default)."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+    steps = [lambda l, h, a=a: a(l, h, cfg, positions) for a in _steps(attend)] + [ffn]
     for lp in params.layers:
-        x, _ = _layer(lp, x, cfg, lambda l, h: attend(l, h, cfg, positions), ffn)
+        x, _ = _layer(lp, x, steps, norm or _rms(cfg))
     return x
 
 
 def prefill_layers(params, cfg: ModelConfig, x: torch.Tensor, state: dict, ffn,
-                   attend=gqa_prefill, length=None, prefix=None):
+                   attend=gqa_prefill, length=None, prefix=None, norm=None):
     """The prefill layer loop of every family: the embedded prompt ``x`` (B,
     S, D) through ``params.layers`` (``attend(lp, h, cfg, positions, mask,
-    prefix)`` then ``ffn(lp, h)``), each layer's rows written into a copy of
-    its cache (every state key but ``pos``) from row 0. ``prefix`` =
-    {key: (L, B, m, ...)} is a cached prompt prefix: positions start at m,
-    queries see it whole (``C.prefix_attn_mask``) and ``pos`` counts it.
-    Returns (x, new_state); ``state`` itself is left unchanged."""
+    prefix)``, one step or a sequence of them, then ``ffn(lp, h)``; ``norm``
+    as in :func:`run_layers`), the rows each layer's steps return written
+    into a copy of its cache (every state key but ``pos``) from row 0.
+    ``prefix`` = {key: (L, B, m, ...)} is a cached prompt prefix: positions
+    start at m, queries see it whole (``C.prefix_attn_mask``) and ``pos``
+    counts it. Returns (x, new_state); ``state`` itself is left unchanged."""
     b, s, _ = x.shape
     off = 0 if prefix is None else next(iter(prefix.values())).shape[2]
     positions = off + torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
@@ -159,9 +174,11 @@ def prefill_layers(params, cfg: ModelConfig, x: torch.Tensor, state: dict, ffn,
     caches = {k: v.clone() for k, v in state.items() if k != "pos"}
     for i, lp in enumerate(params.layers):
         pre = None if prefix is None else {k: v[i] for k, v in prefix.items()}
-        x, rows = _layer(lp, x, cfg, lambda l, h: attend(l, h, cfg, positions, mask, pre), ffn)
+        steps = [lambda l, h, a=a: a(l, h, cfg, positions, mask, pre)
+                 for a in _steps(attend)] + [ffn]
+        x, rows = _layer(lp, x, steps, norm or _rms(cfg))
         for k, r in rows.items():
-            caches[k][i, :, :s] = r.to(caches[k].dtype)
+            caches[k][i, :, :r.shape[1]] = r.to(caches[k].dtype)
     return x, {**caches, "pos": off + C.prefill_pos(length, b, s, x.device)}
 
 
@@ -172,41 +189,56 @@ def _commit(state: dict, rows: dict, write) -> None:
         write(state[k], torch.stack(ts))
 
 
+def commit_rows(state: dict, rows: dict, pos: torch.Tensor, sq: int = 1) -> None:
+    """In place: each key's rows of this step, ``rows[key]`` (L, B, sq, ...)
+    stacked over the layers, into ``state[key]``'s dense cache at ``pos``
+    or, with a block table ``state["bt"]``, its pools."""
+    bt = state.get("bt")
+    if bt is None:
+        _commit(state, rows, lambda c, t: C.update_cache_slot_stacked(c, t, pos))
+        return
+    p0 = state[next(iter(rows))]
+    b = pos.shape[0]
+    slots = torch.arange(b, device=pos.device)[:, None].expand(b, sq).reshape(-1)
+    where = pool_rows(bt, slots, C.slot_positions(pos, b, sq).reshape(-1),
+                      p0.shape[2], p0.shape[1])
+    _commit(state, rows, lambda c, t: C.write_page_rows(
+        c, t.reshape(t.shape[0], b * sq, *t.shape[3:]), where))
+
+
 def decode_layers(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor, ffn,
-                  attend=gqa_decode):
+                  attend=gqa_decode, norm=None, embed=None, unembed=None):
     """The decode layer loop of every family: tokens (B, sq) -> (logits (B,
-    sq, V), state). ``attend(lp, h, cfg, cache, bt, pos)`` gets this layer's
-    slice of every cache key (pools when ``"bt"`` is in state) and returns
-    the step's rows by key; they are written into ``state``'s caches (dense)
-    or pools (paged) in place after all layers ran, and ``state["pos"]``
-    advances by sq in place: the returned state is ``state`` itself, its
-    tensors the same objects, so a captured step reads and writes the same
-    memory at every replay. The norms run one draft column at a time
+    sq, V), state). ``attend(lp, h, cfg, cache, bt, pos)`` (one step or a
+    sequence of them, on ``ln1``, ``ln2``, ..., then ``ffn`` on the next
+    norm) gets this layer's slice of every state key (pools when ``"bt"`` is
+    in state) and returns its output, or (output, the step's rows by key).
+    Only the keys a step returns as rows are written: into ``state``'s
+    caches (dense) or pools (paged), in place after all layers ran; the
+    other keys (an encoder's cross-attention rows) are read only.
+    ``state["pos"]`` advances by sq in place: the returned state is
+    ``state`` itself, its tensors the same objects, so a captured step reads
+    and writes the same memory at every replay. ``embed(tokens, pos)`` and
+    ``unembed(x)`` default to the token embedding and the head; the norms
+    (RMSNorm unless ``norm`` is given) run one draft column at a time
     (``C.per_draft_row``; see :func:`decode_step`)."""
-    x = C.embed_lookup(params.embed, tokens)
     b, sq = tokens.shape
     pos = C.slot_positions(state["pos"], b)[:, 0]
+    x = C.embed_lookup(params.embed, tokens) if embed is None else embed(tokens, pos)
     bt = state.get("bt")
     keys = [k for k in state if k not in ("pos", "bt")]
-    if bt is not None:  # where each row lands, found before the layers launch
-        p0 = state[keys[0]]
-        slots = torch.arange(b, device=x.device)[:, None].expand(b, sq).reshape(-1)
-        where = pool_rows(bt, slots, C.slot_positions(pos, b, sq).reshape(-1),
-                          p0.shape[2], p0.shape[1])
-    rows = {k: [] for k in keys}
+    rows: dict = {}
+    norm = norm or _rms(cfg)
     for i, lp in enumerate(params.layers):
         cache = {k: state[k][i] for k in keys}
-        x, new = _layer(lp, x, cfg, lambda l, h: attend(l, h, cfg, cache, bt, pos), ffn,
-                        lambda y, w: _norm(y, w, cfg))
-        for k in keys:
-            rows[k].append(new[k])
-    if bt is not None:
-        _commit(state, rows, lambda c, t: C.write_page_rows(
-            c, t.reshape(t.shape[0], b * sq, *t.shape[3:]), where))
-    else:
-        _commit(state, rows, lambda c, t: C.update_cache_slot_stacked(c, t, pos))
+        steps = [lambda l, h, a=a: a(l, h, cfg, cache, bt, pos) for a in _steps(attend)] + [ffn]
+        x, new = _layer(lp, x, steps,
+                        lambda y, w: C.per_draft_row(lambda z: norm(z, w), y))
+        for k, r in new.items():
+            rows.setdefault(k, []).append(r)
+    commit_rows(state, rows, pos, sq)
     state["pos"].copy_(pos + sq)
-    return _unembed(params, cfg, x), state
+    return (_unembed(params, cfg, x) if unembed is None else unembed(x)), state
 
 
 def ragged_layers(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
@@ -229,7 +261,7 @@ def ragged_layers(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
 
     rows = {"k": [], "v": []}
     for i, lp in enumerate(params.layers):
-        x, new = _layer(lp, x, cfg, attend(i), ffn)
+        x, new = _layer(lp, x, [attend(i), ffn], _rms(cfg))
         for k in rows:
             rows[k].append(new[k])
     _commit(state, rows, lambda c, t: C.write_page_rows(c, t, where))

@@ -144,3 +144,57 @@ def test_engine_keeps_its_state_tensors(params, mode):
     assert set(state) == ({"ckv", "krope", "pos", "bt"} if mode else {"ckv", "krope", "pos"})
     cs = eng.compile_stats()
     assert cs["graph_replays"] == 0 and eng.step_graph.steps == eng.stats["decode_steps"], cs
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's DeepSeek phase frees the bf16 model before serving
+# ---------------------------------------------------------------------------
+
+
+class _Served(Exception):
+    """Raised where the phase would start serving."""
+
+
+def test_chip_smoke_deepseek_phase_frees_the_bf16_model(monkeypatch):
+    """``chip_smoke.deepseek_phase`` drops every bf16 expert weight of the
+    init before it serves: at full width the MoE layer's experts are
+    22.5 GB, and the packs, engines and stacked ``w4a16_gemm`` stacks that
+    follow need that room on an 80 GB card."""
+    import gc
+    import sys
+    import weakref
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    cfg = get_config("deepseek-v3-671b", reduced=True).replace(
+        n_layers=2, first_k_dense=1, q_lora_rank=256, kv_lora_rank=224, qk_nope_dim=32,
+        qk_rope_dim=32, v_head_dim=64, n_heads=4, d_ff_expert=256, vocab=260)
+    experts = []
+    init = TDS.init_params
+
+    def init_params(*a, **k):
+        p = init(*a, **k)
+        experts.extend(weakref.ref(lin.w) for lp in p.layers if hasattr(lp.moe, "experts")
+                       for lin in lp.moe.experts.values())
+        return p
+
+    def served(*a, **k):
+        gc.collect()
+        live = sum(r() is not None for r in experts)
+        raise _Served(f"{live} of {len(experts)} bf16 expert weights alive")
+
+    monkeypatch.setattr(TDS, "init_params", init_params)
+    monkeypatch.setattr(chip_smoke, "DeepSeekServed", served)
+    for timer in ("graph_ms", "host_us", "cuda_ms"):
+        monkeypatch.setattr(chip_smoke, timer, lambda *a, **k: 1.0)
+    cps = {"dual_gemv": 8, "dual_gemv_group": 8, "dual_gemm": 32, "dual_gemm_group": 32}
+    monkeypatch.setattr(chip_smoke, "DS_KERNEL_RUN", dict(
+        chip_smoke.DS_KERNEL_RUN, cps=((8,), (32,)), table_cp=cps))
+    monkeypatch.setattr(chip_smoke, "DS_LINEAR_MS", (8, 32))
+    with pytest.raises(_Served, match="^0 of 3 bf16 expert weights alive"):
+        chip_smoke.deepseek_phase(torch.device("cpu"), "cpu", cfg, prompt_lens=(3, 6),
+                                  max_len=64, rank=32)

@@ -91,7 +91,7 @@ def test_config_registry_and_count_params():
     assert registry.get_model(cfg).decode_step is TO.decode_step
     assert registry.get_model(get_config("llama3-8b")).decode_step is TD.decode_step
     with pytest.raises(NotImplementedError, match="not ported"):
-        registry.get_model(cfg.replace(family="encdec"))
+        registry.get_model(cfg.replace(family="xlstm"))
     jcfg = JCfg(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
                    if f.name != "quant"})
     assert TO.count_params(cfg) == JO.count_params(jcfg)

@@ -1,8 +1,8 @@
 """The port's one-graph-per-step machinery (repro_torch: the fixed-shape row
 writers ``kernels/paged_attention.pool_rows`` / ``write_page_rows`` and
 ``models/common.update_cache_slot_stacked``, the in-place steps of
-``models/dense.py``, ``launch/step_graph.StepGraph`` and the engine's
-``step_graphs`` argument).
+``models/dense.py`` and of the ``encdec`` and ``mamba_hybrid`` families,
+``launch/step_graph.StepGraph`` and the engine's ``step_graphs`` argument).
 
 Tolerances: none. The writers copy bf16 rows, so they are held bit for bit
 to the masked writers they replace (kept here as the oracle) and to the
@@ -221,6 +221,41 @@ def test_engine_keeps_its_state_tensors(params, mode):
     cs = eng.compile_stats()
     assert cs["decode_graphs"] == cs["spec_graphs"] == cs["ragged_graphs"] == 0, cs
     assert cs["graph_replays"] == 0 and eng.step_graph.steps == eng.stats["decode_steps"], cs
+
+
+@pytest.mark.parametrize("name", ["whisper-base", "zamba2-1.2b"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_encdec_and_hybrid_decode_steps_keep_their_state(name, paged):
+    """Whisper's and Zamba2's decode steps return ``state`` itself, its
+    tensors the same objects: the self-attention rows (Whisper; the shared
+    block's, Zamba2) land in place, ``xk`` / ``xv`` are read only, the
+    ``ssm`` / ``conv`` slices are updated in place."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config(name, reduced=True)
+    model = get_model(cfg)
+    p = model.init_params(cfg, seed=1, device="cpu")
+    B, max_len = 2, 32
+    if paged:
+        state = C.init_paged_state(model.init_decode_state, cfg, B, max_len, 8, 8, "cpu")
+        state["bt"][0, :1] = torch.tensor([3], dtype=torch.int32)
+        state["bt"][1, :2] = torch.tensor([5, 1], dtype=torch.int32)
+    else:
+        state = model.init_decode_state(cfg, B, max_len, device="cpu")
+    state["pos"].copy_(torch.tensor([2, 9], dtype=torch.int32))
+    gen = torch.Generator().manual_seed(0)
+    for key in ("xk", "xv", "ssm"):
+        if key in state:
+            state[key].copy_(torch.randn(state[key].shape, generator=gen).to(state[key].dtype))
+    before, snap = dict(state), {k: v.clone() for k, v in state.items()}
+    logits, out = model.decode_step(p, cfg, state, torch.tensor([[5], [7]]))
+    assert out is state and _same_tensors(state, before)
+    assert state["pos"].tolist() == [3, 10] and tuple(logits.shape) == (B, 1, cfg.padded_vocab)
+    changed = {k for k in state if not torch.equal(state[k], snap[k])}
+    want = {"pos", "k", "v"} if name == "whisper-base" else {"pos", "ssm", "conv", "shared_k",
+                                                               "shared_v"}
+    assert changed == want, changed
 
 
 # ---------------------------------------------------------------------------
