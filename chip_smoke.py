@@ -11,6 +11,7 @@
     python3 chip_smoke.py --deepseek-only   # build, then DeepSeek-V3 (mla_moe)
     python3 chip_smoke.py --whisper-only    # build, then Whisper-base (encdec)
     python3 chip_smoke.py --zamba2-only     # build, then Zamba2-1.2B (mamba_hybrid)
+    python3 chip_smoke.py --xlstm-only      # build, the narrow-N tile, then xLSTM-1.3B
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -25,7 +26,15 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    wrapper's host µs per call, the plain version, a bf16 ``torch.matmul`` of
    the same (M, K) x (K, N) as a yardstick, and the least time the card
    could take; fused groups with odd ranks and segments that end mid-tile
-   take the kernels' masked paths; the weight-only ``w4a16_gemm`` at every llama3-8b shape
+   take the kernels' masked paths; the narrow-N tile (``narrow_phase``, K 4096,
+   N 8, rank 8 as xLSTM's gate linear, and a fused group whose narrow first
+   segment puts the second off the 16-byte grid; M in {1, 8, 9, 64, 256}):
+   the dual kernels ``torch.equal`` to their plain versions, ``w4a16_gemm``
+   per row within ``W4A16_REL_MAX`` of the f32 plain version and each row
+   equal to a one-row launch, every launch made again into a view of a
+   longer buffer and each one-row launch into a row with canary columns past
+   N (canaries untouched), and planted faults (rank lanes past r, a column
+   read past N, a store past N) caught; the weight-only ``w4a16_gemm`` at every llama3-8b shape
    and M in {1, 8, 32, 256, 512}, held per row to its plain version run in
    f32 (relative error <= ``W4A16_REL_MAX``, a check two planted faults must
    fail) and to the bf16 plain version at ``W4A16_TOL``, each row
@@ -214,7 +223,20 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    linears 2 a Mamba block and 7 a shared-block invocation a model step, a
    prefill the forward plus one step a bucket row; W4A16 2 and 8; the paged
    kernel once an invocation a step), with each prompt's prefill ms a
-   bucket row (the reference's per-token state fill).
+   bucket row (the reference's per-token state fill);
+12. xlstm-1.3b — the ``xlstm`` family at full width (d_model 2048, d_inner
+   4096, 4 heads, dqk 512, dv 1024, vocab 50304) and depth ``XLSTM_LAYERS``
+   (8 of 48: one segment of 7 mLSTM + 1 sLSTM blocks), random weights
+   from seed 0, ``max_len`` 512, prompts ``XLSTM_PROMPTS`` (3 … 300 tokens:
+   the 300-token prompt fills bucket 512, whose trunk runs two 256-row
+   chunks); W4A4 and W4A16 packs through their kernels at every served M
+   (``XLSTM_LINEAR_MS``: the prefill's per-token steps 1, decode 8, the
+   trunk's 256 and 512; the gate linear ``wif`` N = 8 through the narrow
+   tile); W4A4 served bucketed and paged, W4A16 paged, with phase 11's serve
+   checks (the linears 6 an mLSTM and 3 an sLSTM block a model step, W4A16
+   6 and 4; no attention), the paged run's layout the dense per-slot one (no
+   pool, allocator or block table), paged == bucketed tokens bit for bit,
+   every W4A4 bucketed request == its prompt served alone.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -227,8 +249,9 @@ W4A4 packs), ``--calib-only`` (phases 1-2, then phase 6) and
 ``--olmoe-only`` (phases 1-2, then phase 7), ``--dense-only`` (phases
 1-2, then phase 8; with ``--olmoe-only``, 7 then 8), ``--deepseek-only``
 (phases 1-2, then phase 9), ``--whisper-only`` (phases 1-2, then phase 10)
-and ``--zamba2-only`` (phases 1-2, then phase 11; any of these flags
-together run their phases in that order);
+``--zamba2-only`` (phases 1-2, then phase 11) and ``--xlstm-only``
+(phases 1-2, the narrow-N tile of phase 3, then phase 12; any of these
+flags together run their phases in that order);
 ``--timing-only`` times the four dual wrappers at their table cases,
 ``w4a16_gemm`` at the four llama3-8b shapes and M in
 ``W4A16_MS``, the paged decode kernel at its table case (sq 1 and 4,
@@ -260,8 +283,8 @@ BF16_OPS_S = 9.89e14  # H100 SXM dense bf16 tensor-core rate
 # phase included, well inside its limit (PERF.md section 4)
 SERVE_LAYERS = 16
 # qwen3-8b's 36 layers cut to keep the whole script under ~1100 s (8 until
-# DeepSeek-V3's phase came; PERF.md section 4)
-QWEN_LAYERS = 4
+# DeepSeek-V3's phase came, 4 until xLSTM-1.3B's; PERF.md section 4)
+QWEN_LAYERS = 2
 
 KERNELS = {
     # wrapper name -> (source, TPU kernel it replaces)
@@ -831,6 +854,184 @@ def w4a16_phase(device) -> dict:
     print(f"kernel w4a16_gemm max rel per row vs the f32 plain version {worst_rel:.5f} "
           f"(limit {W4A16_REL_MAX})", flush=True)
     return {"w4a16_gemm": dict(max_abs_err=worst_err, **rep)}
+
+
+# ---------------------------------------------------------------------------
+# phase 3a: the narrow-N tile (xLSTM's gate linear wif: K 4096, N 8, rank 8)
+# ---------------------------------------------------------------------------
+
+NARROW = dict(k=4096, n=8, r=8)
+NARROW_MS = (1, 8, 9, 64, 256)
+# a fused group with a narrow segment first: segment 1 starts at column 8
+# and rank lane 8, so its tiles, packed rows and Hq rows sit off the 16-byte grid
+NARROW_GROUP = dict(k=4096, seg_n=(8, 64), seg_r=(8, 32))
+CANARY_PAD = 64  # bf16 guard elements before and after each output (128 bytes)
+CANARY = -7.5
+
+
+def _launch_dual_into(name: str, x, w, out, h_planes: int) -> None:
+    """The dual wrapper's launch (``cuda_launch.launch_dual``) with the
+    output written into ``out``, a view the caller owns."""
+    import torch
+
+    from repro_torch.kernels import cuda_launch as CL
+
+    lib = "twinquant_dual_gemv" if name.startswith("dual_gemv") else "twinquant_dual_gemm"
+    fn = "tq_dual_gemv" if name.startswith("dual_gemv") else "tq_dual_gemm"
+    pa = CL.pack_args(w, name)
+    m, k = x.shape
+    total, offs = CL.scratch_layout(m, k, pa, h_planes)
+    scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
+    args = CL.dual_args(x.data_ptr(), m, k, pa, scratch.data_ptr(), offs, out.data_ptr(),
+                        CL.expert_strides(m, k, pa, h_planes))
+    CL.run_kernel(name, lib, fn, CL._DUAL_ARGS, args, x.device)
+
+
+def _launch_w4a16_into(x, wp, ws, out) -> None:
+    from repro_torch.kernels import cuda_launch as CL
+    from repro_torch.kernels import w4a16_gemm as W
+
+    m, k = x.shape
+    CL.run_kernel("w4a16_gemm", "w4a16_gemm", "w4a16_gemm", W._ARGS,
+                  [x.data_ptr(), wp.data_ptr(), ws.data_ptr(), out.data_ptr(), 1, m,
+                   wp.shape[-1], k, 128, 0, 0, 0, 0], x.device)
+
+
+def _canary_buffers(m: int, n: int, device):
+    """(buf, out, rows): ``out`` (M, N) a view inside ``buf`` with
+    ``CANARY_PAD`` guard elements before and after it; ``rows`` (M, 2N), each
+    row's columns N.. a canary, the target of one-row launches."""
+    import torch
+
+    buf = torch.full((m * n + 2 * CANARY_PAD,), CANARY, dtype=torch.bfloat16, device=device)
+    rows = torch.full((m, 2 * n), CANARY, dtype=torch.bfloat16, device=device)
+    return buf, buf[CANARY_PAD:CANARY_PAD + m * n].view(m, n), rows
+
+
+def _canaries_ok(buf, rows, m: int, n: int) -> bool:
+    edge = [buf[:CANARY_PAD], buf[CANARY_PAD + m * n:], rows[:, n:]]
+    return all(bool((t == CANARY).all()) for t in edge)
+
+
+def narrow_phase(device) -> dict:
+    """The narrow-N tile at xLSTM's gate linear (K 4096, N 8, rank 8 /
+    rgroup 8) and at a fused group with a narrow first segment, M in
+    ``NARROW_MS``: the dual kernels ``torch.equal`` to their plain versions,
+    ``w4a16_gemm`` per row within ``W4A16_REL_MAX`` of the f32 plain version
+    and each row ``torch.equal`` to a one-row launch. Each launch is made
+    again into a view of a longer buffer (``CANARY_PAD`` guard elements on
+    either side) and each one-row launch into a row of an (M, 2N) buffer
+    whose columns N.. are canaries: the outputs equal, the canaries
+    untouched. Planted faults, each caught: a rank lane read past the edge
+    (the plain version with rank lanes 8..15 holding another pack's values),
+    an N column read past the edge (``w4a16_gemm``'s plain version reading
+    each packed row 8 bytes on) and a store past N (one canary written).
+    At M = 8 and 256 each wrapper's device ms (CUDA graph) beside its
+    plain version, one bf16 ``torch.matmul`` and its bound. Returns those
+    readings."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.twinquant_dual_gemm import dual_gemm, dual_gemm_group
+    from repro_torch.kernels.twinquant_dual_gemv import dual_gemv, dual_gemv_group
+    from repro_torch.kernels.w4a16_gemm import w4a16_gemm
+
+    cuda = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(24)
+    k, n, r = NARROW["k"], NARROW["n"], NARROW["r"]
+    w = make_pack(gen, k, n, r, device)
+    if (w.rank, w.rgroup) != (r, r):
+        fail(f"narrow pack: rank {w.rank} rgroup {w.rgroup}, want {r} / {r}")
+    other = make_pack(gen, k, n, r, device)
+    # the fault: rank lanes r .. 2r read as another pack's lanes
+    w_fault = ref.TwinQuantWeights(
+        torch.cat([w.up, other.up], dim=1), torch.cat([w.us, other.us], dim=1),
+        torch.cat([w.vp, other.vp]), torch.cat([w.vs, other.vs]), w.rp, w.rs, w.group, r,
+        w.a_bits)
+    gw = ref.fuse_twinquant_weights([make_pack(gen, NARROW_GROUP["k"], nj, rj, device)
+                                     for nj, rj in zip(NARROW_GROUP["seg_n"],
+                                                       NARROW_GROUP["seg_r"])])
+    wp, ws = _w4a16_pack(gen, k, n, device)
+    flat = wp.reshape(-1)
+    wp_fault = torch.cat([flat[n:], flat[:n]]).view(wp.shape)  # each row read 8 bytes on
+    out, worst = {}, 0.0
+    for m in NARROW_MS:
+        x = (torch.randn(m, k, generator=gen, device=device) * 2).to(torch.bfloat16)
+        single, group = (dual_gemv, dual_gemv_group) if m <= 8 else (dual_gemm, dual_gemm_group)
+        for name, kern, pack, plain in (
+                (single.__name__, single, w, ref.dual_gemm_ref),
+                (group.__name__, group, gw, ref.dual_gemm_group_ref)):
+            y_k, y_p = kern(x, pack), plain(x, pack)
+            _sync(device)
+            if not torch.equal(y_k, y_p):
+                fail(f"narrow {name} M={m} N={list(getattr(pack, 'seg_n', (n,)))}: kernel != "
+                     f"plain version ({_unequal(y_k, y_p)})")
+            if cuda:
+                nn_ = y_k.shape[1]
+                buf, into, rows = _canary_buffers(m, nn_, device)
+                planes = k // 128 if m <= 8 else 1
+                _launch_dual_into(name, x, pack, into, planes)
+                for i in range(min(m, 8)):
+                    gv = "dual_gemv_group" if pack is gw else "dual_gemv"
+                    _launch_dual_into(gv, x[i:i + 1].contiguous(), pack, rows[i, :nn_], k // 128)
+                _sync(device)
+                if not torch.equal(into, y_k) or not torch.equal(rows[:min(m, 8), :nn_],
+                                                                 y_k[:min(m, 8)]):
+                    fail(f"narrow {name} M={m}: the launch into a canary buffer != the wrapper's")
+                if not _canaries_ok(buf, rows, m, nn_):
+                    fail(f"narrow {name} M={m}: a canary past the output was overwritten")
+        y_f = ref.dual_gemm_ref(x, w_fault)
+        if torch.equal(y_f, dual_gemv(x, w) if m <= 8 else dual_gemm(x, w)):
+            fail(f"planted fault (narrow rank lanes {r}..{2 * r} read) not caught at M={m}")
+        y_k = w4a16_gemm(x, wp, ws)
+        y32 = ref.w4a16_gemm_f32(x, wp, ws)
+        rel = _rel_rows(y_k, y32).max().item()
+        worst = max(worst, rel)
+        if not rel <= W4A16_REL_MAX:
+            fail(f"narrow w4a16_gemm M={m}: kernel vs f32 plain version rel {rel} per row > "
+                 f"{W4A16_REL_MAX}")
+        one = torch.cat([w4a16_gemm(x[i:i + 1], wp, ws) for i in range(m)])
+        if not torch.equal(one, y_k):
+            fail(f"narrow w4a16_gemm M={m}: rows differ from one-row launches")
+        rel_f = _rel_rows(ref.w4a16_gemm_f32(x, wp_fault, ws), y32).max().item()
+        if not rel_f > W4A16_REL_MAX:
+            fail(f"planted fault (narrow w4a16 column read past N) passes: rel {rel_f}")
+        if cuda:
+            buf, into, rows = _canary_buffers(m, n, device)
+            _launch_w4a16_into(x, wp, ws, into)
+            for i in range(min(m, 8)):
+                _launch_w4a16_into(x[i:i + 1].contiguous(), wp, ws, rows[i, :n])
+            _sync(device)
+            if not torch.equal(into, y_k) or not torch.equal(rows[:min(m, 8), :n],
+                                                             y_k[:min(m, 8)]):
+                fail(f"narrow w4a16_gemm M={m}: the launch into a canary buffer != the wrapper's")
+            if not _canaries_ok(buf, rows, m, n):
+                fail(f"narrow w4a16_gemm M={m}: a canary past the output was overwritten")
+            stray = buf.clone()
+            stray[CANARY_PAD + m * n] = 0.0  # a store one column past N of the last row
+            if _canaries_ok(stray, rows, m, n):
+                fail("planted fault (a store past N) not caught by the canary check")
+        if cuda and m in (8, 256):
+            kern = dual_gemv if m <= 8 else dual_gemm
+            wb = torch.randn(k, n, generator=gen, device=device).to(torch.bfloat16)
+            lib = graph_ms(lambda: torch.matmul(x, wb))
+            t_d, by_d = bound(m, k, ref.as_group(w))
+            nbytes = k * n // 2 + (k // 128) * n * 4 + m * k * 2 + m * n * 2
+            t_w, t_o = nbytes / HBM_BYTES_S * 1e3, 2 * m * n * k / BF16_OPS_S * 1e3
+            out[f"{kern.__name__} M={m}"] = dict(
+                ms=graph_ms(lambda: kern(x, w)), library_ms=lib, bound_ms=t_d, bound_by=by_d,
+                plain_ms=cuda_ms(lambda: ref.dual_gemm_ref(x, w), iters=3, warmup=1))
+            out[f"w4a16_gemm M={m}"] = dict(
+                ms=graph_ms(lambda: w4a16_gemm(x, wp, ws)), library_ms=lib,
+                bound_ms=max(t_w, t_o), bound_by="bytes" if t_w >= t_o else "operations",
+                plain_ms=cuda_ms(lambda: ref.w4a16_gemm_ref(x, wp, ws), iters=3, warmup=1))
+        print(f"kernel narrow M={m:3d} K={k} N={n} r={r}: dual == plain, group N="
+              f"{list(NARROW_GROUP['seg_n'])} r={list(NARROW_GROUP['seg_r'])} == plain; "
+              f"w4a16 max rel per row {rel:.5f} (limit {W4A16_REL_MAX}), rows == one-row "
+              f"launches; canaries untouched; planted faults (rank lanes past r, a column "
+              f"read past N: rel {rel_f:.4f}, a store past N) caught", flush=True)
+    print(f"kernel narrow times (device ms, CUDA graph) {json.dumps(out)}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1552,7 +1753,8 @@ CHECK_STEP = 6
 STEP_TIMED = {("w4a16", "paged"), ("w4a4", "paged"), ("w4a4", "ragged"),
               ("olmoe w4a4", "paged"), ("olmoe w4a16", "paged"), ("deepseek w4a4", "paged"),
               ("deepseek w4a16", "paged"), ("whisper w4a4", "paged"), ("whisper w4a16", "paged"),
-              ("zamba2 w4a4", "paged"), ("zamba2 w4a16", "paged")}
+              ("zamba2 w4a4", "paged"), ("zamba2 w4a16", "paged"), ("xlstm w4a4", "paged"),
+              ("xlstm w4a16", "paged")}
 STEP_REPS = 10
 # profiler name prefixes of the hand-written kernels (csrc/*.cu)
 HANDWRITTEN = ("tq_", "pd_", "rg_", "w4a16_")
@@ -1726,6 +1928,8 @@ class Served:
         self.outs: dict = {}
         self.launches: dict = {}
         self.step_times: dict = {}
+        # the prompts a mode's run serves again alone (solo == interleaved)
+        self.solo_held: dict = {}
         # a tree before step graphs (``--src`` of a parent) serves eagerly
         self.graphs = "step_graphs" in inspect.signature(ContinuousBatchingEngine).parameters
         print(f"serve {tag} param_bytes={_param_bytes(qp)}", flush=True)
@@ -1940,7 +2144,8 @@ class Served:
         # the kernels give a row the same bits however it is batched, while
         # the plain attention (a CPU rehearsal) keeps the reference's
         # multi-chunk f32 reassociation, so there only the short one is held.
-        held = ((len(self.prompts) - 1, 0) if cuda else (0,)) if mode == "ragged" else (5,)
+        held = ((len(self.prompts) - 1, 0) if cuda else (0,)) if mode == "ragged" else (
+            self.solo_held.get(mode, (5,)))
         solo_eng = self.engine(mode)
         for i in held:
             solo = self.request(i)
@@ -3016,8 +3221,8 @@ def calibration_phase(device, card: str, cfg, rows: int = CALIB_ROWS, steps=CALI
 # ---------------------------------------------------------------------------
 
 # OLMoE-1B-7B's 16 layers cut to keep the whole script under ~1100 s (8
-# until DeepSeek-V3's phase came; PERF.md section 4)
-OLMOE_LAYERS = 4
+# until DeepSeek-V3's phase came, 4 until xLSTM-1.3B's; PERF.md section 4)
+OLMOE_LAYERS = 2
 OLMOE_CF = 8.0  # capacity_factor at which nothing drops: Cp >= T at E / top_k = 8
 MOE_GEMV_CPS = (8,)  # decode (B = 8) and the prefill bucket 8 at either capacity factor
 # Cp of every stacked GEMM the served runs launch. At OLMOE_CF (Cp = T): spec
@@ -3496,8 +3701,9 @@ def olmoe_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
 # ---------------------------------------------------------------------------
 
 # depth of each config's run, cut to keep the whole script under ~1100 s
-# (qwen2-1.5b whole until DeepSeek-V3's phase came; PERF.md section 4)
-DENSE_LAYERS = {"qwen2-1.5b": 14, "stablelm-12b": 4, "phi4-mini-3.8b": 6,
+# (qwen2-1.5b whole until DeepSeek-V3's phase came, stablelm-12b 4 until
+# xLSTM-1.3B's; PERF.md section 4)
+DENSE_LAYERS = {"qwen2-1.5b": 14, "stablelm-12b": 2, "phi4-mini-3.8b": 6,
                 "internlm2-1.8b": 8, "internvl2-2b": 8}
 # the engine modes each config is served in (paged, with the prefix cache,
 # unless named here)
@@ -4508,6 +4714,139 @@ def zamba2_phase(device, card: str, cfg, prompt_lens=ZAMBA_PROMPTS,
     return table
 
 
+# ---------------------------------------------------------------------------
+# phase 12: xlstm-1.3b (mLSTM blocks with periodic sLSTM blocks; purely
+# recurrent state, so its paged mode is the dense per-slot layout)
+# ---------------------------------------------------------------------------
+
+# xlstm-1.3b's 48 layers cut to 8: one whole segment of 7 mLSTM + 1 sLSTM
+# blocks. Its prefill fills the state one eager decode step per bucket row,
+# 26-71 ms a row at 16 layers (two segments), which took the phase to
+# 148.8 s and the whole script past ~1100 s (PERF.md section 4); the state
+# crossing a segment boundary is held on the CPU (tests/test_torch_xlstm*.py)
+XLSTM_LAYERS = 8
+XLSTM_MAX_LEN = 512
+# buckets 8 .. 512; the 300-token prompt fills bucket 512, whose trunk runs
+# two 256-row chunks of the chunkwise mLSTM (the carried inter-chunk state)
+XLSTM_PROMPTS = (3, 6, 8, 12, 20, 30, 40, 300, 9, 16, 10, 5)
+# rows the served runs give the linears: the prefill's per-token steps (1),
+# decode (8 slots), the trunk over prompts padded to 256 and 512 rows
+XLSTM_LINEAR_MS = (1, 8, 256, 512)
+
+
+class XLSTMServed(FamilyServed):
+    """``xlstm-1.3b`` served as :class:`FamilyServed` does, with no
+    attention: the paged run's layout is checked (no pool, allocator or
+    block table: the dense per-slot state) where the other families check
+    the paged kernel, and the paged tokens must equal the bucketed ones bit
+    for bit (the same step on the same layout)."""
+
+    def kernel_step(self, eng) -> None:
+        import torch
+
+        from repro_torch.models.registry import get_model
+
+        want = get_model(self.cfg).init_decode_state(self.cfg, eng.batch, self.max_len,
+                                                     device="meta")
+        shapes = {k: tuple(v.shape) for k, v in eng.state.items()}
+        if (eng.allocator is not None or eng.prefix_cache is not None or eng.n_pages
+                or shapes != {k: tuple(v.shape) for k, v in want.items()}
+                or any(not isinstance(v, torch.Tensor) for v in eng.state.values())):
+            fail(f"{self.tag} paged: not the dense per-slot layout: allocator "
+                 f"{eng.allocator}, n_pages {eng.n_pages}, state {shapes}")
+        print(f"serve {self.tag} paged layout: no page pool, allocator or block table; the "
+              f"state is the dense per-slot one ({len(shapes)} leaves, "
+              f"{sum(v.numel() * v.element_size() for v in eng.state.values())} bytes)",
+              flush=True)
+
+    def layouts_agree(self) -> None:
+        want, got = self.outs["bucketed"], self.outs["paged"]
+        diff = [i for i, (a, b) in enumerate(zip(want, got)) if a.out != b.out]
+        if diff:
+            fail(f"{self.tag}: paged tokens != bucketed tokens for requests {diff}")
+        print(f"serve {self.tag} paged == bucketed tokens: equal ({len(got)} requests, "
+              f"bit for bit)", flush=True)
+
+
+def xlstm_phase(device, card: str, cfg, prompt_lens=XLSTM_PROMPTS,
+                max_len: int = XLSTM_MAX_LEN, rank: int = 128) -> dict:
+    """xlstm-1.3b at full width (d 2048, d_inner 4096, 4 heads, dqk 512, dv
+    1024, vocab 50304) and ``cfg``'s depth (``XLSTM_LAYERS``), random
+    weights from seed 0: W4A4 (fused: the sLSTM ffn's gate/up) and W4A16
+    packs, every linear (the gate linear ``wif``, N = 8, among them) through
+    its kernel at every served M; W4A4 served bucketed and paged (the dense
+    per-slot layout), W4A16 paged, with the serve phase's checks (routes, no
+    plain-version route, launches per model call, one capture, graph step
+    == eager step), no prefix-cache lookup, paged == bucketed tokens, every
+    W4A4 bucketed request == the same prompt served alone, and the ragged
+    and speculative fallbacks; each prompt's prefill ms per bucket row.
+    Returns the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import QuantSpec
+    from repro_torch.core.twinquant import fuse_params, quantize_params
+    from repro_torch.models import xlstm
+
+    t0 = time.perf_counter()
+    n_seg, m_per = xlstm._segments(cfg)
+    d_inner, h, dh = xlstm._dims(cfg)
+    print(f"xlstm config {cfg.name} family={cfg.family} d_model={cfg.d_model} d_inner={d_inner} "
+          f"heads={h} dqk={xlstm._qk_dim(cfg)} dv={dh} vocab={cfg.vocab} n_layers={cfg.n_layers} "
+          f"(segments {n_seg} x ({m_per} mLSTM + 1 sLSTM)) max_len={max_len} card=\"{card}\"",
+          flush=True)
+    params = xlstm.init_params(cfg, seed=0, device=device)
+    _sync(device)
+    ti = time.perf_counter()
+    qp = fuse_params(quantize_params(params, cfg, QuantSpec("w4a4", rank=rank, group_size=128)))
+    _sync(device)
+    tq = time.perf_counter()
+    qp16 = quantize_params(params, cfg, QuantSpec("w4a16"))
+    _sync(device)
+    total, _ = xlstm.count_params(cfg)
+    wif = qp.m_layers[0][0].wif
+    print(f"xlstm params={total} (count_params at {cfg.n_layers} layers) param_bytes bf16="
+          f"{_param_bytes(params)} w4a4={_param_bytes(qp)} w4a16={_param_bytes(qp16)}; wif pack "
+          f"K={wif.up.shape[0] * 2} N={wif.rp.shape[1]} rank={wif.up.shape[1]} rgroup="
+          f"{wif.rgroup}; init_s={ti - t0:.2f} w4a4_quantize_s={tq - ti:.2f} "
+          f"w4a16_quantize_s={time.perf_counter() - tq:.2f}", flush=True)
+    del params
+    family_linears_phase("xlstm", device, qp, qp16, XLSTM_LINEAR_MS)
+    t2 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
+    n_m = n_seg * m_per
+    # per model step: up, wq, wk, wv, wif and down an mLSTM block; w, the
+    # ffn's gate_up and down an sLSTM block. A prefill is the trunk and one
+    # step per bucket row
+    step4 = 6 * n_m + 3 * n_seg
+    w4 = XLSTMServed("xlstm w4a4", cfg, qp, "w4a4", prompts, device, max_len,
+                     per_step=step4, per_prefill=lambda b: (1 + b) * step4, att_per_step=0)
+    w4.solo_held["bucketed"] = tuple(range(len(prompts)))
+    w4.prefill_logits()
+    for mode in FAMILY_MODES:
+        w4.serve(mode)
+    w4.layouts_agree()
+    w4.fallbacks()
+    _family_step_times(w4)
+    launches = {k: v for k, v in w4.launches.items() if k != "paged_decode_kernel"}
+    del w4, qp
+    t3 = time.perf_counter()
+    step16 = 6 * n_m + 4 * n_seg  # gate and up apart
+    w16 = XLSTMServed("xlstm w4a16", cfg, qp16, "w4a16", prompts, device, max_len,
+                      per_step=step16, per_prefill=lambda b: (1 + b) * step16, att_per_step=0)
+    w16.serve("paged")
+    _family_step_times(w16)
+    launches["w4a16_gemm"] = w16.launches["w4a16_gemm"]
+    del w16, qp16
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    print(f"xlstm phase seconds: init_quantize_linears {t2 - t0:.1f} w4a4_serve {t3 - t2:.1f} "
+          f"w4a16_serve {t4 - t3:.1f}", flush=True)
+    print(f"xlstm tables {json.dumps({'launches': launches})}", flush=True)
+    return launches
+
+
 def main() -> None:
     import argparse
 
@@ -4538,6 +4877,9 @@ def main() -> None:
                     help="build, then run the Whisper-base phase alone (no result line)")
     ap.add_argument("--zamba2-only", action="store_true",
                     help="build, then run the Zamba2-1.2B phase alone (no result line)")
+    ap.add_argument("--xlstm-only", action="store_true",
+                    help="build, then run the narrow-tile kernel checks and the xLSTM-1.3B "
+                         "phase alone (no result line)")
     ap.add_argument("--src", metavar="DIR",
                     help="import repro_torch from DIR (another tree's src) instead")
     args = ap.parse_args()
@@ -4568,6 +4910,7 @@ def main() -> None:
         return
     if args.dual_only:
         kernel_phase(device)
+        narrow_phase(device)
         print("dual kernel phase ok", flush=True)
         return
     if args.ragged_serve:
@@ -4583,7 +4926,7 @@ def main() -> None:
         print(f"calib phase total seconds {time.perf_counter() - t:.1f}", flush=True)
         return
     if (args.olmoe_only or args.dense_only or args.deepseek_only or args.whisper_only
-            or args.zamba2_only):
+            or args.zamba2_only or args.xlstm_only):
         from repro_torch.configs import get_config
 
         if args.olmoe_only:
@@ -4606,6 +4949,11 @@ def main() -> None:
             t = time.perf_counter()
             zamba2_phase(device, card, get_config("zamba2-1.2b").replace(n_layers=ZAMBA_LAYERS))
             print(f"zamba2 phase total seconds {time.perf_counter() - t:.1f}", flush=True)
+        if args.xlstm_only:
+            t = time.perf_counter()
+            narrow_phase(device)
+            xlstm_phase(device, card, get_config("xlstm-1.3b").replace(n_layers=XLSTM_LAYERS))
+            print(f"xlstm phase total seconds {time.perf_counter() - t:.1f}", flush=True)
         return
     if args.lifecycle_only:
         from repro_torch.configs import QuantSpec, get_config
@@ -4624,6 +4972,7 @@ def main() -> None:
     t = time.perf_counter()
     table = kernel_phase(device)
     table.update(w4a16_phase(device))
+    narrow_phase(device)
     table.update(attention_phase(device))
     secs["kernels"] = time.perf_counter() - t
     from repro_torch.configs import get_config
@@ -4659,6 +5008,10 @@ def main() -> None:
     t = time.perf_counter()
     zamba2_phase(device, card, get_config("zamba2-1.2b").replace(n_layers=ZAMBA_LAYERS))
     secs["zamba2_1_2b"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    xlstm_phase(device, card, get_config("xlstm-1.3b").replace(n_layers=XLSTM_LAYERS))
+    secs["xlstm_1_3b"] = time.perf_counter() - t
     print(f"phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
 
     rows = []

@@ -4,7 +4,8 @@
 ``qwen3-8b``, and ``qwen2-1.5b``, ``stablelm-12b``, ``phi4-mini-3.8b``,
 ``internlm2-1.8b``; ``moe``: ``olmoe-1b-7b``; ``mla_moe``:
 ``deepseek-v3-671b``; ``vlm``: ``internvl2-2b``; ``encdec``:
-``whisper-base``; ``mamba_hybrid``: ``zamba2-1.2b``).
+``whisper-base``; ``xlstm``: ``xlstm-1.3b``; ``mamba_hybrid``:
+``zamba2-1.2b``): every arch of the reference's ``ARCH_IDS``.
 
 ``get_config(name)`` returns the full-scale config, ``get_config(name,
 reduced=True)`` the small smoke-test reduction (same code paths).
@@ -38,10 +39,11 @@ class QuantSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Model configuration: a decoder-only transformer (dense or MoE FFN;
-    GQA or MLA attention), an encoder-decoder, or a Mamba2 hybrid."""
+    GQA or MLA attention), an encoder-decoder, an xLSTM or a Mamba2
+    hybrid."""
 
     name: str = ""
-    family: str = "dense"  # dense | moe | mla_moe | vlm | encdec | mamba_hybrid
+    family: str = "dense"  # dense | moe | mla_moe | vlm | encdec | xlstm | mamba_hybrid
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -74,6 +76,9 @@ class ModelConfig:
     n_frames: int = 0  # encoder frontend stub: precomputed frame embeddings
     # VLM: patch embeddings the frontend stub prepends to the prompt
     n_patches: int = 0
+    # xLSTM
+    slstm_every: int = 0  # every k-th block is sLSTM (0 = pure mLSTM)
+    xlstm_proj_factor: float = 2.0
     # Mamba2 / hybrid (zamba2)
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -81,6 +86,8 @@ class ModelConfig:
     ssm_head_dim: int = 64
     shared_attn_every: int = 0  # zamba2: shared attention block cadence
     quant: QuantSpec = QuantSpec()
+    # training (read by no serving path of the port; kept for parity)
+    remat: bool = True
 
     @property
     def padded_vocab(self) -> int:
@@ -100,23 +107,39 @@ class ModelConfig:
         """Can this arch serve a 500k context (O(1) recurrent state)?"""
         return self.family in ("xlstm", "mamba_hybrid")
 
+    @property
+    def has_decoder(self) -> bool:
+        return True  # no encoder-only arch among ARCH_IDS
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def active_params(self) -> int:
+        """Dense-equivalent active parameter count (MoE: the routed top-k)."""
+        from repro_torch.models.registry import count_active_params
+
+        return count_active_params(self)
+
+    def total_params(self) -> int:
+        from repro_torch.models.registry import count_total_params
+
+        return count_total_params(self)
 
 
 _REGISTRY: dict[str, ModelConfig] = {}
 _REDUCED: dict[str, ModelConfig] = {}
 
-# the reference's ARCH_IDS in its order, less the families not ported yet
+# the reference's ARCH_IDS, in its order
 ARCH_IDS = ["olmoe-1b-7b", "deepseek-v3-671b", "qwen2-1.5b", "stablelm-12b", "phi4-mini-3.8b",
-            "internlm2-1.8b", "internvl2-2b", "whisper-base", "zamba2-1.2b", "llama3-8b",
-            "qwen3-8b"]
+            "internlm2-1.8b", "internvl2-2b", "whisper-base", "xlstm-1.3b", "zamba2-1.2b",
+            "llama3-8b", "qwen3-8b"]
 
 _MODULES = {"llama3-8b": "llama3_8b", "qwen3-8b": "qwen3_8b", "qwen2-1.5b": "qwen2_1_5b",
             "stablelm-12b": "stablelm_12b", "phi4-mini-3.8b": "phi4_mini_3_8b",
             "internlm2-1.8b": "internlm2_1_8b", "olmoe-1b-7b": "olmoe_1b_7b",
             "internvl2-2b": "internvl2_2b", "deepseek-v3-671b": "deepseek_v3_671b",
-            "whisper-base": "whisper_base", "zamba2-1.2b": "zamba2_1_2b"}
+            "whisper-base": "whisper_base", "xlstm-1.3b": "xlstm_1_3b",
+            "zamba2-1.2b": "zamba2_1_2b"}
 
 
 def register(full: ModelConfig, reduced: ModelConfig) -> None:

@@ -120,15 +120,6 @@ static inline int tq_hs_cols(const TqSegs& s) {
   return hs;
 }
 
-// Segment that owns output column c (tiles never straddle segments).
-__device__ __forceinline__ int tq_owner(const TqSegs& s, int c) {
-  int j = 0;
-#pragma unroll
-  for (int t = 1; t < TQ_MAX_SEGS; ++t)
-    if (t < s.n && c >= s.n_off[t]) j = t;
-  return j;
-}
-
 // ---------------------------------------------------------------------------
 // copies, fragments, MMA
 // ---------------------------------------------------------------------------

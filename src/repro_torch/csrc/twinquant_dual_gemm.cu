@@ -52,6 +52,16 @@
 // Groups of 128 (every llama3-8b / qwen3-8b group) take the per-task
 // functions compiled for that size; smaller groups the contract admits take
 // the same functions with the size read at run time.
+//
+// Narrow edges (xLSTM's gate linear wif: N = 8, rank 8). A column tile is
+// masked to the columns its segment has left (any even count, also below
+// 16); an operand whose rows are not whole aligned 16-byte chunks (packed
+// rows of such a narrow N, Hq rows of a rank that is not a multiple of 16)
+// takes byte loads that zero the columns past the edge. A rank group below
+// the 32-deep MMA step (8, 16 or 24) takes one k-step whose A lanes past
+// the group are zero in shared memory: int8 x int4 products summed in
+// int32, so the zero lanes change no bit of the dot, and the group's one
+// scale applies as before.
 #include "twinquant_common.cuh"
 
 #define GM_KMAX 128   // bytes of an A or B tile row: the largest group
@@ -190,6 +200,16 @@ __device__ __forceinline__ void gm_load(unsigned char* slot, const GmTask& t, in
   constexpr int PCH = C::BN / 16;
   constexpr int NA = C::BM * GM_CH, NP = GM_KMAX / 2 * PCH, NS = C::BM + C::BN;
   const int g = GSZ ? GSZ : t.gsz, ach = g >> 4, half = g >> 1;
+  // A in whole aligned 16-byte chunks of whole k-steps, else byte loads
+  // zero-filled to the k-step (the rank edge)
+  if ((g & 31) || ((((uintptr_t)t.a) | (unsigned)t.lda) & 15)) {
+    const int kp = (g + 31) & ~31;
+    for (int i = tid; i < C::BM * kp; i += C::THREADS) {
+      const int r = i / kp, k = i - r * kp;
+      const bool ok = k < g && m0 + r < M;
+      A[gm_a_off(r, k >> 4) + (k & 15)] = ok ? t.a[(size_t)(m0 + r) * t.lda + k] : (int8_t)0;
+    }
+  } else {
 #pragma unroll
   for (int k = 0; k < (NA + C::THREADS - 1) / C::THREADS; ++k) {
     const int i = tid + k * C::THREADS, r = i / GM_CH, c = i % GM_CH;
@@ -198,6 +218,15 @@ __device__ __forceinline__ void gm_load(unsigned char* slot, const GmTask& t, in
       tq_cp16(A + gm_a_off(r, c), ok ? t.a + (size_t)(m0 + r) * t.lda + c * 16 : t.a, ok);
     }
   }
+  }
+  // packed rows in whole aligned 16-byte chunks, else byte loads (the
+  // narrow column edge), zero past the tile's columns
+  if ((((uintptr_t)t.w) | (unsigned)t.ldw | (unsigned)ncols) & 15) {
+    for (int i = tid; i < half * C::BN; i += C::THREADS) {
+      const int r = i / C::BN, c = i - r * C::BN;
+      P[gm_p_off<C::BN>(r, c >> 4) + (c & 15)] = c < ncols ? t.w[(size_t)r * t.ldw + c] : (int8_t)0;
+    }
+  } else {
 #pragma unroll
   for (int k = 0; k < (NP + C::THREADS - 1) / C::THREADS; ++k) {
     const int i = tid + k * C::THREADS, r = i / PCH, c = i % PCH;
@@ -205,6 +234,7 @@ __device__ __forceinline__ void gm_load(unsigned char* slot, const GmTask& t, in
       const bool ok = c * 16 < ncols;
       tq_cp16(P + gm_p_off<C::BN>(r, c), ok ? t.w + (size_t)r * t.ldw + c * 16 : t.w, ok);
     }
+  }
   }
 #pragma unroll
   for (int k = 0; k < (NS + C::THREADS - 1) / C::THREADS; ++k) {
@@ -268,7 +298,7 @@ __device__ __forceinline__ void gm_mma(const unsigned char* slot, const int8_t* 
   const int a_r = (lane & 7) + ((lane >> 3) & 1) * 8, a_c = lane >> 4;
   const int b_n = (lane & 7) + (lane >> 4) * 8, b_c = (lane >> 3) & 1;
 #pragma unroll
-  for (int ks = 0; ks < ((GSZ ? GSZ : gsz) >> 5); ++ks) {
+  for (int ks = 0; ks < (((GSZ ? GSZ : gsz) + 31) >> 5); ++ks) {
     unsigned a[C::MT][4], b[C::NT][2];
 #pragma unroll
     for (int mt = 0; mt < C::MT; ++mt)
@@ -364,6 +394,8 @@ __global__ void __launch_bounds__(GmTile::THREADS, 1) tq_gemm_tile(GmArgs p) {
   static_assert(C::THREADS == 512, "two A chunks, one packed chunk, one scale a thread");
   const int ar = tid >> 3, ac = tid & 7, pr = tid >> 3;
   const bool a_ok0 = m0 + ar < p.M, a_ok1 = m0 + ar + 64 < p.M, p_ok = ac * 16 < q.ncols;
+  // the fast path needs whole aligned 16-byte chunks of packed rows
+  const bool wide = ((unsigned)p.N | (unsigned)q.ncols) % 16 == 0;
   const int a_off = (m0 + ar) * p.K + ac * 16, p_off = pr * p.N + ac * 16;
   const int a_dst = gm_a_off(ar, ac), p_dst = C::A_BYTES + gm_p_off<C::BN>(pr, ac);
   const bool s_ok = tid < C::BM ? m0 + tid < p.M : tid - C::BM < q.ncols;
@@ -371,7 +403,7 @@ __global__ void __launch_bounds__(GmTile::THREADS, 1) tq_gemm_tile(GmArgs p) {
   auto load = [&](int t) {
     if (t < q.n_tasks) {
       unsigned char* slot = sm + (t % C::STAGES) * C::SLOT;
-      if (t < nk && p.G == GM_KMAX) {
+      if (t < nk && p.G == GM_KMAX && wide) {
         const int8_t* a = p.xq + q.z * p.s_xq + (size_t)t * GM_KMAX;
         const int8_t* w = p.w + q.z * p.s_w + (size_t)t * (GM_KMAX / 2) * p.N + q.n0;
         tq_cp16(slot + a_dst, a_ok0 ? a + a_off : a, a_ok0);
@@ -425,7 +457,7 @@ __global__ void __launch_bounds__(GmTile::THREADS, 1) tq_gemm_tile(GmArgs p) {
 #pragma unroll
       for (int ks = 0; ks < GM_KMAX / 32; ++ks) gm_wgmma(d, da + 2 * ks, db + 2 * ks);
     } else {
-      for (int ks = 0; ks < (gsz(t) >> 5); ++ks) gm_wgmma(d, da + 2 * ks, db + 2 * ks);
+      for (int ks = 0; ks < ((gsz(t) + 31) >> 5); ++ks) gm_wgmma(d, da + 2 * ks, db + 2 * ks);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     gm_pin(d);

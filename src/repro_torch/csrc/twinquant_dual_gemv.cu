@@ -25,7 +25,10 @@
 //   2. tq_requant_h: adds each H column's terms in ascending group order,
 //      then requantizes H per segment (twinquant_common.cuh).
 //   3. tq_gemv_main: one block of 8 warps per 16 output columns (256 blocks
-//      at N = 4096, three an SM). A task is one scale group: the K groups of
+//      at N = 4096, three an SM), the column tiles cut per segment
+//      (tq_set_tiles): a segment narrower than 16 columns, or a last tile
+//      past a segment's end, is one masked tile whose loads zero the
+//      columns past the edge and whose stores stop at it. A task is one scale group: the K groups of
 //      Rq, then the owning segment's V groups with A = Hq. Warp w takes
 //      tasks w, w + 8, ... through its own ring of 3 cp.async stages
 //      (16-byte copies of the packed rows, its activation rows and scales).
@@ -248,8 +251,11 @@ __global__ void __launch_bounds__(GV_WARPS * 32, GV_BLOCKS) tq_gemv_main(
   GvSlot* slots = (GvSlot*)gv_smem;                                    // [warps][stages]
   float* tbuf = (float*)(slots + GV_WARPS * GV_STAGES);               // [2][warps][M x 16]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n0 = blockIdx.x * GV_NT;
-  const int j = tq_owner(segs, n0);
+  int j = 0;
+  for (int t = 1; t < segs.n; ++t)
+    if ((int)blockIdx.x >= segs.t_off[t]) j = t;
+  const int n0 = segs.n_off[j] + ((int)blockIdx.x - segs.t_off[j]) * GV_NT;
+  const int ncols = min(GV_NT, segs.n_off[j] + segs.n_len[j] - n0);  // masked edge tile
   const int gr = segs.rgroup[j], nk = K / G;
   const int n_tasks = nk + segs.r_len[j] / gr;
   const int rounds = (n_tasks + GV_WARPS - 1) / GV_WARPS;
@@ -259,7 +265,7 @@ __global__ void __launch_bounds__(GV_WARPS * 32, GV_BLOCKS) tq_gemv_main(
 
   auto task = [&](int t) {
     GvTask k;
-    k.ncols = GV_NT;
+    k.ncols = ncols;
     if (t < nk) {
       k.a = xq + (size_t)t * G;
       k.as = xs + t;
@@ -323,7 +329,7 @@ __global__ void __launch_bounds__(GV_WARPS * 32, GV_BLOCKS) tq_gemv_main(
       for (int w = 0; w < nw; ++w) acc = __fadd_rn(acc, rb[w * (TQ_MMAX * GV_NT)]);
     }
   }
-  if (mo < M) out[(size_t)mo * N + n0 + co] = __float2bfloat16_rn(acc);
+  if (mo < M && co < ncols) out[(size_t)mo * N + n0 + co] = __float2bfloat16_rn(acc);
 }
 
 static const int kGvMainSmem =
@@ -361,7 +367,8 @@ extern "C" int tq_dual_gemv(const void* x, const void* up, const void* us, const
   if (err) return err;
   err = tq_launch_requant((const float*)hf, K / G, hq, hs, E, M, R, segs, qmax, ex, st);
   if (err) return err;
-  tq_gemv_main<<<dim3(N / GV_NT, 1, E), GV_WARPS * 32, kGvMainSmem, st>>>(
+  const int tiles = tq_set_tiles(segs, GV_NT);
+  tq_gemv_main<<<dim3(tiles, 1, E), GV_WARPS * 32, kGvMainSmem, st>>>(
       (const int8_t*)xq, (const float*)xs, (const int8_t*)rp, (const float*)rs, M, K, N, G,
       (const int8_t*)hq, (const float*)hs, R, hs_cols, segs, (__nv_bfloat16*)out, ex);
   return (int)cudaGetLastError();

@@ -55,6 +55,13 @@
 // are template arguments, so a group's loads, dequantization and MMAs
 // unroll without guards.
 //
+// Narrow N (an even N below 64: xLSTM's gate linear wif, N = 8). The grid
+// covers N with a masked last tile in the decode and the prefill schedules
+// (the column schedule starts at N = 8192, a whole number of its tiles):
+// that tile's packed rows and scales come in by byte and word loads, zero
+// past N (so its dequantized weights there are 0 x 0), and its stores stop
+// at N. The columns before N take the same MMAs and the same chain.
+//
 // Prefill regime (M > 32; w4a16_gemm_kernel). A 64 x 64 output tile per
 // block of 4 warps (2 x 2, 32 x 32 each), one scale group a K step. A
 // two-stage cp.async pipeline copies group g + 1's x tile (64 x G bf16,
@@ -126,6 +133,15 @@ __device__ __forceinline__ void w4_stage(W4Smem& sm, int st, int g, const __nv_b
     w4_cp16(&sm.a[st][r][v * 8], x + (size_t)(m0 + r) * K + (size_t)g * G + v * 8);
   }
   const int half = G / 2;
+  if (N % W4_BN) {  // a narrow N: one masked tile, zero past N
+    for (int i = threadIdx.x; i < half * W4_BN; i += W4_THREADS) {
+      const int j = i / W4_BN, c = i - j * W4_BN;
+      sm.raw[st][j][c] = n0 + c < N ? wp[(size_t)(g * half + j) * N + n0 + c] : (int8_t)0;
+    }
+    if (threadIdx.x < W4_BN)
+      sm.s[st][threadIdx.x] = n0 + threadIdx.x < N ? ws[(size_t)g * N + n0 + threadIdx.x] : 0.f;
+    return;
+  }
   for (int i = threadIdx.x; i < half * (W4_BN / 16); i += W4_THREADS) {
     const int j = i / (W4_BN / 16), c = i - j * (W4_BN / 16);
     w4_cp16(&sm.raw[st][j][c * 16], wp + (size_t)(g * half + j) * N + n0 + c * 16);
@@ -251,7 +267,7 @@ w4a16_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict_
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + wm * 32 + mt * 16 + gid + 8 * h;
         const int col = n0 + wn * 32 + nt * 8 + 2 * tig;
-        if (m < M) {
+        if (m < M && col < N) {  // N even: a pair is all in or all out
           __nv_bfloat162 v;
           v.x = __float2bfloat16_rn(acc[mt][nt][2 * h]);
           v.y = __float2bfloat16_rn(acc[mt][nt][2 * h + 1]);
@@ -378,6 +394,14 @@ w4a16_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
         ++r;
       }
     }
+    if (N % 16) {  // a narrow N: the masked tile, zero past N
+      for (int i = lane; i < HALF * 16; i += 32) {
+        const int j = i >> 4, c = i & 15;
+        wsl(st)[i] = n0 + c < N ? wp[(size_t)(g * HALF + j) * N + n0 + c] : (int8_t)0;
+      }
+      if (lane < 16) ssl(st)[lane] = n0 + lane < N ? ws[(size_t)g * N + n0 + lane] : 0.f;
+      return;
+    }
     for (int j = lane; j < HALF; j += 32)
       w4_cp16(wsl(st) + j * 16, wp + (size_t)(g * HALF + j) * N + n0);
     if (lane < 4) w4_cp16(ssl(st) + lane * 4, ws + (size_t)g * N + n0 + lane * 4);
@@ -471,7 +495,8 @@ w4a16_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
 #pragma unroll
   for (int i = 0; i < OPT; ++i) {
     const int o = tid + i * blockDim.x;
-    if (o < M * 16) out[(size_t)(o >> 4) * N + n0 + (o & 15)] = __float2bfloat16_rn(acc[i]);
+    if (o < M * 16 && n0 + (o & 15) < N)
+      out[(size_t)(o >> 4) * N + n0 + (o & 15)] = __float2bfloat16_rn(acc[i]);
   }
 }
 
@@ -649,7 +674,7 @@ static int launch_decode(const void* x, const void* wp, const void* ws, void* ou
   e = cudaFuncSetAttribute(w4a16_decode_kernel<RM, KS>,
                            cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (e != cudaSuccess) return (int)e;
-  w4a16_decode_kernel<RM, KS><<<dim3(N / 16, 1, E), 32 * W4D_WARPS, smem, st>>>(
+  w4a16_decode_kernel<RM, KS><<<dim3((N + 15) / 16, 1, E), 32 * W4D_WARPS, smem, st>>>(
       (const __nv_bfloat16*)x, (const int8_t*)wp, (const float*)ws, (__nv_bfloat16*)out, M, N,
       K, ex);
   return (int)cudaGetLastError();
@@ -693,7 +718,7 @@ extern "C" int w4a16_smem_bytes(int M, int N, int G) {
 // x (E, M, K) bf16, wp (E, K/2, N) int8, ws (E, K/G, N) f32, out (E, M, N)
 // bf16 (E = 1: the 2-D operands), all 16-byte aligned, each expert's slice
 // contiguous and its start s_* elements after the previous one's (s_* = 0
-// for E = 1); N % 64 == 0, K % G == 0, G % 16 == 0, G <= 128
+// for E = 1); N % 64 == 0 or an even N < 64, K % G == 0, G % 16 == 0, G <= 128
 // (contracts.validate_w4a16). One launch for all E experts. Returns the
 // cudaError of the launch.
 extern "C" int w4a16_gemm(const void* x, const void* wp, const void* ws, void* out, int E,
@@ -708,7 +733,7 @@ extern "C" int w4a16_gemm(const void* x, const void* wp, const void* ws, void* o
   cudaError_t e = cudaFuncSetAttribute(w4a16_gemm_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(N / W4_BN, (M + W4_BM - 1) / W4_BM, E);
+  dim3 grid((N + W4_BN - 1) / W4_BN, (M + W4_BM - 1) / W4_BM, E);
   w4a16_gemm_kernel<<<grid, W4_THREADS, smem, st>>>(
       (const __nv_bfloat16*)x, (const int8_t*)wp, (const float*)ws, (__nv_bfloat16*)out, M, N,
       K, G, ex);

@@ -21,7 +21,9 @@ of :class:`~repro_torch.models.deepseek.MLALayer`, and its ``mtp`` block an
 stacked ``(n_seg, every, ...)``, ``shared``, ``adapters``,
 ``rest_layers``; f32 ``A_log`` / ``D`` / ``dt_bias``) a
 :class:`~repro_torch.models.mamba_hybrid.HybridModel`, both stacked axes
-unstacked. :func:`calib_result_from_numpy` and
+unstacked; an xLSTM tree (``m_layers`` stacked ``(n_seg, m_per, ...)`` and
+``s_layers`` ``(n_seg, ...)``, or ``m_layers`` ``(n_layers, ...)`` alone)
+an :class:`~repro_torch.models.xlstm.XLSTMModel`. :func:`calib_result_from_numpy` and
 :func:`gl_params_from_numpy` carry a calibration's result and a ``GLParams``
 across the same way. bf16 arrays are recognised by dtype name and moved bit for bit
 through a 16-bit integer view, so no bf16 numpy extension is needed here.
@@ -53,6 +55,7 @@ from repro_torch.models.mamba_hybrid import HybridModel, MambaBlock, SharedBlock
 from repro_torch.models.mla import MLAAttention
 from repro_torch.models.moe_layer import MoEFFN
 from repro_torch.models.olmoe import OLMoELayer
+from repro_torch.models.xlstm import MLSTMBlock, SLSTMBlock, XLSTMModel
 
 __all__ = ["calib_result_from_numpy", "gl_params_from_numpy", "params_from_numpy", "to_torch"]
 
@@ -192,11 +195,39 @@ def _zamba(tree: dict, cfg: ModelConfig, dev) -> HybridModel:
     return HybridModel(embed, m_layers, ln_f, head, shared, adapters, rest)
 
 
+def _mlstm(t: dict, dev) -> MLSTMBlock:
+    return MLSTMBlock({k: _linear(t[k], dev) for k in ("up", "wq", "wk", "wv", "wif", "down")},
+                      *(to_torch(t[k], dev) for k in ("ln", "conv", "gn")))
+
+
+def _xlstm(tree: dict, dev) -> XLSTMModel:
+    """The reference's xLSTM tree: ``m_layers`` (n_seg, m_per, ...) and
+    ``s_layers`` (n_seg, ...) unstacked, or ``m_layers`` (n_layers, ...)
+    alone when the config has no sLSTM block."""
+    ml = tree["m_layers"]
+    embed, ln_f, head = (to_torch(tree["embed"], dev), to_torch(tree["ln_f"], dev),
+                         _linear(tree["head"], dev))
+    if "s_layers" not in tree:
+        m_layers = [_mlstm(_layer_slice(ml, i), dev) for i in range(np.shape(ml["ln"])[0])]
+        return XLSTMModel(embed, m_layers, None, ln_f, head)
+    n_seg, m_per = np.shape(ml["ln"])[:2]
+    m_layers = [[_mlstm(_layer_slice(_layer_slice(ml, s), j), dev) for j in range(m_per)]
+                for s in range(n_seg)]
+    s_layers = []
+    for s in range(n_seg):
+        st = _layer_slice(tree["s_layers"], s)
+        s_layers.append(SLSTMBlock(_linear(st["w"], dev), _linears(st["ffn"], dev),
+                                   *(to_torch(st[k], dev) for k in ("ln", "r", "gn", "ln2"))))
+    return XLSTMModel(embed, m_layers, s_layers, ln_f, head)
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> DenseModel:
-    """The reference's dense, OLMoE, DeepSeek, Whisper or Zamba2 params
-    (numpy leaves, layers stacked on the leading axes) as the port's model
-    on ``device`` (the card unless asked otherwise)."""
+    """The reference's dense, OLMoE, DeepSeek, Whisper, xLSTM or Zamba2
+    params (numpy leaves, layers stacked on the leading axes) as the port's
+    model on ``device`` (the card unless asked otherwise)."""
     dev = resolve_device(device)
+    if cfg.family == "xlstm":
+        return _xlstm(tree, dev)
     if "dense_layers" in tree:
         return _deepseek(tree, cfg, dev)
     if "enc_layers" in tree:

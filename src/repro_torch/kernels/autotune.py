@@ -4,7 +4,8 @@
   M <= 8 runs the decode-shaped GEMV, larger M the prefill GEMM.
 * :func:`hopper_blocks` is the (rows, column unit, K step) the contracts
   judge a shape by: every segment width is a multiple of the column unit
-  (32 for the GEMV, 64 for the GEMM), the K step is one scale group. Whether
+  (32 for the GEMV, 64 for the GEMM) or, below one unit, even (one masked
+  tile: xLSTM's gate linear, N = 8), the K step is one scale group. Whether
   a shape can be tiled at all is the kernels' own contract
   (``kernels/contracts.validate_dual_*``).
 * The dual kernels' own tiles: the GEMV's main block takes ``GEMV_TILE_N``
@@ -20,7 +21,8 @@
   groups, then V groups, ascending), so an output row's bits never depend
   on how many rows share its launch.
 * :func:`w4a16_blocks` is what the weight-only kernel's contract judges a
-  shape by: 64-column units of N, one scale group a K step, for every M.
+  shape by: 64-column units of N (or an even N below 64, one masked
+  tile), one scale group a K step, for every M.
   Its schedule has three shapes. Up to ``W4A16_DECODE_M`` rows and N below
   ``W4A16_DECODE_COL_N``, a block takes ``W4A16_DECODE_N`` = 16 columns and
   splits K over its ``W4A16_DECODE_WARPS`` = 8 warps, each warp taking

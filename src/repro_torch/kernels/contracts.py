@@ -8,13 +8,17 @@
 * :func:`validate_dual_gemv` / :func:`validate_dual_gemv_group` /
   :func:`validate_dual_gemm` / :func:`validate_dual_gemm_group` — what the
   CUDA kernels can tile (divisibility, group sizes, segment count) and their
-  shared memory against the Hopper budget of 227 KB a block. They raise
+  shared memory against the Hopper budget of 227 KB a block. A segment
+  narrower than the column unit (an even N below 32 for the GEMV, 64 for
+  the GEMM) is one masked tile; the GEMM takes a rank group below its
+  32-deep MMA step (8, 16 or 24) as one zero-filled k-step. They raise
   :class:`ContractError` before anything is launched. Dispatch asks them
   too: a consistent pack they reject is a ``ref`` route, which runs the
   plain version for a CPU tensor and raises for any other.
 * :func:`check_w4a16_pack` — the same for a weight-only (``wp``, ``ws``)
   pair; :func:`validate_w4a16` — what the weight-only CUDA kernel tiles: N
-  in whole 64-column blocks, groups that are whole 16-deep MMA steps and fit
+  in whole 64-column blocks (or an even N below 64: one masked tile),
+  groups that are whole 16-deep MMA steps and fit
   its shared tile, and its shared memory against the budget for the regime
   M selects (:func:`w4a16_launch`; M is covered by a guarded grid, so any
   M >= 1 launches). An expert-stacked weight-only pack (``wp`` (E, K/2, N),
@@ -162,6 +166,15 @@ def w4a16_smem_bytes(m: int, n: int, group: int) -> int:
     return w4a16_launch(m, n, group)[1]
 
 
+def _columns(n: int, unit: int, what: str, *, kind: str, hint: str = "") -> None:
+    """Contract: N in whole column units, or an even N below one unit (one
+    masked tile whose loads zero the columns past N and whose stores stop
+    there)."""
+    if 0 < n < unit and n % 2 == 0:
+        return
+    divisible(n, unit, what, kind=kind, hint=hint)
+
+
 def _smem(kind: str, nbytes: int) -> None:
     if nbytes > SMEM_BUDGET_BYTES:
         raise ContractError(
@@ -169,8 +182,13 @@ def _smem(kind: str, nbytes: int) -> None:
         )
 
 
-def _group_sizes(kind: str, group: int, rgroups: Sequence[int], mult: int) -> None:
+def _group_sizes(kind: str, group: int, rgroups: Sequence[int], mult: int,
+                 rank_edge: int = 0) -> None:
+    """Groups in whole ``mult``-deep steps; a rank group below ``mult`` that
+    is a multiple of ``rank_edge`` (> 0) is one zero-filled step."""
     for name, g in [("group", group)] + [(f"rgroup[{j}]", gr) for j, gr in enumerate(rgroups)]:
+        if name != "group" and rank_edge and 0 < g < mult and g % rank_edge == 0:
+            continue
         divisible(g, mult, f"{name} % {mult}", kind=kind,
                   hint="the kernel consumes whole packed rows (and MMA k-steps)")
         if g > _GMAX:
@@ -183,8 +201,8 @@ def _segments(kind: str, seg_n, seg_r, rgroups, block_n: int) -> None:
     if len(seg_n) > MAX_SEGMENTS:
         raise ContractError(f"[{kind}] {len(seg_n)} segments exceed the kernel's {MAX_SEGMENTS}")
     for j, (nj, rj, gr) in enumerate(zip(seg_n, seg_r, rgroups)):
-        divisible(nj, block_n, f"segment {j}: N_j % block_n", kind=kind,
-                  hint="an N block must never straddle a segment boundary")
+        _columns(nj, block_n, f"segment {j}: N_j % block_n", kind=kind,
+                 hint="an N block must never straddle a segment boundary")
         divisible(rj, gr, f"segment {j}: rank_j % rgroup_j", kind=kind,
                   hint="each segment's H requantizes with its own rank groups")
 
@@ -211,14 +229,18 @@ def validate_dual_gemv(m, n, k, r, group, rgroup, block_n, *, decode_m_max,
 def validate_dual_gemm_group(m: int, k: int, group: int, seg_n, seg_r, rgroups,
                              block_n: int, *, kind: str = "dual_gemm_group") -> None:
     """Contract for the prefill-shaped (M > 8) CUDA launch: groups are whole
-    32-deep MMA steps, tiles never straddle segments, and every 16-byte A
-    load stays aligned (K and the stacked rank multiples of 16)."""
+    32-deep MMA steps (a rank group of 8, 16 or 24: one zero-filled step),
+    tiles never straddle segments, and every 16-byte A load stays aligned
+    (K and the stacked rank multiples of 16; of 8 with a rank group below
+    the step, whose Hq rows take byte loads)."""
     if m < 1:
         raise ContractError(f"[{kind}] M={m} must be positive")
     divisible(k, group, "K % group", kind=kind)
-    _group_sizes(kind, group, rgroups, 32)
+    _group_sizes(kind, group, rgroups, 32, rank_edge=8)
     _segments(kind, seg_n, seg_r, rgroups, block_n)
-    divisible(sum(seg_r), 16, "stacked rank % 16", kind=kind, hint="16-byte Hq loads")
+    edge = any(gr < 32 for gr in rgroups)
+    divisible(sum(seg_r), 8 if edge else 16, f"stacked rank % {8 if edge else 16}", kind=kind,
+              hint="16-byte Hq loads (byte loads at a rank group below 32)")
     _smem(kind, gemm_smem_bytes())
 
 
@@ -231,7 +253,8 @@ def validate_w4a16(m: int, n: int, k: int, group: int, block_m: int, block_n: in
                    block_k: int, *, experts: int = 1, kind: str = "w4a16_gemm") -> None:
     """Contract for the weight-only int4 GEMM launch on Hopper: the grid
     covers M with guarded tiles (any M >= 1, no padding), N in whole
-    ``block_n`` tiles, K in whole ``block_k`` steps of whole scale groups,
+    ``block_n`` tiles (or an even N below ``block_n``: one masked tile), K
+    in whole ``block_k`` steps of whole scale groups,
     and ``experts`` (an expert-stacked pack's E; M is then an expert's rows)
     in its z axis; groups are whole 16-deep MMA steps and fit the kernel's
     shared tile; the block's shared memory (decode or prefill regime, by M)
@@ -242,7 +265,7 @@ def validate_w4a16(m: int, n: int, k: int, group: int, block_m: int, block_n: in
         raise ContractError(f"[{kind}] E={experts} experts outside the grid's z range "
                             f"[1, {_GRID_Z_MAX}]")
     hint = "the grid's tiles must cover the operand exactly"
-    divisible(n, block_n, "N % block_n", kind=kind, hint=hint)
+    _columns(n, block_n, "N % block_n", kind=kind, hint=hint)
     divisible(k, block_k, "K % block_k", kind=kind, hint=hint)
     divisible(block_k, group, "block_k % group", kind=kind,
               hint="every K step must hold whole scale groups")

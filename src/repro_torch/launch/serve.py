@@ -25,7 +25,10 @@ paged, ragged and speculative modes.
   on free pages and reserves a request's whole timeline up front, and a
   :class:`PrefixCache` maps shared prompt prefixes (whole pages) into new
   slots copy-free so only the suffix is prefilled. Decode attention runs
-  through the paged-decode kernel over the pages in use.
+  through the paged-decode kernel over the pages in use. A family whose
+  state has no sequence axis (``xlstm``: purely recurrent) has nothing to
+  page: ``paged=True`` keeps its dense per-slot state (no pool, allocator
+  or block table), the reference's degenerate paged layout.
 * **Ragged mode** (``ragged=True``, needs paged and a family with a
   ``ragged_step``): every step packs one
   decode row per decoding slot, then prompt chunks, into one flat batch of
@@ -428,7 +431,9 @@ class ContinuousBatchingEngine:
     (``page_size`` rows a page, ``n_pages`` pages, default enough for every
     slot's full timeline) with the prefix cache on unless
     ``prefix_caching=False`` (or the family's decode state is not fully
-    page-addressable: then it warns and serves without it). ``ragged=True`` (needs paged) serves every
+    page-addressable: then it warns and serves without it; a state with no
+    sequence axis at all is served in the dense per-slot layout, with no
+    pool, allocator or block table). ``ragged=True`` (needs paged) serves every
     step as one flat launch of ``token_budget`` rows, prompt chunks capped
     at ``max_chunk_share`` of it. ``speculation=True`` (needs paged, not
     ragged) verifies ``spec_k`` rows per slot per launch, drafted by
@@ -481,6 +486,17 @@ class ContinuousBatchingEngine:
         self._slot_keys = tuple(k for k in self._layout if k not in self._pool_keys)
         self.allocator: Optional[PageAllocator] = None
         self.prefix_cache: Optional[PrefixCache] = None
+        if paged and not self._pool_keys:
+            # the degenerate paged layout of a purely recurrent family (the
+            # reference's): its state has nothing to page, so it stays the
+            # dense per-slot state, with no pool, allocator or block table
+            if prefix_caching:
+                warnings.warn(f"prefix_caching=True needs a family whose decode state is fully "
+                              f"page-addressable ({'/'.join(_PREFIX_FAMILIES)}), not "
+                              f"{cfg.family!r}; its state has nothing to page, so it is "
+                              f"served in the dense per-slot layout without the prefix cache",
+                              stacklevel=2)
+            paged = False
         if paged:
             if page_size < 1:
                 raise ValueError(f"page_size must be >= 1, got {page_size}")

@@ -632,6 +632,24 @@ def gate_state_update(new_state: dict, old_state: dict, valid: torch.Tensor,
     return out
 
 
+def gated_token_steps(step: Callable, tokens: torch.Tensor, state: dict, length,
+                      b_axis: dict) -> dict:
+    """A recurrent family's prefill state: ``step(st, tokens[:, i:i + 1])``
+    (a decode step updating ``st`` in place) once per token on a copy of
+    ``state``, each step's update kept only for the slots where the token is
+    real (``i < length``; every token when ``length`` is None), so a
+    bucket-padded prompt leaves the unpadded one's state. ``state`` is left
+    unchanged."""
+    st = {k: v.clone() for k, v in state.items()}
+    real = None if length is None else torch.as_tensor(length, device=tokens.device).reshape(-1)
+    for i in range(tokens.shape[1]):
+        old = None if real is None else {k: v.clone() for k, v in st.items()}
+        step(st, tokens[:, i:i + 1])
+        if real is not None:
+            st = gate_state_update(st, old, i < real, b_axis)
+    return st
+
+
 def prefill_pos(length, batch: int, s: int, device=None) -> torch.Tensor:
     """Per-slot position vector after a prefill of s (possibly padded)
     tokens of which ``length`` are real."""

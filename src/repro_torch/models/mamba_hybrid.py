@@ -399,14 +399,8 @@ def prefill(params: HybridModel, cfg: ModelConfig, tokens: torch.Tensor, state: 
         raise ValueError("mamba_hybrid serves no prefix cache: its recurrent state is not "
                          "page-addressable")
     logits = C.select_at_length(forward(params, cfg, tokens), length)
-    st = {k: v.clone() for k, v in state.items()}
-    real = None if length is None else torch.as_tensor(length, device=tokens.device).reshape(-1)
-    for i in range(tokens.shape[1]):
-        old = None if real is None else {k: v.clone() for k, v in st.items()}
-        decode_step(params, cfg, st, tokens[:, i:i + 1])
-        if real is not None:
-            st = C.gate_state_update(st, old, i < real, _B_AXIS)
-    return logits, st
+    return logits, C.gated_token_steps(lambda st, t: decode_step(params, cfg, st, t), tokens,
+                                       state, length, _B_AXIS)
 
 
 def count_params(cfg: ModelConfig) -> tuple[int, int]:

@@ -190,7 +190,7 @@ def test_w4a8_is_the_w4a4_packs_with_a_bits_8(pj):
 def test_reduced_llama3_shapes_and_bf16_parity(arch):
     """Each paper model's reduced config (qwen3-8b: rope theta 1e6) against
     the reference's, bf16 rel <= 0.03; W4A4 packs only the down projection."""
-    jc = JCfg(**{**get_config(arch, reduced=True).__dict__, "quant": JQ()}, remat=False)
+    jc = JCfg(**{**get_config(arch, reduced=True).__dict__, "quant": JQ(), "remat": False})
     tc = get_config(arch, reduced=True)
     assert tc.rope_theta == jc.rope_theta == get_config(arch).rope_theta
     pj = JD.init_params(jc, jax.random.PRNGKey(1))

@@ -46,7 +46,8 @@ W4A4_KW = dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512, voca
 
 def _jcfg(cfg: ModelConfig):
     base = j_get_config(cfg.name, reduced=True)
-    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "quant"}
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+          if f.name not in ("quant", "remat")}
     return base.replace(**kw, remat=False)
 
 

@@ -49,7 +49,7 @@ CFG = get_config("olmoe-1b-7b", reduced=True).replace(
     name="olmoe-w4a16", d_model=256, d_ff_expert=256, n_heads=4, n_kv_heads=4, head_dim=64,
     vocab=260, n_experts=4, capacity_factor=4.0)
 JCFG = JCfg(**{f.name: getattr(CFG, f.name) for f in dataclasses.fields(CFG)
-               if f.name != "quant"}, remat=False)
+               if f.name not in ("quant", "remat")}, remat=False)
 E, D, F = CFG.n_experts, CFG.d_model, CFG.d_ff_expert
 
 

@@ -90,8 +90,8 @@ def test_config_registry_and_count_params():
     assert (red.n_experts, red.top_k, red.d_model) == (8, 2, 128)
     assert registry.get_model(cfg).decode_step is TO.decode_step
     assert registry.get_model(get_config("llama3-8b")).decode_step is TD.decode_step
-    with pytest.raises(NotImplementedError, match="not ported"):
-        registry.get_model(cfg.replace(family="xlstm"))
+    with pytest.raises(NotImplementedError, match="unknown model family 'no_such_family'"):
+        registry.get_model(cfg.replace(family="no_such_family"))
     jcfg = JCfg(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
                    if f.name != "quant"})
     assert TO.count_params(cfg) == JO.count_params(jcfg)

@@ -129,16 +129,23 @@ def test_build_sim_linear_matches_reference(method):
         assert _rel(_f(dj["Q"]), _f(st.Q)) <= tol
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_sim_linear_matches_reference_linear(dtype):
-    """One sim dict (the reference's hadamard sim plus a bias) through the
-    reference's ``linear`` and, bridged by ``interop``, the port's
-    ``SimLinear``."""
+@pytest.fixture(scope="module")
+def hadamard_sim():
+    """The reference's hadamard sim dict plus a bias, and its bridge (built
+    once for both dtypes)."""
     w, _ = _w_and_x()
     d = JTQ.build_sim_linear(jnp.asarray(w), "hadamard", JQS(mode="w4a4", rank=32))
     d["lam"] = jnp.asarray(np.random.default_rng(3).uniform(0.5, 2.0, 256), jnp.float32)
     d["b"] = jnp.asarray(np.random.default_rng(4).standard_normal(128), jnp.float32)
-    sim = _linear(jax.tree.map(np.asarray, d), "cpu")
+    return d, _linear(jax.tree.map(np.asarray, d), "cpu")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_sim_linear_matches_reference_linear(hadamard_sim, dtype):
+    """One sim dict (the reference's hadamard sim plus a bias) through the
+    reference's ``linear`` and, bridged by ``interop``, the port's
+    ``SimLinear``."""
+    d, sim = hadamard_sim
     assert isinstance(sim, TCm.SimLinear) and sim.a_bits == 4
     x = np.random.default_rng(5).standard_normal((2, 8, 256)).astype(np.float32) * 2
     jd = jnp.float32 if dtype == "f32" else jnp.bfloat16

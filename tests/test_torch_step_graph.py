@@ -223,13 +223,15 @@ def test_engine_keeps_its_state_tensors(params, mode):
     assert cs["graph_replays"] == 0 and eng.step_graph.steps == eng.stats["decode_steps"], cs
 
 
-@pytest.mark.parametrize("name", ["whisper-base", "zamba2-1.2b"])
+@pytest.mark.parametrize("name", ["whisper-base", "zamba2-1.2b", "xlstm-1.3b"])
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_encdec_and_hybrid_decode_steps_keep_their_state(name, paged):
-    """Whisper's and Zamba2's decode steps return ``state`` itself, its
-    tensors the same objects: the self-attention rows (Whisper; the shared
-    block's, Zamba2) land in place, ``xk`` / ``xv`` are read only, the
-    ``ssm`` / ``conv`` slices are updated in place."""
+    """Whisper's, Zamba2's and xLSTM's decode steps return ``state`` itself,
+    its tensors the same objects: the self-attention rows (Whisper; the
+    shared block's, Zamba2) land in place, ``xk`` / ``xv`` are read only,
+    the ``ssm`` / ``conv`` slices (xLSTM: every mLSTM and sLSTM state leaf)
+    are updated in place. (The engine serves xLSTM's ``paged=True`` in the
+    dense layout; its step ignores a block table.)"""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model
 
@@ -253,8 +255,9 @@ def test_encdec_and_hybrid_decode_steps_keep_their_state(name, paged):
     assert out is state and _same_tensors(state, before)
     assert state["pos"].tolist() == [3, 10] and tuple(logits.shape) == (B, 1, cfg.padded_vocab)
     changed = {k for k in state if not torch.equal(state[k], snap[k])}
-    want = {"pos", "k", "v"} if name == "whisper-base" else {"pos", "ssm", "conv", "shared_k",
-                                                               "shared_v"}
+    want = {"whisper-base": {"pos", "k", "v"},
+            "zamba2-1.2b": {"pos", "ssm", "conv", "shared_k", "shared_v"},
+            "xlstm-1.3b": {"pos", "mC", "mn", "mm", "conv", "sh", "sc", "sn", "sm"}}[name]
     assert changed == want, changed
 
 

@@ -106,7 +106,7 @@ def test_config_equals_reference_field_by_field(reduced):
 
 
 def test_arch_ids_and_registry():
-    assert ARCH_IDS == [a for a in J_ARCH_IDS if a != "xlstm-1.3b"]
+    assert ARCH_IDS == J_ARCH_IDS
     m = TR.get_model(CFG)
     assert CFG.family == "encdec" and getattr(m, "ragged_step", None) is None
     assert m.prefill is TE.prefill and m.decode_step is TE.decode_step
