@@ -12,6 +12,7 @@
     python3 chip_smoke.py --whisper-only    # build, then Whisper-base (encdec)
     python3 chip_smoke.py --zamba2-only     # build, then Zamba2-1.2B (mamba_hybrid)
     python3 chip_smoke.py --xlstm-only      # build, the narrow-N tile, then xLSTM-1.3B
+    python3 chip_smoke.py --train-only      # build, then the training stack (llama3-8b)
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -52,7 +53,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    with one slot's 200-row chunk cut in two (the first part committed into
    its pages between them), its decode rows to a launch without the
    chunks;
-4. serve   — llama3-8b at full width, depth ``SERVE_LAYERS`` (16 of 32),
+4. serve   — llama3-8b at full width, depth ``SERVE_LAYERS`` (12 of 32),
    random weights from seed 0:
    first the bf16 model's ragged-step vs bucketed-prefill logits at several
    depths (gated at the served depth), then W4A4 TwinQuant packs (quantized once)
@@ -213,8 +214,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 11. zamba2-1.2b — the ``mamba_hybrid`` family at full width (d_model 2048,
    64 SSM heads of 64, state 64, conv 4, the shared block 32 heads of 64 on
    the 4096-wide concat, d_ff 8192, vocab 32000) and depth
-   ``ZAMBA_LAYERS`` (8 of 38: one shared-block invocation and the 2 rest
-   layers), random weights from seed 0, ``max_len`` 512, prompts
+   ``ZAMBA_LAYERS`` (7 of 38: one shared-block invocation and the 1 rest
+   layer), random weights from seed 0, ``max_len`` 512, prompts
    ``ZAMBA_PROMPTS`` (3 … 200 tokens: the 200-token forward runs two SSD
    chunks): the paged kernel at H = KV = 32, hd
    64; W4A4 and W4A16 packs through their kernels at every served M
@@ -236,7 +237,42 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    checks (the linears 6 an mLSTM and 3 an sLSTM block a model step, W4A16
    6 and 4; no attention), the paged run's layout the dense per-slot one (no
    pool, allocator or block table), paged == bucketed tokens bit for bit,
-   every W4A4 bucketed request == its prompt served alone.
+   every W4A4 bucketed request == its prompt served alone;
+13. train — the training stack (``launch/train.py``, ``optim/``,
+   ``checkpoint/manager.py``, ``data/pipeline.py``, the families'
+   ``loss_fn``) on llama3-8b at full width, depth ``TRAIN_LAYERS`` (2 of
+   32: 1.49 B parameters), trained on the repo's own text (``load_corpus``,
+   ``TokenDataset`` of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` = 4 x 2049: the
+   chunked, rematerialised CE), ``AdamW()`` with the reference's defaults
+   (f32 moments), ``remat`` on, from seed 0: (1) the bf16 step's loss and
+   gradients against the same step with the weights upcast to f32 on the
+   card, on ``TRAIN_CHECK_BATCHES`` batches (loss finite and within
+   ``TRAIN_INIT_BAND`` of ln V, each leaf within ``TRAIN_GRAD_REL_MAX``,
+   the embedding's bf16 scatter-add within ``TRAIN_EMBED_REL_MAX``; a
+   dropped leaf gradient, the embedding's dropped and labels one token off
+   must fail), the decay flags on the reference's stacked shapes; (2) one
+   ``TrainLoop`` of ``TRAIN_STEPS`` steps under deterministic algorithms,
+   async checkpoints into a temporary directory (removed after) at step
+   ``TRAIN_CKPT_EVERY`` and an injected failure before step
+   ``TRAIN_FAIL_AT``: every loss finite, the first less the last two's mean
+   at least ``TRAIN_FALL_MIN`` (the run reversed must fail), one restart,
+   the restored parameters and moments bit for bit the saved host copies
+   (the state at the failure must differ), the replayed steps' losses equal
+   to their first pass (one step off must differ); the step's device ms
+   (CUDA events), tokens/s, ``max_memory_allocated``, the checkpoint's
+   bytes, save, write and restore seconds and the free disk; (3) from the
+   trained state, the int8 error-feedback identity ``deq + ef == g`` within
+   ``TRAIN_EF_BOUND`` x scale per leaf (a dropped residual must fail), one
+   compressed step's parameters bit for bit AdamW's update by the
+   dequantized gradients (the state before it must differ), its update of
+   each leaf within ``TRAIN_UPDATE_REL_MAX`` of the uncompressed step's (a
+   step that applies no update must fail) and its next loss within
+   ``TRAIN_COMPRESS_REL`` of the uncompressed step's; (4) the trained
+   weights packed W4A4 (rank 128, fused), layer 0's four packs through the
+   dual kernels at every served M (``TRAIN_SERVE_MS``) ``torch.equal`` to
+   their plain versions (a pack with layer 1's ``rp`` must differ), served
+   paged (``TRAIN_PROMPTS``, 4 slots, step graphs) with every dual kernel
+   launched and finite prefill logits.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -251,7 +287,8 @@ W4A4 packs), ``--calib-only`` (phases 1-2, then phase 6) and
 (phases 1-2, then phase 9), ``--whisper-only`` (phases 1-2, then phase 10)
 ``--zamba2-only`` (phases 1-2, then phase 11) and ``--xlstm-only``
 (phases 1-2, the narrow-N tile of phase 3, then phase 12; any of these
-flags together run their phases in that order);
+flags together run their phases in that order), ``--train-only`` (phases
+1-2, then phase 13);
 ``--timing-only`` times the four dual wrappers at their table cases,
 ``w4a16_gemm`` at the four llama3-8b shapes and M in
 ``W4A16_MS``, the paged decode kernel at its table case (sq 1 and 4,
@@ -279,12 +316,14 @@ sys.path.insert(0, str(SRC))
 HBM_BYTES_S = 3.35e12  # H100 SXM memory rate
 INT8_OPS_S = 1.979e15  # H100 SXM dense int8 tensor-core rate
 BF16_OPS_S = 9.89e14  # H100 SXM dense bf16 tensor-core rate
-# llama3-8b's 32 layers cut to 16 to keep the whole script, DeepSeek-V3's
-# phase included, well inside its limit (PERF.md section 4)
-SERVE_LAYERS = 16
+# llama3-8b's 32 layers cut to keep the whole script, DeepSeek-V3's and the
+# training phase included, inside its limit (16 until the training phase
+# came; PERF.md section 4)
+SERVE_LAYERS = 12
 # qwen3-8b's 36 layers cut to keep the whole script under ~1100 s (8 until
-# DeepSeek-V3's phase came, 4 until xLSTM-1.3B's; PERF.md section 4)
-QWEN_LAYERS = 2
+# DeepSeek-V3's phase came, 4 until xLSTM-1.3B's, 2 until the training
+# phase's; PERF.md section 4)
+QWEN_LAYERS = 1
 
 KERNELS = {
     # wrapper name -> (source, TPU kernel it replaces)
@@ -3702,9 +3741,10 @@ def olmoe_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
 
 # depth of each config's run, cut to keep the whole script under ~1100 s
 # (qwen2-1.5b whole until DeepSeek-V3's phase came, stablelm-12b 4 until
-# xLSTM-1.3B's; PERF.md section 4)
-DENSE_LAYERS = {"qwen2-1.5b": 14, "stablelm-12b": 2, "phi4-mini-3.8b": 6,
-                "internlm2-1.8b": 8, "internvl2-2b": 8}
+# xLSTM-1.3B's; qwen2-1.5b 14, phi4-mini-3.8b 6, internlm2-1.8b and
+# internvl2-2b 8 until the training phase came; PERF.md section 4)
+DENSE_LAYERS = {"qwen2-1.5b": 7, "stablelm-12b": 2, "phi4-mini-3.8b": 3,
+                "internlm2-1.8b": 4, "internvl2-2b": 4}
 # the engine modes each config is served in (paged, with the prefix cache,
 # unless named here)
 DENSE_MODES = {"qwen2-1.5b": ("paged", "ragged"), "internvl2-2b": ("bucketed", "paged")}
@@ -4184,12 +4224,12 @@ WHISPER_ATT = dict(B=8, H=8, KV=8, hd=64, page=16, maxp=128)
 # prefill bucket 8, the buckets 32 .. 448, the 1500-row encoder and the
 # cross-attention k/v
 WHISPER_LINEAR_MS = (8, 32, 64, 128, 256, 448, 1500)
-# zamba2's 38 layers cut to 8 (1 shared-block invocation + 2 rest layers):
+# zamba2's 38 layers cut to 7 (1 shared-block invocation + 1 rest layer):
 # its prefill fills the state one eager decode step per bucket row, ~28-35 ms
 # a row at 14 layers, so 38 layers would take the phase past its ~150 s, and
-# 14 layers took the whole script to 1122.9 s, past its ~1100 s (PERF.md
-# section 4)
-ZAMBA_LAYERS = 8
+# 14 layers took the whole script to 1122.9 s, past its ~1100 s (8 until
+# the training phase came; PERF.md section 4)
+ZAMBA_LAYERS = 7
 ZAMBA_MAX_LEN = 512
 # buckets 8 .. 256; the 200-token prompt's forward runs two SSD chunks (the
 # carried inter-chunk state) and the shared block's attention over both.
@@ -4847,6 +4887,571 @@ def xlstm_phase(device, card: str, cfg, prompt_lens=XLSTM_PROMPTS,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the training stack at llama3-8b's full width, then the trained
+# weights packed and served
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 2  # llama3-8b's 32 layers cut to 2: ~1.49 B parameters
+TRAIN_BATCH, TRAIN_SEQ = 4, 2049  # 2048 shifted rows: the chunked CE
+# one TrainLoop run of 7 steps is both the loop check and the restart
+# drill: a checkpoint at step 4, a failure before step 6, steps 4 and 5
+# replayed from the restored state (and held to their first pass), then
+# step 6 and the loop's closing checkpoint
+TRAIN_STEPS = 7
+TRAIN_CKPT_EVERY = 4
+TRAIN_FAIL_AT = 6
+# per leaf, the bf16 step's gradient against the same step with the weights
+# in f32 (relative Frobenius error; bf16 against the JAX reference reads
+# ~0.01 on the CPU). The embedding's own: its gradient is the reference's
+# bf16 scatter-add, 8192 rows of the batch into at most 259 byte tokens'
+# rows (0.186-0.237 on an H100 over five batches of two corpora; its dropped
+# gradient reads 1.0; labels one token off read 0.300-0.333 there, a fault
+# the other leaves catch; PERF.md section 6)
+TRAIN_GRAD_REL_MAX = 0.05
+TRAIN_EMBED_REL_MAX = 0.3
+TRAIN_CHECK_BATCHES = 3  # the step check's batches (the stream's first)
+TRAIN_INIT_BAND = 1.0  # |loss - ln V| at init (logits of about unit scale)
+TRAIN_FALL_MIN = 0.5  # the first loss less the mean of the last two
+# |deq + ef - g| <= scale / 512 per leaf: ef is the residual (<= scale / 2)
+# rounded to bf16 (8 bits of mantissa), the rest f32 rounding
+TRAIN_EF_BOUND = 2.0 ** -9
+# the loss after one compressed step from the trained state against the
+# loss after the uncompressed step, relative: read 1.2e-3 to 8.7e-3 on an
+# H100 (PERF.md section 6) and 5e-4 in the CPU rehearsal. A step that
+# applied no update can pass it (one step moved the loss by rel 0.013), so
+# what the step did is held by the next bound
+TRAIN_COMPRESS_REL = 0.02
+# per leaf, the compressed step's update of the parameters (p_c - p0)
+# against the uncompressed step's (p_u - p0), relative (Frobenius) over the
+# leaves the uncompressed step moved: read 0.339 at most (head.w; median
+# 0.113) on an H100, while a step that applied no update reads 1.0 (the
+# planted fault); the bound sits between them (PERF.md section 6)
+TRAIN_UPDATE_REL_MAX = 0.6
+TRAIN_PROMPTS = (5, 17, 40, 100)  # prefill buckets 8, 32, 64, 128
+TRAIN_SERVE_SLOTS = 4  # the decode step's M
+TRAIN_SERVE_MS = (4, 8, 32, 64, 128)
+
+
+def _free() -> None:
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def train_loss_grads(params, cfg, batch) -> tuple:
+    """(loss, {name: gradient}) of ``batch`` through the family's
+    ``loss_fn``; the model's own gradients are cleared after."""
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models.registry import get_model
+
+    named = dict(params.named_parameters())
+    dev = next(iter(named.values())).device
+    for p in named.values():
+        p.grad = None
+    loss = get_model(cfg).loss_fn(params, cfg, batch_to_device(batch, dev))
+    loss.backward()
+    grads = {n: p.grad for n, p in named.items()}
+    for p in named.values():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def train_eval_loss(params, cfg, batch) -> float:
+    import torch
+
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models.registry import get_model
+
+    with torch.no_grad():
+        dev = next(params.parameters()).device
+        return float(get_model(cfg).loss_fn(params, cfg, batch_to_device(batch, dev)))
+
+
+def grad_rels(grads: dict, ref: dict) -> list:
+    """[(relative (Frobenius) error of ``grads`` against ``ref``, leaf)],
+    largest first."""
+    import torch
+
+    rels = []
+    for n, r in ref.items():
+        r32 = r.float()
+        rels.append((float(torch.linalg.vector_norm(grads[n].float() - r32)
+                           / torch.linalg.vector_norm(r32).clamp_min(1e-30)), n))
+    return sorted(rels, reverse=True)
+
+
+def grads_over(rels: list) -> list:
+    """The leaves past their bound (``TRAIN_EMBED_REL_MAX`` for the
+    embedding, ``TRAIN_GRAD_REL_MAX`` for every other)."""
+    return [(r, n) for r, n in rels
+            if not r <= (TRAIN_EMBED_REL_MAX if n == "embed" else TRAIN_GRAD_REL_MAX)]
+
+
+def update_rels(p0: dict, ref: dict, got: dict) -> tuple[list, int]:
+    """([(relative (Frobenius) error of the update ``got - p0`` against
+    ``ref - p0``, leaf)], largest first, over the leaves ``ref`` moved;
+    the count of leaves it left as they were)."""
+    import torch
+
+    rels, still = [], 0
+    for n, r in ref.items():
+        d = torch.linalg.vector_norm(r.float() - p0[n].float())
+        if not bool(d > 0):
+            still += 1
+            continue
+        rels.append((float(torch.linalg.vector_norm(got[n].float() - r.float()) / d), n))
+    return sorted(rels, reverse=True), still
+
+
+def state_equal(saved: dict, state) -> tuple[bool, str]:
+    """Every leaf of ``state`` bit for bit the host array of its key in
+    ``saved`` (a save's ``host_copies``), compared on the leaf's device up
+    to the first that differs; and that key."""
+    import torch
+
+    from repro_torch.checkpoint.manager import flatten
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    flat = flatten(state)
+    if set(flat) != set(saved):
+        return False, f"keys {sorted(set(flat) ^ set(saved))[:3]}"
+    for k, v in flat.items():
+        want = torch.from_numpy(saved[k])
+        got = v.detach() if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+        size = got.element_size()
+        if tuple(got.shape) != tuple(want.shape) or size != want.element_size() or not torch.equal(
+                got.contiguous().view(ints[size]), want.view(ints[size]).to(got.device)):
+            return False, k
+    return True, ""
+
+
+def ef_worst(grads: dict, deq: dict, ef: dict, scales: dict) -> tuple[float, str]:
+    """max |deq + ef - g| / scale over the leaves (the error-feedback
+    identity), and its leaf."""
+    worst = (-1.0, "")
+    for n, g in grads.items():
+        d = (deq[n] + ef[n].float() - g.float()).abs().max() / scales[n]
+        worst = max(worst, (float(d), n))
+    return worst
+
+
+def _timed_step(step_fn, times: list, device):
+    """``step_fn`` with each call's ms appended: device ms from CUDA events
+    on the card, host ms on the CPU."""
+    import torch
+
+    def step(params, opt_state, batch):
+        if device.type != "cuda":
+            t = time.perf_counter()
+            out = step_fn(params, opt_state, batch)
+            times.append((time.perf_counter() - t) * 1e3)
+            return out
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step_fn(params, opt_state, batch)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        return out
+    return step
+
+
+def drill_manager(directory, sync_device, keep_n: int = 1):
+    """An async ``CheckpointManager`` that times its saves (host copies and
+    the thread's start), its writer and its restores, keeps the host arrays
+    of the last write (``saved``), and at a restore holds both the state it
+    overwrites and the state it restores against them: ``held`` = (the
+    state at the failure equal?, the restored state equal?, the first key
+    that differs). A restore's seconds end with ``sync_device`` idle."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    class DrillManager(CheckpointManager):
+        def __init__(self, directory, keep_n):
+            super().__init__(directory, keep_n=keep_n, async_save=True)
+            self.saved = self.held = None
+            self.save_s, self.write_s, self.restore_s = [], [], []
+
+        def save(self, step, state):
+            t = time.perf_counter()
+            super().save(step, state)
+            self.save_s.append(time.perf_counter() - t)
+
+        def _write(self, step, arrays, dtypes):
+            t = time.perf_counter()
+            super()._write(step, arrays, dtypes)
+            self.saved = arrays
+            self.write_s.append(time.perf_counter() - t)
+
+        def restore_latest(self, like=None, device=None):
+            self.wait()
+            before = state_equal(self.saved, like)
+            t = time.perf_counter()
+            out = super().restore_latest(like, device)
+            _sync(sync_device)
+            self.restore_s.append(time.perf_counter() - t)
+            after = state_equal(self.saved, out[1])
+            self.held = (before[0], after[0], after[1] or before[1])
+            return out
+
+    return DrillManager(directory, keep_n)
+
+
+def train_step_check(device, cfg, batches: list) -> float:
+    """Check 1, on each of ``batches``: the bf16 step's gradients against
+    the same step with the weights upcast to f32 on the same device, and
+    labels one token off that must fail the bounds; on the first, the loss
+    at init and two more planted faults (a dropped leaf gradient, the
+    embedding's dropped); the reference's decay flags on the stacked
+    shapes. Returns the first batch's loss."""
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.train import init_train_state
+    from repro_torch.optim import AdamW
+
+    opt = AdamW()
+    params, _ = init_train_state(cfg, opt, seed=0, device=device)
+    decays = opt.decays(params)
+    if not (decays["layers.0.ln1"] and decays["layers.1.attn.q.w"] and not decays["ln_f"]):
+        fail(f"train decay flags: layers.0.ln1 {decays['layers.0.ln1']}, ln_f "
+             f"{decays['ln_f']} (want True, False: the reference's stacked shapes)")
+    p32 = copy.deepcopy(params).float()  # the same step with every weight in f32
+    embeds = []  # (bf16 vs f32, labels one token off) of the embedding, a batch each
+    for i, batch in enumerate(batches):
+        loss, g16 = train_loss_grads(params, cfg, batch)
+        loss32, g32 = train_loss_grads(p32, cfg, batch)
+        rels = grad_rels(g16, g32)
+        if grads_over(rels):
+            fail(f"train step batch {i} bf16 vs f32 past the bounds ({TRAIN_GRAD_REL_MAX}, "
+                 f"embed {TRAIN_EMBED_REL_MAX}): {grads_over(rels)}")
+        # labels one token further ahead than the loss's own shift
+        off_by_one = {**batch, "labels": np.roll(batch["labels"], -1, axis=1)}
+        shift_rels = grad_rels(train_loss_grads(params, cfg, off_by_one)[1], g32)
+        shift = grads_over(shift_rels)
+        if not shift:
+            fail(f"train step batch {i}: labels one token off not caught: {shift_rels[:3]}")
+        embeds.append(tuple(round(next(r for r, n in rs if n == "embed"), 5)
+                            for rs in (rels, shift_rels)))
+        if i == 0:
+            first = (float(loss), float(loss32), rels, shift)
+            leaf = next(n for _, n in rels if n != "embed")
+            dropped, dropped_embed = (
+                grads_over(grad_rels({**g16, n: torch.zeros_like(g16[n])}, g32))
+                for n in (leaf, "embed"))
+            if not (dropped and dropped_embed):
+                fail(f"train step planted faults not caught: dropped leaf {leaf} {dropped}, "
+                     f"dropped embed {dropped_embed}")
+        del g16, g32
+        _free()
+    del p32
+    _free()
+    loss, loss32, rels, shift = first
+    ln_v = math.log(cfg.vocab)
+    if not math.isfinite(loss) or abs(loss - ln_v) > TRAIN_INIT_BAND:
+        fail(f"train step loss {loss} at init, want finite and within {TRAIN_INIT_BAND} of "
+             f"ln(V) = {ln_v:.4f}")
+    print(f"train step gradients bf16 vs f32 (batch 0), largest rel first: "
+          f"{[(round(r, 5), n) for r, n in rels[:6]]}", flush=True)
+    print(f"train step embed rel (bf16 vs f32, labels one token off) on batches 0-"
+          f"{len(batches) - 1}: {embeds} (bound {TRAIN_EMBED_REL_MAX}; the label shift is "
+          f"caught by the other leaves, the dropped embedding reads 1.0)", flush=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"train step params={n_params} loss bf16={loss:.6f} f32={loss32:.6f} "
+          f"ln(V)={ln_v:.6f}; gradients bf16 vs f32 within {TRAIN_GRAD_REL_MAX} (embed "
+          f"{TRAIN_EMBED_REL_MAX}) on {len(batches)} batches; planted faults caught: {leaf} "
+          f"dropped {dropped[0]}, embed dropped {dropped_embed[0]}, labels one token off: "
+          f"{len(shift)} leaves past, the worst {shift[0]}; decay flags: layers.i.ln1 True, "
+          f"ln_f False ({sum(decays.values())} of {len(decays)} leaves decay)", flush=True)
+    return loss
+
+
+def _run_loop(cfg, step_fn, mgr, ds, device) -> tuple:
+    """A ``TrainLoop`` from the seed-0 state over ``TRAIN_STEPS`` steps of
+    ``ds``, checkpointing every ``TRAIN_CKPT_EVERY`` and failing once
+    before step ``TRAIN_FAIL_AT``. Returns (params, opt_state, losses, end
+    step, loop)."""
+    from repro_torch.launch.train import TrainLoop, init_train_state
+    from repro_torch.optim import AdamW
+
+    params, opt_state = init_train_state(cfg, AdamW(), seed=0, device=device)
+    armed = [True]
+
+    def injector(step):
+        if armed[0] and step == TRAIN_FAIL_AT:
+            armed[0] = False
+            raise RuntimeError("injected node failure")
+
+    loop = TrainLoop(cfg, step_fn, mgr, ds.iterate, ckpt_every=TRAIN_CKPT_EVERY)
+    params, opt_state, losses, end = loop.run(params, opt_state, 0, TRAIN_STEPS,
+                                              fail_injector=injector)
+    return params, opt_state, losses, end, loop
+
+
+def train_compress_check(cfg, params, opt_state, batch) -> None:
+    """Check 4, from the trained state: the int8 error-feedback identity on
+    the step's gradients (a dropped residual must fail it); one compressed
+    step (``make_train_step(grad_compress=True)``, a zero residual) whose
+    parameters are bit for bit AdamW's update by the dequantized gradients
+    (the state before the step must differ), whose update of each leaf is
+    within ``TRAIN_UPDATE_REL_MAX`` of the uncompressed step's (no update
+    must fail it) and whose next loss is within ``TRAIN_COMPRESS_REL`` of
+    the uncompressed step's. Runs under deterministic algorithms; the state
+    is put back after each step."""
+    import torch
+
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.grad_compression import compress_grads_int8, decompress_grads_int8
+
+    opt = AdamW()
+    named = dict(params.named_parameters())
+    snap = {n: p.detach().clone() for n, p in named.items()}
+    moments = {n: (opt_state.mu[n].clone(), opt_state.nu[n].clone()) for n in named}
+
+    def put_back():
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(snap[n])
+                opt_state.mu[n].copy_(moments[n][0])
+                opt_state.nu[n].copy_(moments[n][1])
+
+    def after(step_fn, state) -> dict:
+        """The parameters after one step from the snapshot, then put back."""
+        step_fn(params, state, batch)
+        out = {n: p.detach().clone() for n, p in named.items()}
+        put_back()
+        return out
+
+    loss_before = train_eval_loss(params, cfg, batch)
+    _, grads = train_loss_grads(params, cfg, batch)
+    q, s, ef = compress_grads_int8(grads, cfg=cfg)
+    deq = decompress_grads_int8(q, s)
+    worst = ef_worst(grads, deq, ef, s)
+    planted = ef_worst(grads, deq, {n: torch.zeros_like(e) for n, e in ef.items()}, s)
+    if not worst[0] <= TRAIN_EF_BOUND or planted[0] <= TRAIN_EF_BOUND:
+        fail(f"train compression: deq + ef vs g worst {worst} (bound {TRAIN_EF_BOUND}), "
+             f"residual dropped {planted} (must exceed it)")
+    del grads, q, s, ef
+    p_m = after(lambda p, st, b: opt.update(deq, st, p), opt_state)  # AdamW by hand
+    del deq
+    _free()
+    make_train_step(cfg, opt)(params, opt_state, batch)
+    loss_u = train_eval_loss(params, cfg, batch)
+    p_u = {n: p.detach().clone() for n, p in named.items()}
+    put_back()
+    zero_ef = {n: torch.zeros_like(p) for n, p in named.items()}
+    make_train_step(cfg, opt, grad_compress=True)(params, (opt_state, zero_ef), batch)
+    loss_c = train_eval_loss(params, cfg, batch)
+    p_c = {n: p.detach().clone() for n, p in named.items()}
+    put_back()
+    del zero_ef, moments
+    _free()
+    unequal = [n for n in named if not torch.equal(p_c[n], p_m[n])]
+    unmoved = all(torch.equal(snap[n], p_m[n]) for n in named)  # the control: no update
+    moves, still = update_rels(snap, p_u, p_c)
+    no_update, _ = update_rels(snap, p_u, snap)  # the planted fault: the step applied nothing
+    del snap, p_u, p_c, p_m
+    _free()
+    if unequal or unmoved:
+        fail(f"train compression: the compressed step != AdamW by the dequantized gradients "
+             f"in {unequal[:3]} ({len(unequal)} leaves); the state before the step equal to "
+             f"it {unmoved} (the control: must differ)")
+    rel = abs(loss_c - loss_u) / abs(loss_u)
+    if not moves or not moves[0][0] <= TRAIN_UPDATE_REL_MAX or not min(
+            no_update)[0] > TRAIN_UPDATE_REL_MAX:
+        fail(f"train compression: the compressed step's update vs the uncompressed one's, "
+             f"worst {moves[:3]}, no update {min(no_update, default=None)} (bound "
+             f"{TRAIN_UPDATE_REL_MAX}; the no-update control must exceed it)")
+    if not rel <= TRAIN_COMPRESS_REL:
+        fail(f"train compression: loss after the compressed step {loss_c} vs uncompressed "
+             f"{loss_u}: rel {rel:.2e} (bound {TRAIN_COMPRESS_REL})")
+    print(f"train compression from the trained state: deq + ef vs g worst "
+          f"{worst[0] * 512:.4f} x scale/512 ({worst[1]}); residual dropped "
+          f"{planted[0] * 512:.1f} x scale/512 (caught); the compressed step == AdamW by the "
+          f"dequantized gradients: equal (the state before it: differs); its update against "
+          f"the uncompressed step's, worst leaf first {[(round(r, 5), n) for r, n in moves[:4]]}"
+          f", median {moves[len(moves) // 2][0]:.5f} over {len(moves)} leaves ({still} not "
+          f"moved by it), no update {min(no_update)[0]:.5f} (caught), bound "
+          f"{TRAIN_UPDATE_REL_MAX}; loss before the step {loss_before:.6f}, after it "
+          f"uncompressed {loss_u:.6f}, compressed {loss_c:.6f}: rel {rel:.2e} <= "
+          f"{TRAIN_COMPRESS_REL}", flush=True)
+
+
+def train_serve_check(cfg, params, tokens, device) -> None:
+    """Check 5: the trained weights packed W4A4 (rank 128, group 128,
+    fused); layer 0's four packs through the dual kernels at every served
+    M, each ``torch.equal`` to its plain version (a pack with another
+    layer's ``rp`` must differ); then served paged through
+    ``ContinuousBatchingEngine`` (step graphs) with every dual kernel
+    launched, every request DONE, finite prefill logits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import QuantSpec
+    from repro_torch.core.twinquant import fuse_params, quantize_params
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.ref import dual_gemm_group_ref, dual_gemm_ref
+    from repro_torch.launch.serve import ContinuousBatchingEngine, Request
+    from repro_torch.models import common as C
+    from repro_torch.models import dense
+
+    t = time.perf_counter()
+    qp = fuse_params(quantize_params(params, cfg, QuantSpec("w4a4", rank=128, group_size=128)))
+    _sync(device)
+    t_pack = time.perf_counter() - t
+    lp0, lp1 = qp.layers[0], qp.layers[1]
+    hhd = cfg.n_heads * cfg.head_dim
+    packs = {"qkv": (lp0.attn["qkv"], cfg.d_model), "o": (lp0.attn["o"], hhd),
+             "gate_up": (lp0.mlp["gate_up"], cfg.d_model), "down": (lp0.mlp["down"], cfg.d_ff)}
+    gen = torch.Generator(device=device).manual_seed(21)
+    for name, (mod, k) in packs.items():
+        w = mod.weights()
+        group = isinstance(mod, C.TwinQuantLinearGroup)
+        for m in TRAIN_SERVE_MS:
+            x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
+            before = _counts()
+            y = torch.cat(dispatch.fused_linear(x, w), -1) if group else dispatch.quant_linear(x, w)
+            launches, routes = _since(before)
+            kern = ("dual_gemv" if m <= 8 else "dual_gemm") + ("_group" if group else "")
+            if any("/ref" in r for r in routes) or (device.type == "cuda"
+                                                     and launches != {kern: 1}):
+                fail(f"train pack {name} M={m}: routes {routes} launches {launches}, want {kern}")
+            y_p = dual_gemm_group_ref(x, w) if group else dual_gemm_ref(x, w)
+            if not torch.equal(y, y_p):
+                fail(f"train pack {name} M={m}: {kern} != plain version ({_unequal(y, y_p)})")
+    o0, o1 = lp0.attn["o"].weights(), lp1.attn["o"].weights()
+    swapped = dataclasses.replace(o0, rp=o1.rp)
+    x = torch.randn(TRAIN_SERVE_SLOTS, hhd, generator=gen, device=device).to(torch.bfloat16)
+    if torch.equal(dispatch.quant_linear(x, swapped), dual_gemm_ref(x, o0)):
+        fail("train pack: a pack with layer 1's rp equals layer 0's plain version (planted "
+             "fault missed)")
+    print(f"train pack w4a4 quantize_fuse_s={t_pack:.2f}; layer 0 qkv, o, gate_up, down through "
+          f"the dual kernels at M={list(TRAIN_SERVE_MS)} == plain versions: equal; o with layer "
+          f"1's rp: differs (planted)", flush=True)
+    step = 997
+    prompts = [np.asarray(tokens[i * step:i * step + n], np.int32)
+               for i, n in enumerate(TRAIN_PROMPTS)]
+    state = dense.init_decode_state(cfg, 1, 128, device=device)
+    logits = dense.prefill(qp, cfg, torch.as_tensor(prompts[1][None, :], device=device),
+                           state)[0]
+    if not bool(torch.isfinite(logits).all()):
+        fail("train serve: non-finite prefill logits")
+    eng = ContinuousBatchingEngine(cfg, qp, batch_slots=TRAIN_SERVE_SLOTS, max_len=256,
+                                   device=device, paged=True)
+    reqs = [Request(p, max_new=8) for p in prompts]
+    launches, _ = _drive("train w4a4 paged", eng, reqs, device, cfg.n_layers)
+    duals = ("dual_gemv", "dual_gemv_group", "dual_gemm", "dual_gemm_group")
+    if device.type == "cuda" and not all(launches.get(k, 0) > 0 for k in duals):
+        fail(f"train serve: a dual kernel never launched: {launches}")
+    print(f"train serve trained w4a4 paged: {len(reqs)} requests DONE, prefill logits finite, "
+          f"first outputs {[r.out[:4] for r in reqs]}", flush=True)
+    del eng, qp
+
+
+def train_phase(device, card: str, cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> None:
+    """Phase 13: llama3-8b at full width and ``cfg``'s depth trained on the
+    repo's own text through the port's training stack, its checks and
+    planted faults, then the trained weights packed and served (see the
+    module docstring)."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenDataset, load_corpus
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import common as C
+    from repro_torch.optim import AdamW
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    tokens = load_corpus()
+    ds = TokenDataset(tokens, batch=batch, seq=seq, seed=0)
+    print(f"train config {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} n_layers={cfg.n_layers} (cut from 32) remat="
+          f"{cfg.remat} batch={batch}x{seq} corpus_tokens={len(tokens)} card=\"{card}\"",
+          flush=True)
+    loss0 = train_step_check(device, cfg,
+                             [ds.batch_at(i) for i in range(TRAIN_CHECK_BATCHES)])
+    _free()
+    t1 = time.perf_counter()
+    # the loop and the drill run bit for bit under deterministic algorithms
+    # (cuBLAS asks for a workspace setting then; one stream needs no other)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev_det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    try:
+        times: list = []
+        step_fn = _timed_step(make_train_step(cfg, AdamW()), times, device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        mgr = drill_manager(tmp, device)
+        params, opt_state, losses, end, loop = _run_loop(cfg, step_fn, mgr, ds, device)
+        peak = torch.cuda.max_memory_allocated(device) if cuda else "not measured"
+        n_re = TRAIN_FAIL_AT - TRAIN_CKPT_EVERY
+        first, replay = losses[:TRAIN_FAIL_AT], losses[TRAIN_FAIL_AT:TRAIN_FAIL_AT + n_re]
+        unique = first + losses[TRAIN_FAIL_AT + n_re:]  # one loss a step, in order
+        fall = unique[0] - sum(unique[-2:]) / 2
+        back = unique[-1] - sum(unique[:2]) / 2  # the planted fault: the run reversed
+        if (len(unique) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses)
+                or not fall >= TRAIN_FALL_MIN):
+            fail(f"train losses do not fall by {TRAIN_FALL_MIN}: {losses}")
+        if back >= TRAIN_FALL_MIN:
+            fail(f"train losses: the reversed run passes the fall check ({back})")
+        ms = sorted(times[1:])[len(times[1:]) // 2]
+        ntok = batch * (seq - 1)
+        size = sum(f.stat().st_size for f in tmp.glob("step_*/*"))
+        print(f"train loop steps={TRAIN_STEPS} losses={json.dumps(unique)} fall={fall:.4f} >= "
+              f"{TRAIN_FALL_MIN} (reversed: {back:.4f}, caught); step device ms median={ms:.2f} "
+              f"(first {times[0]:.2f}) tokens/s={ntok / ms * 1e3:.0f} ({ntok} trained tokens a "
+              f"step) max_memory_allocated={peak}", flush=True)
+        if loop.restarts != 1 or end != TRAIN_STEPS or mgr.held is None:
+            fail(f"train drill: restarts {loop.restarts}, end {end}, restore seen "
+                 f"{mgr.held is not None}")
+        at_failure, restored, key = mgr.held
+        if not restored or at_failure:
+            fail(f"train drill: restored state == saved {restored}, state at the failure == "
+                 f"saved {at_failure} (planted: must differ); key {key}")
+        want = first[TRAIN_CKPT_EVERY:]
+        off = first[TRAIN_CKPT_EVERY - 1:TRAIN_FAIL_AT - 1]  # the control: one step early
+        if replay != want or replay == off:
+            fail(f"train drill: replayed losses {replay}, first pass {want}, one step off {off}")
+        print(f"train drill failure before step {TRAIN_FAIL_AT}, restored step "
+              f"{TRAIN_CKPT_EVERY}: restarts=1, steps {TRAIN_CKPT_EVERY}-{TRAIN_FAIL_AT - 1} "
+              f"replayed == their uninterrupted first pass: equal (bit for bit; one step off: "
+              f"differs); restored parameters and moments == saved: equal; the state at the "
+              f"failure == saved: differs (planted); checkpoint bytes={size} save_s="
+              f"{[round(v, 2) for v in mgr.save_s]} write_s={[round(v, 2) for v in mgr.write_s]} "
+              f"restore_s={mgr.restore_s[-1]:.2f} free_disk_bytes={shutil.disk_usage(tmp).free}",
+              flush=True)
+        del mgr, loop
+        _free()
+        t2 = time.perf_counter()
+        train_compress_check(cfg, params, opt_state, ds.batch_at(TRAIN_STEPS))
+        del opt_state
+        _free()
+        t3 = time.perf_counter()
+    finally:
+        torch.use_deterministic_algorithms(prev_det)
+        shutil.rmtree(tmp)
+    train_serve_check(cfg, C.frozen(params), tokens, device)
+    del params
+    _free()
+    t5 = time.perf_counter()
+    print(f"train phase seconds: step_check {t1 - t0:.1f} loop_and_drill {t2 - t1:.1f} "
+          f"compress {t3 - t2:.1f} pack_serve {t5 - t3:.1f} total {t5 - t0:.1f} "
+          f"loss0={loss0:.6f} card=\"{card_line() if cuda else card}\"", flush=True)
+
+
 def main() -> None:
     import argparse
 
@@ -4880,6 +5485,8 @@ def main() -> None:
     ap.add_argument("--xlstm-only", action="store_true",
                     help="build, then run the narrow-tile kernel checks and the xLSTM-1.3B "
                          "phase alone (no result line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build, then run the training phase alone (no result line)")
     ap.add_argument("--src", metavar="DIR",
                     help="import repro_torch from DIR (another tree's src) instead")
     args = ap.parse_args()
@@ -4955,6 +5562,13 @@ def main() -> None:
             xlstm_phase(device, card, get_config("xlstm-1.3b").replace(n_layers=XLSTM_LAYERS))
             print(f"xlstm phase total seconds {time.perf_counter() - t:.1f}", flush=True)
         return
+    if args.train_only:
+        from repro_torch.configs import get_config
+
+        t = time.perf_counter()
+        train_phase(device, card, get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS))
+        print(f"train phase total seconds {time.perf_counter() - t:.1f}", flush=True)
+        return
     if args.lifecycle_only:
         from repro_torch.configs import QuantSpec, get_config
         from repro_torch.core.twinquant import fuse_params, quantize_params
@@ -5012,6 +5626,10 @@ def main() -> None:
     t = time.perf_counter()
     xlstm_phase(device, card, get_config("xlstm-1.3b").replace(n_layers=XLSTM_LAYERS))
     secs["xlstm_1_3b"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    train_phase(device, card, get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS))
+    secs["train_llama3_8b"] = time.perf_counter() - t
     print(f"phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
 
     rows = []

@@ -86,7 +86,8 @@ class ModelConfig:
     ssm_head_dim: int = 64
     shared_attn_every: int = 0  # zamba2: shared attention block cadence
     quant: QuantSpec = QuantSpec()
-    # training (read by no serving path of the port; kept for parity)
+    # training: each layer rematerialised in a loss's backward (the serving
+    # forwards run under no_grad and ignore it)
     remat: bool = True
 
     @property

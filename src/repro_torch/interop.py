@@ -23,7 +23,11 @@ stacked ``(n_seg, every, ...)``, ``shared``, ``adapters``,
 :class:`~repro_torch.models.mamba_hybrid.HybridModel`, both stacked axes
 unstacked; an xLSTM tree (``m_layers`` stacked ``(n_seg, m_per, ...)`` and
 ``s_layers`` ``(n_seg, ...)``, or ``m_layers`` ``(n_layers, ...)`` alone)
-an :class:`~repro_torch.models.xlstm.XLSTMModel`. :func:`calib_result_from_numpy` and
+an :class:`~repro_torch.models.xlstm.XLSTMModel`. :func:`params_to_numpy` is the
+inverse for the bf16 models of every family (the trained weights go back
+to the reference's stacked tree): :func:`reference_leaf` names the
+reference leaf and the stacked index each of the port's tensors lands in.
+:func:`calib_result_from_numpy` and
 :func:`gl_params_from_numpy` carry a calibration's result and a ``GLParams``
 across the same way. bf16 arrays are recognised by dtype name and moved bit for bit
 through a 16-bit integer view, so no bf16 numpy extension is needed here.
@@ -57,7 +61,9 @@ from repro_torch.models.moe_layer import MoEFFN
 from repro_torch.models.olmoe import OLMoELayer
 from repro_torch.models.xlstm import MLSTMBlock, SLSTMBlock, XLSTMModel
 
-__all__ = ["calib_result_from_numpy", "gl_params_from_numpy", "params_from_numpy", "to_torch"]
+__all__ = ["calib_result_from_numpy", "gl_params_from_numpy", "named_tensors",
+           "params_from_numpy", "params_to_numpy", "reference_leaf", "reference_ndim",
+           "to_torch"]
 
 
 def to_torch(a, device) -> torch.Tensor:
@@ -246,6 +252,79 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> DenseModel:
                                      ln1, ln2))
     head = _linear(tree["head"], dev) if "head" in tree else None
     return DenseModel(to_torch(tree["embed"], dev), layers, to_torch(tree["ln_f"], dev), head)
+
+
+def named_tensors(params) -> dict:
+    """``{name: tensor}``: a model's floating-point parameters and buffers by
+    their dotted names (or a dict of them, as it is)."""
+    if not isinstance(params, torch.nn.Module):
+        return dict(params)
+    named = dict(params.named_parameters())
+    named.update((n, t) for n, t in params.named_buffers() if t.is_floating_point())
+    return named
+
+
+def reference_leaf(name: str, cfg: ModelConfig = None) -> tuple:
+    """(path, index) of the port's tensor ``name`` in the reference's tree:
+    the path of keys down to the leaf, and the index of this tensor along
+    the leaf's leading stacked axes. Each number in the dotted name is one
+    stacked axis of the reference (``layers.3.ln1`` is row 3 of
+    ``layers/ln1`` (L, d); Zamba2's and xLSTM's ``m_layers.1.2`` is row (1,
+    2) of (n_seg, every, ...)); an MoE block's ``experts`` are the block's
+    own keys there; DeepSeek-V3's ``layers`` are ``dense_layers`` then
+    ``moe_layers`` (``cfg`` says where the split is)."""
+    parts = name.split(".")
+    idx = tuple(int(p) for p in parts if p.isdigit())
+    path = [p for i, p in enumerate(parts)
+            if not p.isdigit() and not (p == "experts" and parts[i - 1] == "moe")]
+    if cfg is not None and cfg.family == "mla_moe" and path[0] == "layers":
+        nd = cfg.first_k_dense
+        path[0] = "dense_layers" if idx[0] < nd else "moe_layers"
+        idx = (idx[0] - (0 if idx[0] < nd else nd),) + idx[1:]
+    return tuple(path), idx
+
+
+def reference_ndim(name: str, t: torch.Tensor) -> int:
+    """ndim of the reference leaf the port's tensor ``name`` lands in: its
+    own plus one for each stacked axis."""
+    return t.ndim + len(reference_leaf(name)[1])
+
+
+def _to_numpy(t: torch.Tensor, bf16) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(bf16).copy()
+    return t.numpy().copy()
+
+
+def _stack(rows: dict) -> np.ndarray:
+    """The leaf from its rows ``{index: array}`` (index () when unstacked)."""
+    if () in rows:
+        return rows[()]
+    n = 1 + max(i[0] for i in rows)
+    return np.stack([_stack({i[1:]: a for i, a in rows.items() if i[0] == j})
+                     for j in range(n)])
+
+
+def params_to_numpy(params, cfg: ModelConfig) -> dict:
+    """The inverse of :func:`params_from_numpy` for a bf16 model (or a dict
+    of its tensors by name, such as gradients or moments): the reference's
+    nested tree of numpy arrays, every per-layer leaf stacked on its
+    leading axes, bf16 as ``ml_dtypes.bfloat16`` (the reference's own
+    numpy bf16 dtype), every bit kept."""
+    import ml_dtypes
+
+    leaves: dict = {}
+    for name, t in named_tensors(params).items():
+        path, idx = reference_leaf(name, cfg)
+        leaves.setdefault(path, {})[idx] = _to_numpy(t, ml_dtypes.bfloat16)
+    tree: dict = {}
+    for path, rows in leaves.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _stack(rows)
+    return tree
 
 
 def gl_params_from_numpy(p, device=None) -> GLParams:

@@ -26,6 +26,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs import ModelConfig
@@ -688,6 +689,99 @@ def nonfinite_rows(last: np.ndarray, vocab: int) -> list:
     first ``vocab`` columns: the engine's finite-logits guard."""
     finite = np.isfinite(last[..., :vocab]).all(axis=-1)
     return [int(i) for i in np.flatnonzero(~finite.reshape(-1))]
+
+
+# ---------------------------------------------------------------------------
+# training: losses, rematerialisation, trainable weights
+# ---------------------------------------------------------------------------
+
+
+def _nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> tuple:
+    """(sum of the f32 NLL over the labels >= 0, their count in f32)."""
+    mask = labels >= 0
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    # -logp at each label (the reference's take_along_axis); its backward
+    # writes one element a row, no scatter
+    nll = torch.nn.functional.nll_loss(logp.reshape(-1, logp.shape[-1]), safe.reshape(-1),
+                                       reduction="none").reshape(safe.shape)
+    return torch.sum(nll * mask), torch.sum(mask).to(torch.float32)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over tokens in f32; labels < 0 are masked out."""
+    tot, cnt = _nll_sum(logits, labels)
+    return tot / torch.clamp_min(cnt, 1)
+
+
+_CE_CHUNK = 256
+
+
+def _ce_chunk(unembed_fn, xc: torch.Tensor, lc: torch.Tensor) -> tuple:
+    return _nll_sum(unembed_fn(xc), lc)
+
+
+def cross_entropy_chunked(hidden: torch.Tensor, labels: torch.Tensor, unembed_fn,
+                          chunk: int = _CE_CHUNK) -> torch.Tensor:
+    """Memory-bounded CE: the unembed and log-softmax one sequence chunk at
+    a time, each chunk rematerialised in the backward, so full-sequence f32
+    logits never exist. Taken when the (already shifted) length S is a
+    multiple of ``chunk`` above it, as in the reference; otherwise the full
+    f32 logits and :func:`cross_entropy`.
+
+    hidden (B, S, D) after the final norm; ``unembed_fn`` (B, c, D) -> (B,
+    c, V)."""
+    s = hidden.shape[1]
+    if s % chunk != 0 or s <= chunk:
+        return cross_entropy(unembed_fn(hidden).to(torch.float32), labels)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        t, c = remat(_ce_chunk, unembed_fn, hidden[:, i:i + chunk], labels[:, i:i + chunk])
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp_min(cnt, 1)
+
+
+def remat(fn, *args, enabled: bool = True):
+    """``fn(*args)``, rematerialised in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``) when
+    ``enabled`` and autograd is recording; a plain call otherwise (the
+    serving forwards run under ``no_grad``: same ops, same bits)."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+_PACKED = (TwinQuantLinear, TwinQuantLinearGroup, W4A16Linear, SimLinear)
+
+
+def trainable(model: nn.Module) -> nn.Module:
+    """In place: every floating-point buffer of a bf16 model (its weights,
+    norms, the f32 router and SSM vectors) becomes an ``nn.Parameter`` of
+    the same name and tensor, bits unchanged, so a loss over the model has
+    gradients. Packed linears are not trained (ValueError). The serving
+    entry points run under ``no_grad`` and read the parameters as they read
+    the buffers. Returns the model."""
+    for mod in model.modules():
+        if isinstance(mod, _PACKED):
+            raise ValueError(f"trainable: {type(mod).__name__} is a pack; only bf16 models train")
+        for name, buf in list(mod._buffers.items()):
+            if buf is not None and buf.is_floating_point():
+                del mod._buffers[name]
+                mod.register_parameter(name, nn.Parameter(buf))
+    return model
+
+
+def frozen(model: nn.Module) -> nn.Module:
+    """In place: the inverse of :func:`trainable` (every parameter a buffer
+    again, detached, bits unchanged), as the packer and the engine take a
+    model. Returns the model."""
+    for mod in model.modules():
+        for name, p in list(mod._parameters.items()):
+            if p is not None:
+                del mod._parameters[name]
+                mod.register_buffer(name, p.detach())
+    return model
 
 
 def init_normal(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:

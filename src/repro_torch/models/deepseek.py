@@ -16,7 +16,7 @@ not DeepSeek-V3's published sigmoid, group-limited router. There is no
 ``ragged_step`` and no multi-row decode: the reference has neither, and the
 engine serves the family bucketed or paged (with the prefix cache). ``mtp``
 is built, and packed by ``quantize_params`` as the reference packs it, but
-serving never reads it (its loss waits for the training slice).
+serving never reads it: only :func:`loss_fn` does.
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ from repro_torch.models import dense as D
 from repro_torch.models.mla import MLAAttention, mla_init, mla_init_cache, mla_prefill, mla_step
 from repro_torch.models.moe_layer import MoEFFN, layer_ffn, moe_init
 
-__all__ = ["MLALayer", "MTP", "DeepSeekModel", "init_params", "forward", "init_decode_state",
-           "prefill", "decode_step", "count_params"]
+__all__ = ["MLALayer", "MTP", "DeepSeekModel", "init_params", "forward", "loss_fn",
+           "init_decode_state", "prefill", "decode_step", "count_params"]
 
 
 class MLALayer(nn.Module):
@@ -106,18 +106,48 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     return DeepSeekModel(embed, layers, ones(), head, mtp)
 
 
+def _trunk(params: DeepSeekModel, cfg: ModelConfig, tokens: torch.Tensor) -> tuple:
+    """(hidden (B, S, D) before the final norm, the router loss summed over
+    the MoE layers and divided by their count)."""
+    x, auxes = D.run_layers(params, cfg, C.embed_lookup(params.embed, tokens),
+                            layer_ffn(cfg, aux=True), attend=mla_prefill)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in auxes:
+        aux = aux + a
+    return x, aux / max(1, cfg.n_layers - cfg.first_k_dense)
+
+
 @torch.no_grad()
 def forward(params: DeepSeekModel, cfg: ModelConfig, tokens: torch.Tensor):
     """tokens (B, S) -> (logits (B, S, padded_vocab), aux, hidden (B, S,
     D)), causal, as the reference's: aux is the router loss summed over the
     MoE layers and divided by their count."""
-    auxes: list = []
-    x = D.run_layers(params, cfg, C.embed_lookup(params.embed, tokens), layer_ffn(cfg, aux=auxes),
-                     attend=mla_prefill)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for a in auxes:
-        aux = aux + a
-    return D._unembed(params, cfg, x), aux / max(1, cfg.n_layers - cfg.first_k_dense), x
+    x, aux = _trunk(params, cfg, tokens)
+    return D._unembed(params, cfg, x), aux, x
+
+
+def loss_fn(params: DeepSeekModel, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token CE (chunked) plus ``router_aux_weight`` x the router loss
+    and, with the ``mtp`` block, 0.3 x its CE: from (h_t, embed(tok_{t+1}))
+    through ``ln_in``, ``proj`` and a dense MLA layer at d_ff = 4 x
+    d_ff_expert, the token at t + 2 (``labels[:, 2:]``), as the reference's.
+    Differentiable (``common.trainable``)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    h_final, aux = _trunk(params, cfg, tokens)
+    head = D.head_fn(params, cfg)
+    hn = C.rmsnorm(h_final, params.ln_f, cfg.norm_eps)
+    loss = C.cross_entropy_chunked(hn[:, :-1], labels[:, 1:], head) + cfg.router_aux_weight * aux
+    if cfg.mtp and params.mtp is not None:
+        mp = params.mtp
+        emb_next = C.embed_lookup(params.embed, tokens[:, 1:])
+        h = h_final[:, :-1]
+        cat = C.rmsnorm(torch.cat([h, emb_next.to(h.dtype)], dim=-1), mp.ln_in, cfg.norm_eps)
+        mcfg = cfg.replace(d_ff=cfg.d_ff_expert * 4)
+        steps = [lambda lp, y: mla_prefill(lp, y, mcfg), lambda lp, y: C.mlp_apply(lp.mlp, y)]
+        h_mtp, _ = D._layer(mp.layer, C.linear(mp.proj, cat), steps, D._rms(mcfg))
+        h_mtp = C.rmsnorm(h_mtp, params.ln_f, cfg.norm_eps)
+        loss = loss + 0.3 * C.cross_entropy_chunked(h_mtp[:, :-1], labels[:, 2:], head)
+    return loss
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=C.DTYPE,

@@ -24,6 +24,7 @@ from repro_torch.models import common as C
 
 __all__ = ["DenseLayer", "DenseModel", "init_params", "forward", "forward_with_taps",
            "init_decode_state", "prefill", "decode_step", "ragged_step", "count_params",
+           "head_fn", "loss_fn",
            "run_layers", "prefill_layers", "decode_layers", "ragged_layers", "commit_rows",
            "gqa_prefill", "gqa_decode"]
 
@@ -88,11 +89,16 @@ def _embed(params: DenseModel, tokens: torch.Tensor, patches=None) -> torch.Tens
     return x
 
 
-def _unembed(params: DenseModel, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = C.rmsnorm(x, params.ln_f, cfg.norm_eps)
+def head_fn(params: DenseModel, cfg: ModelConfig):
+    """Chunk-applicable unembed: (B, c, D) -> (B, c, V); tied to the
+    embedding or the bf16 head."""
     if cfg.tie_embeddings:
-        return x @ params.embed.to(x.dtype).T
-    return C.linear(params.head, x)
+        return lambda xc: xc @ params.embed.to(xc.dtype).T
+    return lambda xc: C.linear(params.head, xc)
+
+
+def _unembed(params: DenseModel, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return head_fn(params, cfg)(C.rmsnorm(x, params.ln_f, cfg.norm_eps))
 
 
 def _mlp(lp, h: torch.Tensor) -> torch.Tensor:
@@ -143,18 +149,33 @@ def gqa_decode(lp, h: torch.Tensor, cfg: ModelConfig, cache: dict, bt, pos: torc
     return att, {"k": kt, "v": vt}
 
 
+def _aux_layer(lp, x: torch.Tensor, steps, norm) -> tuple:
+    """:func:`_layer` keeping only the "aux" row (an MoE block's router
+    loss, None for a layer without one)."""
+    x, rows = _layer(lp, x, steps, norm)
+    return x, rows.get("aux")
+
+
 def run_layers(params, cfg: ModelConfig, x: torch.Tensor, ffn,
-               attend=gqa_prefill, norm=None) -> torch.Tensor:
+               attend=gqa_prefill, norm=None) -> tuple:
     """The causal forward's layers over the embedded ``x`` (B, S, D):
     ``attend(lp, h, cfg, positions)`` (one step or a sequence of them, on
     ``ln1``, ``ln2``, ...), then ``ffn(lp, h)`` on the next norm; ``norm(y,
-    w)`` is the layer's norm (RMSNorm by default)."""
+    w)`` is the layer's norm (RMSNorm by default). Under autograd (a
+    ``loss_fn``) each layer is rematerialised in the backward when
+    ``cfg.remat``, as the reference's ``jax.checkpoint`` of its scan body.
+    Returns (x, aux): the "aux" rows the layers' steps returned (an MoE
+    layer's router loss), in layer order."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
     steps = [lambda l, h, a=a: a(l, h, cfg, positions) for a in _steps(attend)] + [ffn]
+    norm = norm or _rms(cfg)
+    aux = []
     for lp in params.layers:
-        x, _ = _layer(lp, x, steps, norm or _rms(cfg))
-    return x
+        x, a = C.remat(_aux_layer, lp, x, steps, norm, enabled=cfg.remat)
+        if a is not None:
+            aux.append(a)
+    return x, aux
 
 
 def prefill_layers(params, cfg: ModelConfig, x: torch.Tensor, state: dict, ffn,
@@ -276,7 +297,21 @@ def forward(params: DenseModel, cfg: ModelConfig, tokens: torch.Tensor,
             patches=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S[, +P], padded_vocab), causal; ``patches``
     (B, P, D) come first."""
-    return _unembed(params, cfg, run_layers(params, cfg, _embed(params, tokens, patches), _mlp))
+    return _unembed(params, cfg, run_layers(params, cfg, _embed(params, tokens, patches), _mlp)[0])
+
+
+def loss_fn(params: DenseModel, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token CE of ``batch`` (``tokens``, ``labels`` (B, S); the
+    ``vlm`` family's ``patches`` (B, P, D) prepended, the loss on the text
+    positions only), through the chunked CE; the layers rematerialised when
+    ``cfg.remat``. Differentiable: the weights must be parameters
+    (``common.trainable``)."""
+    patches = batch.get("patches")
+    x, _ = run_layers(params, cfg, _embed(params, batch["tokens"], patches), _mlp)
+    h = C.rmsnorm(x, params.ln_f, cfg.norm_eps)
+    if patches is not None:
+        h = h[:, patches.shape[1]:]
+    return C.cross_entropy_chunked(h[:, :-1], batch["labels"][:, 1:], head_fn(params, cfg))
 
 
 @torch.no_grad()

@@ -36,7 +36,7 @@ from repro_torch.models import common as C
 from repro_torch.models import dense as D
 
 __all__ = ["LayerNorm", "EncLayer", "DecLayer", "EncDecModel", "init_params", "encode",
-           "forward", "init_decode_state", "prefill", "decode_step", "count_params"]
+           "forward", "loss_fn", "init_decode_state", "prefill", "decode_step", "count_params"]
 
 
 class LayerNorm(nn.Module):
@@ -172,16 +172,22 @@ def _self_full(p: nn.ModuleDict, h: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     return C.linear(p["o"], out.reshape(b, s, -1))
 
 
+def _enc_layer(lp: EncLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    norm = _ln(cfg)
+    x = x + _self_full(lp.attn, norm(x, lp.ln1), cfg)
+    return x + _gelu_mlp(lp, norm(x, lp.ln2))
+
+
 def encode(params: EncDecModel, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
-    """frames (B, n_frames, D) stub embeddings -> encoder states (B, F, D)."""
+    """frames (B, n_frames, D) stub embeddings -> encoder states (B, F, D);
+    each layer rematerialised in the backward when ``cfg.remat`` (under
+    autograd only)."""
     _, s, d = frames.shape
     pos = torch.arange(s, device=frames.device)[None, :]
     x = frames.to(C.DTYPE) + _sinusoid(pos, d)
-    norm = _ln(cfg)
     for lp in params.enc_layers:
-        x = x + _self_full(lp.attn, norm(x, lp.ln1), cfg)
-        x = x + _gelu_mlp(lp, norm(x, lp.ln2))
-    return norm(x, params.ln_enc)
+        x = C.remat(_enc_layer, lp, x, cfg, enabled=cfg.remat)
+    return _ln(cfg)(x, params.ln_enc)
 
 
 def _embed(params: EncDecModel, cfg: ModelConfig, tokens: torch.Tensor,
@@ -194,10 +200,9 @@ def _unembed(params: EncDecModel, cfg: ModelConfig, x: torch.Tensor) -> torch.Te
     return x @ params.embed.to(x.dtype).T  # tied head
 
 
-@torch.no_grad()
-def forward(params: EncDecModel, cfg: ModelConfig, tokens: torch.Tensor,
+def _hidden(params: EncDecModel, cfg: ModelConfig, tokens: torch.Tensor,
             frames: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced decoder over the encoded frames: (B, S, V) logits."""
+    """The teacher-forced decoder's rows (B, S, D) before ``ln_f``."""
     enc = encode(params, cfg, frames)
     _, s = tokens.shape
     x = _embed(params, cfg, tokens, torch.arange(s, device=tokens.device)[None, :])
@@ -205,8 +210,25 @@ def forward(params: EncDecModel, cfg: ModelConfig, tokens: torch.Tensor,
     def cross(lp, h, cfg, positions):
         return _cross(lp.xattn, h, *_cross_kv(lp.xattn, enc, cfg), cfg)
 
-    x = D.run_layers(params, cfg, x, _gelu_mlp, attend=[D.gqa_prefill, cross], norm=_ln(cfg))
-    return _unembed(params, cfg, x)
+    return D.run_layers(params, cfg, x, _gelu_mlp, attend=[D.gqa_prefill, cross],
+                        norm=_ln(cfg))[0]
+
+
+@torch.no_grad()
+def forward(params: EncDecModel, cfg: ModelConfig, tokens: torch.Tensor,
+            frames: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced decoder over the encoded frames: (B, S, V) logits."""
+    return _unembed(params, cfg, _hidden(params, cfg, tokens, frames))
+
+
+def loss_fn(params: EncDecModel, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token CE (chunked, through the tied head) of the decoder over
+    ``batch["frames"]`` (B, n_frames, D); differentiable
+    (``common.trainable``)."""
+    x = _hidden(params, cfg, batch["tokens"], batch["frames"])
+    h = C.layernorm(x, params.ln_f.w, params.ln_f.b, cfg.norm_eps)
+    return C.cross_entropy_chunked(h[:, :-1], batch["labels"][:, 1:],
+                                   lambda xc: xc @ params.embed.to(xc.dtype).T)
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,7 @@ from repro_torch.models import common as C
 from repro_torch.models import dense as D
 
 __all__ = ["CHUNK", "MambaBlock", "SharedBlock", "HybridModel", "init_params", "forward",
-           "init_decode_state", "prefill", "decode_step", "count_params"]
+           "loss_fn", "init_decode_state", "prefill", "decode_step", "count_params"]
 
 # SSD chunk: state traffic per token ~ H*P*N / chunk, intra-chunk work per
 # token ~ chunk; they cross near 128 for P = N = 64
@@ -304,10 +304,15 @@ def _shared_decode(sp: SharedBlock, adapter: nn.Module, x: torch.Tensor, emb0: t
 # ---------------------------------------------------------------------------
 
 
-@torch.no_grad()
-def forward(params: HybridModel, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab), causal; the rows are
-    zero-padded to a multiple of ``CHUNK`` inside."""
+def _block(lp: MambaBlock, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return _mamba_block(lp, x, cfg)[0]
+
+
+def _hidden(params: HybridModel, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The trunk's rows (B, S, D) after ``ln_f``; the rows are zero-padded
+    to a multiple of ``CHUNK`` inside. Under autograd, each Mamba block and
+    each shared-block invocation is rematerialised in the backward when
+    ``cfg.remat``."""
     x = C.embed_lookup(params.embed, tokens)
     b, s, d = x.shape
     pad = (-s) % CHUNK
@@ -316,12 +321,26 @@ def forward(params: HybridModel, cfg: ModelConfig, tokens: torch.Tensor) -> torc
     emb0 = x
     for seg, adapter in zip(params.m_layers, params.adapters):
         for lp in seg:
-            x = _mamba_block(lp, x, cfg)[0]
-        x = x + _shared_attn(params.shared, adapter, x, emb0, cfg)
+            x = C.remat(_block, lp, x, cfg, enabled=cfg.remat)
+        x = x + C.remat(_shared_attn, params.shared, adapter, x, emb0, cfg, enabled=cfg.remat)
     for lp in params.rest_layers or ():
-        x = _mamba_block(lp, x, cfg)[0]
-    x = C.rmsnorm(x[:, :s], params.ln_f, cfg.norm_eps)
-    return C.linear(params.head, x)
+        x = C.remat(_block, lp, x, cfg, enabled=cfg.remat)
+    return C.rmsnorm(x[:, :s], params.ln_f, cfg.norm_eps)
+
+
+@torch.no_grad()
+def forward(params: HybridModel, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, padded_vocab), causal; the rows are
+    zero-padded to a multiple of ``CHUNK`` inside."""
+    return C.linear(params.head, _hidden(params, cfg, tokens))
+
+
+def loss_fn(params: HybridModel, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token CE (chunked) of the trunk; differentiable
+    (``common.trainable``)."""
+    h = _hidden(params, cfg, batch["tokens"])
+    return C.cross_entropy_chunked(h[:, :-1], batch["labels"][:, 1:],
+                                   lambda xc: C.linear(params.head, xc))
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=C.DTYPE,

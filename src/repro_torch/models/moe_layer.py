@@ -196,16 +196,15 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig, *, per_draft_row: bool
     return out.reshape(b, s, d), aux
 
 
-def layer_ffn(cfg: ModelConfig, *, per_draft_row: bool = False, aux: Optional[list] = None):
+def layer_ffn(cfg: ModelConfig, *, per_draft_row: bool = False, aux: bool = False):
     """A layer's FFN for the shared layer loop (``dense.run_layers`` and
-    the others): the MoE block of a layer whose ``moe`` is set (its aux
-    loss appended to ``aux`` when given), the dense SwiGLU ``mlp`` of one
-    without (DeepSeek-V3's ``first_k_dense`` layers)."""
+    the others): the MoE block of a layer whose ``moe`` is set, the dense
+    SwiGLU ``mlp`` of one without (DeepSeek-V3's ``first_k_dense`` layers).
+    With ``aux`` an MoE block returns (out, {"aux": its router loss}), the
+    row ``dense.run_layers`` collects."""
     def ffn(lp, h):
         if lp.moe is None:
             return C.mlp_apply(lp.mlp, h)
         m, a = moe_ffn(lp.moe, h, cfg, per_draft_row=per_draft_row)
-        if aux is not None:
-            aux.append(a)
-        return m
+        return (m, {"aux": a}) if aux else m
     return ffn

@@ -23,7 +23,7 @@ from repro_torch.models import common as C
 from repro_torch.models import dense as D
 from repro_torch.models.moe_layer import MoEFFN, layer_ffn, moe_init
 
-__all__ = ["OLMoELayer", "init_params", "forward", "init_decode_state", "prefill",
+__all__ = ["OLMoELayer", "init_params", "forward", "loss_fn", "init_decode_state", "prefill",
            "decode_step", "ragged_step", "count_params"]
 
 
@@ -67,16 +67,31 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     return D.DenseModel(embed, layers, ones(), head)
 
 
+def _trunk(params: D.DenseModel, cfg: ModelConfig, tokens: torch.Tensor) -> tuple:
+    """(final-norm hidden (B, S, D), the router loss averaged over the
+    layers)."""
+    x, auxes = D.run_layers(params, cfg, C.embed_lookup(params.embed, tokens),
+                            layer_ffn(cfg, aux=True))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in auxes:
+        aux = aux + a
+    return C.rmsnorm(x, params.ln_f, cfg.norm_eps), aux / cfg.n_layers
+
+
 @torch.no_grad()
 def forward(params: D.DenseModel, cfg: ModelConfig, tokens: torch.Tensor):
     """tokens (B, S) -> (logits (B, S, padded_vocab), aux), causal; aux is
     the router load-balancing loss averaged over the layers."""
-    auxes: list = []
-    x = D.run_layers(params, cfg, C.embed_lookup(params.embed, tokens), layer_ffn(cfg, aux=auxes))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for a in auxes:
-        aux = aux + a
-    return D._unembed(params, cfg, x), aux / cfg.n_layers
+    h, aux = _trunk(params, cfg, tokens)
+    return D.head_fn(params, cfg)(h), aux
+
+
+def loss_fn(params: D.DenseModel, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token CE (chunked) plus ``router_aux_weight`` x the router
+    loss averaged over the layers; differentiable (``common.trainable``)."""
+    h, aux = _trunk(params, cfg, batch["tokens"])
+    ce = C.cross_entropy_chunked(h[:, :-1], batch["labels"][:, 1:], D.head_fn(params, cfg))
+    return ce + cfg.router_aux_weight * aux
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=C.DTYPE,

@@ -11,6 +11,10 @@
     ragged_step(params, cfg, state, tokens, slot, pos, ctx, logit_idx)
         -> (logits, state)
     count_params(cfg) -> (total, active)
+    loss_fn(params, cfg, batch) -> scalar f32 loss, differentiable once the
+        weights are parameters (``common.trainable``); ``batch`` holds
+        ``tokens`` and ``labels`` (B, S) and the family's ``patches`` (vlm)
+        or ``frames`` (encdec)
 
 The ``dense`` (llama3, qwen3, qwen2, stablelm, phi4, internlm2), ``moe``
 (OLMoE), ``mla_moe`` (DeepSeek-V3), ``vlm`` (internvl2: the dense backbone
@@ -44,6 +48,7 @@ __all__ = ["SHAPE_SETS", "applicable_shapes", "count_active_params", "count_tota
 _DENSE = SimpleNamespace(
     init_params=dense.init_params,
     forward=dense.forward,
+    loss_fn=dense.loss_fn,
     init_decode_state=dense.init_decode_state,
     prefill=dense.prefill,
     decode_step=dense.decode_step,
@@ -57,6 +62,7 @@ _DENSE = SimpleNamespace(
 _VLM = SimpleNamespace(
     init_params=dense.init_params,
     forward=dense.forward,
+    loss_fn=dense.loss_fn,
     init_decode_state=dense.init_decode_state,
     prefill=dense.prefill,
     decode_step=dense.decode_step,
@@ -67,6 +73,7 @@ _VLM = SimpleNamespace(
 _MOE = SimpleNamespace(
     init_params=olmoe.init_params,
     forward=olmoe.forward,
+    loss_fn=olmoe.loss_fn,
     init_decode_state=olmoe.init_decode_state,
     prefill=olmoe.prefill,
     decode_step=olmoe.decode_step,
@@ -77,6 +84,7 @@ _MOE = SimpleNamespace(
 _MLA_MOE = SimpleNamespace(
     init_params=deepseek.init_params,
     forward=deepseek.forward,
+    loss_fn=deepseek.loss_fn,
     init_decode_state=deepseek.init_decode_state,
     prefill=deepseek.prefill,
     decode_step=deepseek.decode_step,
@@ -86,6 +94,7 @@ _MLA_MOE = SimpleNamespace(
 _ENCDEC = SimpleNamespace(
     init_params=encdec.init_params,
     forward=encdec.forward,
+    loss_fn=encdec.loss_fn,
     init_decode_state=encdec.init_decode_state,
     prefill=encdec.prefill,
     decode_step=encdec.decode_step,
@@ -95,6 +104,7 @@ _ENCDEC = SimpleNamespace(
 _MAMBA_HYBRID = SimpleNamespace(
     init_params=mamba_hybrid.init_params,
     forward=mamba_hybrid.forward,
+    loss_fn=mamba_hybrid.loss_fn,
     init_decode_state=mamba_hybrid.init_decode_state,
     prefill=mamba_hybrid.prefill,
     decode_step=mamba_hybrid.decode_step,
@@ -104,6 +114,7 @@ _MAMBA_HYBRID = SimpleNamespace(
 _XLSTM = SimpleNamespace(
     init_params=xlstm.init_params,
     forward=xlstm.forward,
+    loss_fn=xlstm.loss_fn,
     init_decode_state=xlstm.init_decode_state,
     prefill=xlstm.prefill,
     decode_step=xlstm.decode_step,

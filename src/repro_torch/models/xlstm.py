@@ -49,7 +49,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.models import common as C
 
 __all__ = ["CHUNK", "CHUNK_MIN", "MLSTMBlock", "SLSTMBlock", "XLSTMModel", "init_params",
-           "forward", "init_decode_state", "prefill", "decode_step", "count_params"]
+           "forward", "loss_fn", "init_decode_state", "prefill", "decode_step", "count_params"]
 
 # chunk size: per-token state traffic scales as H*dqk*dv/chunk, the
 # intra-chunk work as chunk; for the 1.3b dims they cross near 1k, so long
@@ -217,7 +217,8 @@ def _mlstm_chunkwise(q, k, v, i_raw, f_raw, state: dict):
         Dlog = F[:, :, None, :] - F[:, None, :, :] + iii[:, None, :, :]
         Dlog = torch.where(tri, Dlog, -torch.inf)
         b_t = F + mst[:, None, :]  # inter-chunk log coefficient
-        m_t = torch.maximum(torch.amax(Dlog, dim=2), b_t)
+        # the stabilizer carries no gradient (the reference's stop_gradient)
+        m_t = torch.maximum(torch.amax(Dlog, dim=2), b_t).detach()
         w_intra = torch.exp(Dlog - m_t[:, :, None, :])
         c_inter = torch.exp(b_t - m_t)
         scores = torch.einsum("blhd,bshd->blsh", qq, kk) * w_intra
@@ -228,7 +229,8 @@ def _mlstm_chunkwise(q, k, v, i_raw, f_raw, state: dict):
         # state update; wk is the reference's unstabilized per-key weight
         g = F[:, -1]  # (B, H) total chunk decay
         wk = torch.exp(g[:, None, :] - F + iii)
-        m_new = torch.maximum(g + mst, torch.amax(torch.log(torch.clamp_min(wk, 1e-38)), dim=1))
+        m_new = torch.maximum(g + mst,
+                              torch.amax(torch.log(torch.clamp_min(wk, 1e-38)), dim=1)).detach()
         wk_st = torch.exp(g[:, None, :] - F + iii - m_new[:, None, :])
         decay = torch.exp(g + mst - m_new)
         Cst = decay[:, :, None, None] * Cst + torch.einsum("blhd,blhe,blh->bhde", kk, vv, wk_st)
@@ -351,20 +353,27 @@ def _slstm_block(lp: SLSTMBlock, x: torch.Tensor, cfg: ModelConfig, state=None,
 def _trunk(params: XLSTMModel, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Every block with a fresh state over x (B, S, D), zero-padded inside
     to a multiple of CHUNK_MIN (S < CHUNK) or of the chunk. Returns the
-    hidden rows (B, S, D)."""
+    hidden rows (B, S, D). Under autograd each block is rematerialised in
+    the backward when ``cfg.remat``."""
     b, s, d = x.shape
     chunk = _pick_chunk(max(s, CHUNK_MIN))
     pad = (-s) % (CHUNK_MIN if s < CHUNK else chunk)
     if pad:
         x = torch.cat([x, torch.zeros((b, pad, d), dtype=x.dtype, device=x.device)], dim=1)
-    if params.s_layers is None:
-        for lp in params.m_layers:
-            x = _mlstm_block(lp, x, cfg)[0]
-    else:
-        for seg, sp in zip(params.m_layers, params.s_layers):
-            for lp in seg:
-                x = _mlstm_block(lp, x, cfg)[0]
-            x = _slstm_block(sp, x, cfg)[0]
+
+    def m_block(lp, y):
+        return _mlstm_block(lp, y, cfg)[0]
+
+    def s_block(lp, y):
+        return _slstm_block(lp, y, cfg)[0]
+
+    segs = ([(params.m_layers, None)] if params.s_layers is None
+            else zip(params.m_layers, params.s_layers))
+    for seg, sp in segs:
+        for lp in seg:
+            x = C.remat(m_block, lp, x, enabled=cfg.remat)
+        if sp is not None:
+            x = C.remat(s_block, sp, x, enabled=cfg.remat)
     return x[:, :s]
 
 
@@ -373,6 +382,16 @@ def forward(params: XLSTMModel, cfg: ModelConfig, tokens: torch.Tensor) -> torch
     """tokens (B, S) -> logits (B, S, padded_vocab), causal."""
     x = _trunk(params, cfg, C.embed_lookup(params.embed, tokens))
     return C.linear(params.head, C.rmsnorm(x, params.ln_f, cfg.norm_eps))
+
+
+def loss_fn(params: XLSTMModel, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token CE (chunked) of the trunk, the sLSTM blocks through the
+    plain cell (the reference's ``_slstm_cell_sharded`` without a mesh);
+    differentiable (``common.trainable``)."""
+    x = _trunk(params, cfg, C.embed_lookup(params.embed, batch["tokens"]))
+    h = C.rmsnorm(x, params.ln_f, cfg.norm_eps)
+    return C.cross_entropy_chunked(h[:, :-1], batch["labels"][:, 1:],
+                                   lambda xc: C.linear(params.head, xc))
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=C.DTYPE,

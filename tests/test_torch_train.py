@@ -1,0 +1,635 @@
+"""The port's training stack (``repro_torch.data.pipeline``, ``optim``,
+``checkpoint.manager``, ``launch.train``) on the CPU, each case held to the
+JAX package's.
+
+* The reference's runtime cases (``tests/test_runtime.py``) on the port:
+  checkpoint roundtrip (bf16 kept), retention and atomic publish, async
+  save, restore onto a named device (the port's ``device`` in the place of
+  the reference's shardings), a ``TrainLoop`` that runs and checkpoints and
+  one that recovers from an injected failure, the straggler monitor, data
+  resume, host sharding, the corpus, AdamW on a quadratic, compression's
+  error feedback.
+* Parity with the reference:
+  - the corpus tokens and every batch bit-equal;
+  - AdamW from the same bf16 gradients, three updates, against the
+    reference run op by op: parameters, moments and count bit-equal with
+    the clip inactive (0 elements differ); with it active the parameters
+    are still bit-equal and the moments differ in the last bit, because
+    the global norm sums over the leaves in another order (the clip factor
+    then differs by an ulp). The reference's jitted update differs from
+    itself run op by op in the moments' last bit too;
+  - a zero-gradient step (lr 1, decay 0.5): per-layer ``ln1`` decays, as
+    the reference's stacked ``(L, d)`` leaf does, ``ln_f`` does not;
+  - int8 compression (bf16, f32 and all-zero leaves, a bf16 error
+    feedback) bit-equal to the reference run op by op; its jitted version
+    turns ``g / scale`` into a reciprocal multiply and moves some residuals
+    by a bf16 ulp (stated in ``test_compression_bit_equal_to_reference``);
+  - a 3-step ``make_train_step`` trajectory at the reduced ``qwen2-1.5b``
+    (``remat=False``, as the reference's runtime tests) with and without
+    ``grad_compress``, against the reference's jitted step, compiled with
+    ``xla_allow_excess_precision`` off (the op-by-op rounding of bf16
+    intermediates, as the loss tests). Losses within rel 1e-4; each leaf's
+    parameters within 2 lr x 3 steps of the reference's elementwise: Adam's
+    first step is ``lr sign(g)`` (a gradient near zero whose bf16 rounding
+    differs flips it, 2 lr), and later steps are bounded by the same
+    order (read: 0.91 of it at most). Each leaf's 3-step update within rel
+    0.15 of the reference's (read: 0.076 at most), but for the k bias,
+    whose gradient is 0 in exact arithmetic (softmax is invariant to a
+    shift along the keys) and so all rounding (rel 0.88 / 0.26); the bf16
+    norms do not move at lr 1e-3 (1 - 1e-3 rounds to 1).
+* Phase 13's helpers of ``chip_smoke.py`` on a tiny config: the decay
+  flags, the bf16 step against the f32 upcast and its planted faults, the
+  drill's state comparison and the error-feedback check.
+"""
+
+import sys
+import zipfile
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget
+from repro.data import pipeline as JP
+from repro.launch.train import make_train_step as j_make_train_step
+from repro.optim import AdamW as JAdamW
+from repro.optim.grad_compression import compress_grads_int8 as j_compress
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import TokenDataset, calibration_batch, load_corpus
+from repro_torch.interop import params_to_numpy
+from repro_torch.launch.train import (
+    StragglerMonitor,
+    TrainLoop,
+    init_train_state,
+    make_train_step,
+)
+from repro_torch.models import common as C
+from repro_torch.models.registry import get_model
+from repro_torch.optim import AdamW
+from repro_torch.optim.grad_compression import compress_grads_int8, decompress_grads_int8
+
+torch.set_num_threads(2)
+REPO = Path(__file__).resolve().parents[1]
+CPU = torch.device("cpu")
+
+
+def _bits(a) -> np.ndarray:
+    a = np.ascontiguousarray(np.asarray(a))
+    return a.reshape(-1).view({1: np.uint8, 2: np.uint16, 4: np.uint32}[a.dtype.itemsize])
+
+
+def _ndiff(a, b) -> int:
+    """Elements whose bits differ."""
+    return int(np.sum(_bits(a) != _bits(b)))
+
+
+def _tree_ndiff(a, b) -> int:
+    la, lb = jax.tree.leaves(a), jax.tree.leaves(b)
+    assert jax.tree.structure(a) == jax.tree.structure(b)
+    return sum(_ndiff(x, y) for x, y in zip(la, lb))
+
+
+# ---------------------------------------------------------------------------
+# checkpointing (the reference's cases)
+# ---------------------------------------------------------------------------
+
+
+def _state(seed):
+    g = torch.Generator().manual_seed(seed)
+    return {
+        "params": {"w": torch.randn(16, 8, generator=g).to(torch.bfloat16),
+                   "b": torch.arange(8.0)},
+        "opt": {"mu": torch.ones(16, 8), "count": torch.tensor(3, dtype=torch.int32)},
+    }
+
+
+def _assert_state_equal(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], dict):
+            _assert_state_equal(a[k], b[k])
+        else:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+
+
+def test_checkpoint_roundtrip(tmp_path):
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    st = _state(0)
+    mgr.save(100, st)
+    step, restored = mgr.restore_latest(like=st)
+    assert step == 100
+    _assert_state_equal(st, restored)
+    assert restored["params"]["w"].dtype == torch.bfloat16
+    meta = (tmp_path / "step_000000100" / "meta.json").read_text()
+    assert '"params|w": "bfloat16"' in meta  # the reference's dtype sidecar
+    with np.load(tmp_path / "step_000000100" / "host0.npz") as data:
+        assert data["params|w"].dtype == np.uint16  # bf16 as a uint16 view
+
+
+def test_checkpoint_retention_and_atomicity(tmp_path):
+    mgr = CheckpointManager(tmp_path, keep_n=2, async_save=False)
+    st = _state(1)
+    for s in (1, 2, 3, 4):
+        mgr.save(s, st)
+    assert mgr.list_steps() == [3, 4]
+    assert not list(tmp_path.glob("*.tmp"))
+
+
+def test_checkpoint_async(tmp_path):
+    mgr = CheckpointManager(tmp_path, async_save=True)
+    st = _state(2)
+    mgr.save(7, st)
+    mgr.wait()
+    assert mgr.list_steps() == [7]
+
+
+def test_checkpoint_async_writes_the_state_as_it_was_saved(tmp_path):
+    """The host copies are taken before the writer starts: an in-place
+    step right after ``save`` does not reach the file."""
+    mgr = CheckpointManager(tmp_path, async_save=True)
+    st = _state(3)
+    want = {k: v.clone() for k, v in st["params"].items()}
+    mgr.save(1, st)
+    st["params"]["w"].add_(1.0)
+    st["params"]["b"].mul_(2.0)
+    mgr.wait()
+    got = mgr.restore(1)
+    assert torch.equal(got["params|w"], want["w"]) and torch.equal(got["params|b"], want["b"])
+
+
+def test_checkpoint_restore_reads_np_load_bits_and_checks_crc(tmp_path):
+    """The parallel reader gives np.load's arrays bit for bit (bf16, int,
+    0-d and empty leaves) and, as np.load, refuses a member whose bytes no
+    longer match the zip's CRC-32."""
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    g = torch.Generator().manual_seed(4)
+    st = {"a": torch.randn(300, 129, generator=g).to(torch.bfloat16),
+          "b": torch.arange(7, dtype=torch.int32), "c": torch.tensor(3, dtype=torch.int32),
+          "e": torch.zeros(0, 4), "f": torch.randn(3, 4, 5, generator=g)}
+    mgr.save(1, st)
+    got = mgr.restore(1)
+    path = tmp_path / "step_000000001" / "host0.npz"
+    with np.load(path) as data:
+        assert set(data.files) == set(got)
+        for k in data.files:
+            t = got[k].view(torch.int16).numpy().view(np.uint16) if got[k].dtype == torch.bfloat16 \
+                else got[k].numpy()
+            assert t.dtype == data[k].dtype and t.shape == data[k].shape
+            assert t.tobytes() == data[k].tobytes()
+    raw = bytearray(path.read_bytes())
+    raw[raw.find(b"NUMPY") + 200] ^= 1  # one bit of member a's data
+    path.write_bytes(bytes(raw))
+    with pytest.raises(zipfile.BadZipFile):
+        mgr.restore(1)
+    with pytest.raises(zipfile.BadZipFile), np.load(path) as data:
+        data["a"]
+
+
+def test_checkpoint_saves_strided_leaves_c_contiguous(tmp_path):
+    """A transposed tensor and a Fortran-ordered array are written as
+    C-ordered members, which the reader reads straight into their arrays."""
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    t = torch.arange(12.0).reshape(3, 4).t()
+    a = np.asfortranarray(np.arange(6, dtype=np.int32).reshape(2, 3))
+    mgr.save(1, {"t": t, "a": a})
+    with np.load(tmp_path / "step_000000001" / "host0.npz") as data:
+        assert data["t"].flags.c_contiguous and data["a"].flags.c_contiguous
+    got = mgr.restore(1)
+    assert torch.equal(got["t"], t) and np.array_equal(got["a"].numpy(), a)
+
+
+@pytest.mark.parametrize("how", ["compressed", "fortran"])
+def test_checkpoint_reader_refuses_members_it_cannot_read_directly(tmp_path, how):
+    """The manager writes stored, C-ordered members only; any other member
+    is refused, not read another way."""
+    d = tmp_path / "step_000000001"
+    d.mkdir()
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    if how == "compressed":
+        np.savez_compressed(d / "host0.npz", a=a)
+    else:
+        np.savez(d / "host0.npz", a=np.asfortranarray(a))
+    (d / "meta.json").write_text('{"step": 1, "dtypes": {}}')
+    with pytest.raises(zipfile.BadZipFile):
+        CheckpointManager(tmp_path, async_save=False).restore(1)
+
+
+def test_checkpoint_restore_onto_named_device(tmp_path):
+    """The elastic-restore case on one card: ``device`` in the place of the
+    reference's shardings."""
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    st = {"w": torch.arange(16.0).reshape(4, 4)}
+    mgr.save(1, st)
+    step, restored = mgr.restore_latest(like=st, device="cpu")
+    assert step == 1 and restored["w"].device == CPU and torch.equal(restored["w"], st["w"])
+
+
+def test_checkpoint_module_restored_in_place(tmp_path):
+    """A model in the state is saved by its dotted names and restored into
+    its own tensors."""
+    cfg = get_config("llama3-8b", reduced=True)
+    params, opt_state = init_train_state(cfg, AdamW(), seed=0, device="cpu")
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    mgr.save(5, {"params": params, "opt": opt_state})
+    want = {n: p.detach().clone() for n, p in params.named_parameters()}
+    with torch.no_grad():
+        for p in params.parameters():
+            p.add_(1.0)
+    ident = id(params.layers[0].ln1)
+    step, st = mgr.restore_latest(like={"params": params, "opt": opt_state})
+    assert step == 5 and st["params"] is params and id(params.layers[0].ln1) == ident
+    assert all(torch.equal(p, want[n]) for n, p in params.named_parameters())
+    assert set(mgr.restore(5)) >= {"params|layers.0.attn.q.w", "opt|mu|layers.0.ln1",
+                                   "opt|count"}
+    assert int(st["opt"].count) == 0
+
+
+# ---------------------------------------------------------------------------
+# fault-tolerant train loop (the reference's cases)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tiny_setup():
+    cfg = get_config("qwen2-1.5b", reduced=True).replace(remat=False)
+    opt = AdamW(lr=1e-3)
+    step_fn = make_train_step(cfg, opt)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, 40_000).astype(np.uint16)
+    ds = TokenDataset(tokens, batch=2, seq=32)
+    return cfg, opt, step_fn, ds
+
+
+def test_train_loop_runs_and_checkpoints(tmp_path, tiny_setup):
+    cfg, opt, step_fn, ds = tiny_setup
+    params, opt_state = init_train_state(cfg, opt, seed=0, device="cpu")
+    mgr = CheckpointManager(tmp_path / "a", async_save=False)
+    loop = TrainLoop(cfg, step_fn, mgr, lambda s: ds.iterate(s), ckpt_every=5)
+    p, o, losses, end = loop.run(params, opt_state, 0, 12)
+    assert end == 12
+    assert len(losses) == 12
+    assert all(np.isfinite(losses))
+    assert mgr.list_steps()[-1] == 12
+
+
+def test_train_loop_recovers_from_failure(tmp_path, tiny_setup):
+    cfg, opt, step_fn, ds = tiny_setup
+    params, opt_state = init_train_state(cfg, opt, seed=0, device="cpu")
+    mgr = CheckpointManager(tmp_path / "b", async_save=True)
+    fails = {"armed": True}
+
+    def injector(step):
+        if step == 8 and fails["armed"]:
+            fails["armed"] = False
+            raise RuntimeError("simulated node failure")
+
+    loop = TrainLoop(cfg, step_fn, mgr, lambda s: ds.iterate(s), ckpt_every=5)
+    p, o, losses, end = loop.run(params, opt_state, 0, 12, fail_injector=injector)
+    assert end == 12
+    assert loop.restarts == 1
+    # restarted from step 5's checkpoint: steps 5..7 re-run, with the same
+    # losses (the state and the data stream restored)
+    assert len(losses) == 12 + 3
+    assert losses[8:11] == losses[5:8]
+
+
+def test_train_loop_restores_the_initial_state_without_a_checkpoint(tmp_path, tiny_setup):
+    """A step that fails halfway through AdamW's in-place update before the
+    first checkpoint: the loop goes back to the state it started from (the
+    reference's immutable initial state), so its end state and losses are
+    those of a run with no failure."""
+    cfg, opt, step_fn, ds = tiny_setup
+    armed, mixed = [True], []
+
+    class HalfUpdate(AdamW):
+        def update(self, grads, state, params):
+            if not armed:
+                return super().update(grads, state, params)
+            armed.clear()
+            first = next(iter(grads))
+            before = params.get_parameter(first).detach().clone()
+            try:  # the leaves past the first half have no gradient: KeyError there
+                return super().update(dict(list(grads.items())[:len(grads) // 2]), state,
+                                      params)
+            finally:
+                mixed.append(not torch.equal(params.get_parameter(first), before))
+
+    faulty = make_train_step(cfg, HalfUpdate(lr=opt.lr))
+
+    def fail_in_update(params, opt_state, batch):
+        return (faulty if step[0] == 2 else step_fn)(params, opt_state, batch)
+
+    step = [0]
+
+    def injector(s):
+        step[0] = s
+
+    runs = []
+    for fn, inj in ((step_fn, None), (fail_in_update, injector)):
+        params, opt_state = init_train_state(cfg, opt, seed=0, device="cpu")
+        loop = TrainLoop(cfg, fn, CheckpointManager(tmp_path / str(len(runs))), ds.iterate,
+                         ckpt_every=5)
+        runs.append((loop.run(params, opt_state, 0, 4, fail_injector=inj), loop.restarts))
+    (p0, o0, l0, _), _ = runs[0]
+    (p1, o1, l1, end), restarts = runs[1]
+    assert mixed == [True] and restarts == 1 and end == 4  # the update failed partway
+    assert l1 == l0[:2] + l0  # steps 0 and 1 replayed from the initial state
+    assert all(torch.equal(p, p0.get_parameter(n)) for n, p in p1.named_parameters())
+    assert all(torch.equal(o1.mu[n], o0.mu[n]) and torch.equal(o1.nu[n], o0.nu[n])
+               for n in o0.mu) and int(o1.count) == int(o0.count) == 4
+
+
+def test_straggler_monitor():
+    mon = StragglerMonitor(alpha=0.5, threshold=2.0)
+    for _ in range(5):
+        assert not mon.observe(0, 0.10)
+    assert mon.observe(5, 0.50)  # 5x slower than EWMA -> flagged
+    assert mon.flagged and mon.flagged[0][0] == 5
+
+
+# ---------------------------------------------------------------------------
+# data pipeline (the reference's cases, then bit-equality with it)
+# ---------------------------------------------------------------------------
+
+
+def test_data_deterministic_resume():
+    tokens = np.arange(10_000).astype(np.uint16) % 251
+    ds = TokenDataset(tokens, batch=4, seq=16, seed=3)
+    direct = ds.batch_at(7)
+    it = ds.iterate(7)
+    np.testing.assert_array_equal(next(it)["tokens"], direct["tokens"])
+    assert not np.array_equal(ds.batch_at(7)["tokens"], ds.batch_at(8)["tokens"])
+
+
+def test_data_host_sharding():
+    tokens = (np.arange(50_000) % 250).astype(np.uint16)
+    full = TokenDataset(tokens, batch=4, seq=8, seed=1)
+    h0 = TokenDataset(tokens, batch=4, seq=8, seed=1, host_id=0, n_hosts=2)
+    h1 = TokenDataset(tokens, batch=4, seq=8, seed=1, host_id=1, n_hosts=2)
+    f = full.batch_at(5)["tokens"]
+    np.testing.assert_array_equal(np.concatenate([h0.batch_at(5)["tokens"],
+                                                  h1.batch_at(5)["tokens"]]), f)
+
+
+def test_load_corpus_and_calibration():
+    tokens = load_corpus()
+    assert len(tokens) > 100_000
+    assert int(tokens.max()) <= 258
+    calib = calibration_batch(tokens, n_samples=4, seq=128)
+    assert calib.shape == (4, 128)
+
+
+def test_corpus_bit_equal_to_reference():
+    """Both read the same files of the repo in the same order (the port's
+    default root is the repo too)."""
+    mine, ref = load_corpus(), JP.load_corpus()
+    assert mine.dtype == ref.dtype and np.array_equal(mine, ref)
+    np.testing.assert_array_equal(calibration_batch(mine, 3, 64, seed=2),
+                                  JP.calibration_batch(ref, 3, 64, seed=2))
+
+
+@pytest.mark.parametrize("seed,host_id,n_hosts,batch,seq", [
+    (0, 0, 1, 4, 33), (3, 0, 2, 4, 17), (3, 1, 2, 4, 17), (7, 2, 4, 8, 9)])
+def test_batches_bit_equal_to_reference(seed, host_id, n_hosts, batch, seq):
+    tokens = (np.random.default_rng(seed).integers(0, 259, 5003)).astype(np.uint16)
+    kw = dict(batch=batch, seq=seq, seed=seed, host_id=host_id, n_hosts=n_hosts)
+    mine, ref = TokenDataset(tokens, **kw), JP.TokenDataset(tokens, **kw)
+    for step in (0, 1, 5, 1000):
+        a, b = mine.batch_at(step), ref.batch_at(step)
+        for k in ("tokens", "labels"):
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+    it = mine.iterate(3)
+    next(it)
+    assert np.array_equal(next(it)["tokens"], ref.batch_at(4)["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# optimizer + compression
+# ---------------------------------------------------------------------------
+
+
+def test_adamw_descends_quadratic():
+    opt = AdamW(lr=0.05, weight_decay=0.0)
+    params = {"w": torch.full((4,), 5.0)}
+    state = opt.init(params)
+
+    def loss(p):
+        return torch.sum(p["w"] ** 2)
+
+    for _ in range(100):
+        w = params["w"].clone().requires_grad_(True)
+        g = torch.autograd.grad(loss({"w": w}), w)[0]
+        params, state = opt.update({"w": g}, state, params)
+    assert float(loss(params)) < 0.2
+
+
+def test_grad_compression_error_feedback():
+    g = {"w": torch.randn(256, generator=torch.Generator().manual_seed(0))}
+    q, s, ef = compress_grads_int8(g)
+    deq = decompress_grads_int8(q, s)
+    rel = float(torch.linalg.norm(deq["w"] - g["w"]) / torch.linalg.norm(g["w"]))
+    assert rel < 0.02  # int8 per-tensor
+    # error feedback: residual + dequantized == original
+    np.testing.assert_allclose((deq["w"] + ef["w"]).numpy(), g["w"].numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    """The reduced qwen2-1.5b (tied head, qkv biases): the port's trainable
+    model from seed 0 and the reference's tree of the same bits."""
+    cfg = get_config("qwen2-1.5b", reduced=True).replace(remat=False)
+    jcfg = jget("qwen2-1.5b", reduced=True).replace(remat=False)
+
+    def fresh():
+        return C.trainable(get_model(cfg).init_params(cfg, seed=0, device="cpu"))
+
+    tree = jax.tree.map(jnp.asarray, params_to_numpy(fresh(), cfg))
+    return cfg, jcfg, fresh, tree
+
+
+def _grads(params, rng, scale):
+    return {n: torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32) * scale)
+            .to(torch.bfloat16) for n, p in params.named_parameters()}
+
+
+@pytest.mark.parametrize("scale,clipped", [(1e-4, False), (1.0, True)])
+def test_adamw_update_vs_reference(qwen, scale, clipped):
+    """Three updates from the same bf16 gradients against the reference's
+    update run op by op."""
+    cfg, _, fresh, tree = qwen
+    params = fresh()
+    rng = np.random.default_rng(1)
+    grads = [_grads(params, rng, scale) for _ in range(3)]
+    opt, jopt = AdamW(), JAdamW()
+    state, jstate, jp = opt.init(params), jopt.init(tree), tree
+    for g in grads:
+        params, state = opt.update(g, state, params)
+        jp, jstate = jopt.update(jax.tree.map(jnp.asarray, params_to_numpy(g, cfg)), jstate, jp)
+    gn = float(np.sqrt(sum(np.sum(np.asarray(g.float()) ** 2) for g in grads[-1].values())))
+    assert (gn > opt.clip_norm) == clipped
+    assert int(state.count) == int(jstate.count) == 3
+    assert _tree_ndiff(jp, params_to_numpy(params, cfg)) == 0
+    moments = (_tree_ndiff(jstate.mu, params_to_numpy(state.mu, cfg))
+               + _tree_ndiff(jstate.nu, params_to_numpy(state.nu, cfg)))
+    if not clipped:
+        assert moments == 0
+    else:  # the global norm sums in another order: the moments within 1e-5
+        for ja, mine in ((jstate.mu, state.mu), (jstate.nu, state.nu)):
+            for a, b in zip(jax.tree.leaves(ja), jax.tree.leaves(params_to_numpy(mine, cfg))):
+                a = np.asarray(a)
+                assert np.abs(a - b).max() <= 1e-5 * np.abs(a).max()
+
+
+def test_adamw_zero_gradient_step_decays_the_reference_leaves():
+    """The reference decays a leaf iff its stacked ndim >= 2: every layer's
+    ``ln1`` / ``ln2`` ((L, d) there) decays, ``ln_f`` does not. One update
+    with zero gradients, lr 1 and decay 0.5 halves exactly the decayed
+    leaves, bit-equal to the reference's update."""
+    cfg = get_config("llama3-8b", reduced=True)
+    params = C.trainable(get_model(cfg).init_params(cfg, seed=0, device="cpu"))
+    tree = jax.tree.map(jnp.asarray, params_to_numpy(params, cfg))
+    opt = AdamW(lr=1.0, weight_decay=0.5, clip_norm=None)
+    jopt = JAdamW(lr=1.0, weight_decay=0.5, clip_norm=None)
+    zeros = {n: torch.zeros_like(p) for n, p in params.named_parameters()}
+    before = {n: p.detach().clone() for n, p in params.named_parameters()}
+    params, _ = opt.update(zeros, opt.init(params), params)
+    jp, _ = jopt.update(jax.tree.map(jnp.zeros_like, tree), jopt.init(tree), tree)
+    assert _tree_ndiff(jp, params_to_numpy(params, cfg)) == 0
+    decays = opt.decays(params)
+    assert decays["layers.0.ln1"] and decays["layers.1.ln2"] and not decays["ln_f"]
+    for n, p in params.named_parameters():
+        want = before[n] * 0.5 if decays[n] else before[n]
+        assert torch.equal(p, want.to(p.dtype)), n
+    assert torch.all(params.layers[0].ln1 == 0.5) and torch.all(params.ln_f == 1.0)
+
+
+def test_compression_bit_equal_to_reference(qwen):
+    """bf16, f32 and all-zero leaves with a bf16 error feedback: q, scales
+    and the new residuals bit-equal to the reference run op by op; a
+    stacked leaf's layers share one scale. The reference's jitted version
+    multiplies by 1 / scale: its q still agrees here, and residuals differ
+    in the last bf16 bit on ~0.2% of the elements."""
+    cfg, _, fresh, _ = qwen
+    params = fresh()
+    rng = np.random.default_rng(2)
+    g = _grads(params, rng, 1.0)
+    g["ln_f"] = torch.zeros_like(g["ln_f"])  # with its residual zeroed below
+    g["layers.0.attn.q.b"] = g["layers.0.attn.q.b"].float() * 3.0  # an f32 leaf
+    g["layers.1.attn.q.b"] = g["layers.1.attn.q.b"].float()
+    ef = {n: (v.float() * 0.01).to(v.dtype) for n, v in _grads(params, rng, 1.0).items()}
+    ef["ln_f"] = torch.zeros_like(ef["ln_f"])
+    q, s, new_ef = compress_grads_int8(g, ef, cfg)
+    assert torch.equal(s["layers.0.ln1"], s["layers.1.ln1"])
+    jg = jax.tree.map(jnp.asarray, params_to_numpy(g, cfg))
+    jef = jax.tree.map(jnp.asarray, params_to_numpy(ef, cfg))
+    with jax.disable_jit():
+        jq, js, jnew = j_compress(jg, jef)
+    assert _tree_ndiff(jq, params_to_numpy(q, cfg)) == 0
+    assert _tree_ndiff(jnew, params_to_numpy(new_ef, cfg)) == 0
+    mine_s = {n: v.reshape(1) for n, v in s.items()}
+    for a, b in zip(jax.tree.leaves(js), jax.tree.leaves(params_to_numpy(mine_s, cfg))):
+        assert np.all(_bits(np.asarray(a, np.float32)) == _bits(b.astype(np.float32)))
+    assert float(js["ln_f"]) == 1.0 and not np.any(np.asarray(jq["ln_f"]))
+    jq2, _, jnew2 = jax.jit(j_compress)(jg, jef)
+    total = sum(x.size for x in jax.tree.leaves(jnew2))
+    assert _tree_ndiff(jq2, jq) == 0 and _tree_ndiff(jnew2, jnew) < 0.01 * total
+
+
+# ---------------------------------------------------------------------------
+# the train step against the reference's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("grad_compress", [False, True])
+def test_train_step_trajectory_vs_reference(qwen, grad_compress):
+    cfg, jcfg, fresh, tree = qwen
+    opt, jopt = AdamW(lr=1e-3), JAdamW(lr=1e-3)
+    params = fresh()
+    state = opt.init(params)
+    jstate = jopt.init(tree)
+    if grad_compress:
+        state = (state, {n: torch.zeros_like(p) for n, p in params.named_parameters()})
+        jstate = (jstate, jax.tree.map(jnp.zeros_like, tree))
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, 40_000).astype(np.uint16)
+    ds = TokenDataset(tokens, batch=2, seq=32)
+    step = make_train_step(cfg, opt, grad_compress)
+    jstep = jax.jit(j_make_train_step(jcfg, jopt, grad_compress))
+    jp, losses, jlosses = tree, [], []
+    for i in range(3):
+        batch = ds.batch_at(i)
+        jbatch = jax.tree.map(jnp.asarray, batch)
+        if i == 0:
+            jstep = jstep.lower(jp, jstate, jbatch).compile(
+                {"xla_allow_excess_precision": False})
+        params, state, loss = step(params, state, batch)
+        jp, jstate, jloss = jstep(jp, jstate, jbatch)
+        losses.append(float(loss))
+        jlosses.append(float(jloss))
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+    mine = params_to_numpy(params, cfg)
+    bound = 2 * opt.lr * 3
+    for (path, a), b, p0 in zip(jax.tree_util.tree_flatten_with_path(jp)[0],
+                                jax.tree.leaves(mine), jax.tree.leaves(tree)):
+        a, b, p0 = (np.asarray(t, np.float32) for t in (a, b, p0))
+        d = np.abs(a - b)
+        key = jax.tree_util.keystr(path)
+        assert d.max() <= bound * (1 + 1e-2), (key, d.max())
+        if np.any(a != p0) and "['k']['b']" not in key:
+            rel = float(np.linalg.norm(b - a) / np.linalg.norm(a - p0))
+            assert rel <= 0.15, (key, rel)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py phase 13's helpers on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+
+    return cs
+
+
+def test_chip_smoke_train_helpers_on_cpu(chip_smoke, tmp_path):
+    """Phase 13's step check at a tiny llama3-8b (the decay flags, the bf16
+    step within its bounds of the f32 upcast, a dropped leaf gradient and a
+    wrong label shift caught), the drill's state comparison (a tampered
+    saved element differs), the error-feedback check (a dropped residual
+    caught) and the compression check from a state as many steps in as the
+    phase's, with its update comparison (no update reads 1.0)."""
+    cs = chip_smoke
+    cfg = get_config("llama3-8b").replace(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                                          head_dim=32, d_ff=256, vocab=512)
+    ds = TokenDataset(load_corpus(), batch=2, seq=65, seed=0)
+    loss = cs.train_step_check(CPU, cfg, [ds.batch_at(i) for i in range(cs.TRAIN_CHECK_BATCHES)])
+    assert np.isfinite(loss)
+    params, opt_state = init_train_state(cfg, AdamW(), seed=0, device="cpu")
+    state = {"params": params, "opt": opt_state}
+    mgr = cs.drill_manager(tmp_path, CPU)
+    mgr.save(1, state)
+    mgr.wait()
+    assert cs.state_equal(mgr.saved, state) == (True, "")
+    mgr.saved["opt|nu|layers.1.mlp.down.w"].reshape(-1)[7] += 1.0
+    assert cs.state_equal(mgr.saved, state) == (False, "opt|nu|layers.1.mlp.down.w")
+    _, grads = cs.train_loss_grads(params, cfg, ds.batch_at(1))
+    q, s, ef = compress_grads_int8(grads, cfg=cfg)
+    deq = decompress_grads_int8(q, s)
+    assert cs.ef_worst(grads, deq, ef, s)[0] <= cs.TRAIN_EF_BOUND
+    assert cs.ef_worst(grads, deq, {n: torch.zeros_like(e) for n, e in ef.items()},
+                       s)[0] > cs.TRAIN_EF_BOUND
+    step = make_train_step(cfg, AdamW())
+    for i in range(cs.TRAIN_STEPS):  # a state as far in as the phase's
+        params, opt_state, _ = step(params, opt_state, ds.batch_at(2 + i))
+    p0 = {n: p.detach().clone() for n, p in params.named_parameters()}
+    cs.train_compress_check(cfg, params, opt_state, ds.batch_at(4))
+    assert all(torch.equal(p, p0[n]) for n, p in params.named_parameters())  # put back
+    moved = {n: p + 1 if n.startswith("layers.0.") else p for n, p in p0.items()}
+    rels, still = cs.update_rels(p0, moved, {n: p for n, p in moved.items()})
+    assert still == len(p0) - len(rels) and rels[0][0] == 0.0
+    rels, _ = cs.update_rels(p0, moved, p0)  # no update: 1.0 on every moved leaf
+    assert rels and all(r == 1.0 and n.startswith("layers.0.") for r, n in rels)
