@@ -13,6 +13,8 @@
     python3 chip_smoke.py --zamba2-only     # build, then Zamba2-1.2B (mamba_hybrid)
     python3 chip_smoke.py --xlstm-only      # build, the narrow-N tile, then xLSTM-1.3B
     python3 chip_smoke.py --train-only      # build, then the training stack (llama3-8b)
+    python3 chip_smoke.py --train-sweep 3e-4,1e-4  # build, then the loss fall per lr
+    python3 chip_smoke.py --shard-only      # build, then the sharded path at world size 1
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -53,7 +55,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    with one slot's 200-row chunk cut in two (the first part committed into
    its pages between them), its decode rows to a launch without the
    chunks;
-4. serve   — llama3-8b at full width, depth ``SERVE_LAYERS`` (12 of 32),
+4. serve   — llama3-8b at full width, depth ``SERVE_LAYERS`` (6 of 32),
    random weights from seed 0:
    first the bf16 model's ragged-step vs bucketed-prefill logits at several
    depths (gated at the served depth), then W4A4 TwinQuant packs (quantized once)
@@ -243,15 +245,16 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    ``loss_fn``) on llama3-8b at full width, depth ``TRAIN_LAYERS`` (2 of
    32: 1.49 B parameters), trained on the repo's own text (``load_corpus``,
    ``TokenDataset`` of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` = 4 x 2049: the
-   chunked, rematerialised CE), ``AdamW()`` with the reference's defaults
-   (f32 moments), ``remat`` on, from seed 0: (1) the bf16 step's loss and
-   gradients against the same step with the weights upcast to f32 on the
-   card, on ``TRAIN_CHECK_BATCHES`` batches (loss finite and within
-   ``TRAIN_INIT_BAND`` of ln V, each leaf within ``TRAIN_GRAD_REL_MAX``,
-   the embedding's bf16 scatter-add within ``TRAIN_EMBED_REL_MAX``; a
-   dropped leaf gradient, the embedding's dropped and labels one token off
-   must fail), the decay flags on the reference's stacked shapes; (2) one
-   ``TrainLoop`` of ``TRAIN_STEPS`` steps under deterministic algorithms,
+   chunked, rematerialised CE), ``AdamW(lr=TRAIN_LR)`` with the
+   reference's other defaults (f32 moments), ``remat`` on, from seed 0:
+   (1) the bf16 step's loss and gradients against the same step with the
+   weights upcast to f32 on the card, on ``TRAIN_CHECK_BATCHES`` batches
+   (loss finite and within ``TRAIN_INIT_BAND`` of ln V, each leaf within
+   ``TRAIN_GRAD_REL_MAX``, the embedding's bf16 scatter-add within
+   ``TRAIN_EMBED_REL_MAX``; a dropped leaf gradient, the embedding's
+   dropped and labels one token off must fail), the decay flags on the
+   reference's stacked shapes; (2) one ``TrainLoop`` of ``TRAIN_STEPS``
+   steps under deterministic algorithms,
    async checkpoints into a temporary directory (removed after) at step
    ``TRAIN_CKPT_EVERY`` and an injected failure before step
    ``TRAIN_FAIL_AT``: every loss finite, the first less the last two's mean
@@ -263,8 +266,9 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    bytes, save, write and restore seconds and the free disk; (3) from the
    trained state, the int8 error-feedback identity ``deq + ef == g`` within
    ``TRAIN_EF_BOUND`` x scale per leaf (a dropped residual must fail), one
-   compressed step's parameters bit for bit AdamW's update by the
-   dequantized gradients (the state before it must differ), its update of
+   compressed step (``AdamW()``'s defaults) whose parameters are bit for
+   bit AdamW's update by the dequantized gradients (the state before it
+   must differ), its update of
    each leaf within ``TRAIN_UPDATE_REL_MAX`` of the uncompressed step's (a
    step that applies no update must fail) and its next loss within
    ``TRAIN_COMPRESS_REL`` of the uncompressed step's; (4) the trained
@@ -272,7 +276,29 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    dual kernels at every served M (``TRAIN_SERVE_MS``) ``torch.equal`` to
    their plain versions (a pack with layer 1's ``rp`` must differ), served
    paged (``TRAIN_PROMPTS``, 4 slots, step graphs) with every dual kernel
-   launched and finite prefill logits.
+   launched and finite prefill logits;
+14. shard — the sharded path (``models/context.py``, ``launch/mesh.py``,
+   ``launch/sharding.py``, the EP body of ``models/moe_layer.py``, the
+   sharded train step, ZeRO-1 AdamW, the elastic restore) at world size 1
+   over NCCL (a ``FileStore``, no address) on a (1, 1) ``("data",
+   "model")`` mesh with the mesh context set, run one part after another
+   so that no two training states live at once: (a) llama3-8b at phase
+   13's width, depth and batch, two steps from the seeded init unsharded,
+   then two sharded: the first sharded step ``torch.equal`` to the
+   unsharded one (loss, every parameter and moment), every parameter,
+   moment and batch leaf in the table's placements, both steps' device ms
+   (CUDA events) and their ratio; (b) OLMoE-1B-7B's MoE block at full
+   width (E 64, top-8; ``SHARD_MOE_LAYERS`` 1 layer's init), the experts in
+   the table's placements, ``SHARD_MOE_BATCH`` tokens of the repo's text
+   through ``_moe_ep`` over the NCCL ep group (which ``moe_ffn``'s switch
+   takes only at ep size > 1) and through ``_moe_local``: output, aux, the
+   input's and every parameter's gradient ``torch.equal``, the body with
+   its local experts permuted must differ; (c) (b)'s parameters saved and
+   restored replicated by ``restore_like(shardings=...)``: ``torch.equal``
+   in the asked placements (a restore without them must be caught); (d) a
+   table without the ``attn/o/w`` rule: the spec check must catch the
+   leaves it lays out otherwise. No kernel of ``KERNELS`` runs on this
+   path (the reference trains in plain ``jnp``).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -288,7 +314,7 @@ W4A4 packs), ``--calib-only`` (phases 1-2, then phase 6) and
 ``--zamba2-only`` (phases 1-2, then phase 11) and ``--xlstm-only``
 (phases 1-2, the narrow-N tile of phase 3, then phase 12; any of these
 flags together run their phases in that order), ``--train-only`` (phases
-1-2, then phase 13);
+1-2, then phase 13), ``--shard-only`` (phases 1-2, then phase 14);
 ``--timing-only`` times the four dual wrappers at their table cases,
 ``w4a16_gemm`` at the four llama3-8b shapes and M in
 ``W4A16_MS``, the paged decode kernel at its table case (sq 1 and 4,
@@ -317,9 +343,9 @@ HBM_BYTES_S = 3.35e12  # H100 SXM memory rate
 INT8_OPS_S = 1.979e15  # H100 SXM dense int8 tensor-core rate
 BF16_OPS_S = 9.89e14  # H100 SXM dense bf16 tensor-core rate
 # llama3-8b's 32 layers cut to keep the whole script, DeepSeek-V3's and the
-# training phase included, inside its limit (16 until the training phase
-# came; PERF.md section 4)
-SERVE_LAYERS = 12
+# training and sharding phases included, inside its limit (16 until the
+# training phase came, 12 until the sharding phase; PERF.md section 4)
+SERVE_LAYERS = 6
 # qwen3-8b's 36 layers cut to keep the whole script under ~1100 s (8 until
 # DeepSeek-V3's phase came, 4 until xLSTM-1.3B's, 2 until the training
 # phase's; PERF.md section 4)
@@ -2250,13 +2276,14 @@ LIFE_MODES = {"paged": {}, "ragged": dict(ragged=True, token_budget=64),
 # RESUME_REL_MAX (the bf16 ragged-vs-prefill bound, RAGGED_BF16_REL_MAX) and
 # whether a differing token came where the uninterrupted row's top-2 margin
 # is within RESUME_REL_MAX of its largest |logit|. Gated on the card in the
-# modes of RESUME_EQUAL (rows torch.equal); elsewhere printed, since a
-# resumed W4A4 request re-prefills rows that decode steps first wrote, and
-# 4-bit activations carry that rounding difference far (W4A4 ragged-vs-
-# prefill logits read 0.27-0.51 on the card, PERF.md). Every mode is gated
-# on the copy-free restore itself (_RestoreCheck).
+# modes of RESUME_EQUAL (rows torch.equal): every mode, since readmission
+# recomputes each row past the restored pages by the path that first wrote
+# it (ragged: the unified step; paged and spec: the prompt rows by the
+# prefill, the generated rows by decode steps, ContinuousBatchingEngine.
+# _decode_rows); printed on the CPU. Every mode is gated on the copy-free
+# restore itself (_RestoreCheck).
 RESUME_REL_MAX = RAGGED_BF16_REL_MAX
-RESUME_EQUAL = frozenset({"ragged"})
+RESUME_EQUAL = frozenset({"paged", "ragged", "spec"})
 # the kernels this phase's runs launch (w4a16_gemm serves the W4A16 model)
 LIFE_KERNELS = ("dual_gemv", "dual_gemv_group", "dual_gemm", "dual_gemm_group",
                 "paged_decode_kernel", "ragged_attention_kernel")
@@ -2975,8 +3002,12 @@ def qwen_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2
 
 CALIB_ROWS = 2048  # calibration samples (tokens) of each layer
 CALIB_STEPS = (400, 400, 200)  # the paper's schedule, q-shaped layer
-CALIB_STEPS_CUT = {"gate_up": (40, 40, 20), "down": (8, 8, 4)}  # ms per step is the reading
-SIM_STEPS = (8, 8, 4)  # twinquant in simulate_quantize_params (the phase's budget)
+# ms per step is the reading ((40, 40, 20) and (8, 8, 4) until the sharding
+# phase came)
+CALIB_STEPS_CUT = {"gate_up": (20, 20, 10), "down": (4, 4, 2)}
+# twinquant in simulate_quantize_params (the phase's budget; (8, 8, 4)
+# until the sharding phase came)
+SIM_STEPS = (4, 4, 2)
 SIM_LAYERS = 1  # llama3-8b's depth cut for the simulation path
 CALIB_OUTLIERS = 6  # outlier input channels, as the reference test's layer
 CALIB_GATES = dict(ortho=1e-3, ginv=1e-3, fold=2e-3)
@@ -3260,8 +3291,9 @@ def calibration_phase(device, card: str, cfg, rows: int = CALIB_ROWS, steps=CALI
 # ---------------------------------------------------------------------------
 
 # OLMoE-1B-7B's 16 layers cut to keep the whole script under ~1100 s (8
-# until DeepSeek-V3's phase came, 4 until xLSTM-1.3B's; PERF.md section 4)
-OLMOE_LAYERS = 2
+# until DeepSeek-V3's phase came, 4 until xLSTM-1.3B's, 2 until the sharding
+# phase's; PERF.md section 4)
+OLMOE_LAYERS = 1
 OLMOE_CF = 8.0  # capacity_factor at which nothing drops: Cp >= T at E / top_k = 8
 MOE_GEMV_CPS = (8,)  # decode (B = 8) and the prefill bucket 8 at either capacity factor
 # Cp of every stacked GEMM the served runs launch. At OLMOE_CF (Cp = T): spec
@@ -3742,9 +3774,10 @@ def olmoe_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
 # depth of each config's run, cut to keep the whole script under ~1100 s
 # (qwen2-1.5b whole until DeepSeek-V3's phase came, stablelm-12b 4 until
 # xLSTM-1.3B's; qwen2-1.5b 14, phi4-mini-3.8b 6, internlm2-1.8b and
-# internvl2-2b 8 until the training phase came; PERF.md section 4)
-DENSE_LAYERS = {"qwen2-1.5b": 7, "stablelm-12b": 2, "phi4-mini-3.8b": 3,
-                "internlm2-1.8b": 4, "internvl2-2b": 4}
+# internvl2-2b 8 until the training phase came; 7, 3, 4 and 4 until the
+# sharding phase's; PERF.md section 4)
+DENSE_LAYERS = {"qwen2-1.5b": 4, "stablelm-12b": 2, "phi4-mini-3.8b": 2,
+                "internlm2-1.8b": 2, "internvl2-2b": 2}
 # the engine modes each config is served in (paged, with the prefix cache,
 # unless named here)
 DENSE_MODES = {"qwen2-1.5b": ("paged", "ragged"), "internvl2-2b": ("bucketed", "paged")}
@@ -4913,20 +4946,32 @@ TRAIN_EMBED_REL_MAX = 0.3
 TRAIN_CHECK_BATCHES = 3  # the step check's batches (the stream's first)
 TRAIN_INIT_BAND = 1.0  # |loss - ln V| at init (logits of about unit scale)
 TRAIN_FALL_MIN = 0.5  # the first loss less the mean of the last two
+# the loop's learning rate: the reference's default 3e-4 (no warm-up) swings
+# the losses by up to 8 nats a step at this width, so the fall over 7 steps
+# is chance: -0.74 on one corpus, 0.85-4.03 over eight data streams of
+# another, against 6.05-7.09 at 1e-4 (``--train-sweep``, PERF.md section 6).
+# The compression check's one step keeps the default: at 1e-4 a weight of
+# |w| in [2^-6, 2^-5) moves by about one bf16 ulp, so its update comparison
+# reads which elements round to a step and which to none (0.594, head.w)
+TRAIN_LR = 1e-4
+TRAIN_SWEEP_SEEDS = 8  # ``--train-sweep``: data streams per learning rate
 # |deq + ef - g| <= scale / 512 per leaf: ef is the residual (<= scale / 2)
 # rounded to bf16 (8 bits of mantissa), the rest f32 rounding
 TRAIN_EF_BOUND = 2.0 ** -9
 # the loss after one compressed step from the trained state against the
 # loss after the uncompressed step, relative: read 1.2e-3 to 8.7e-3 on an
-# H100 (PERF.md section 6) and 5e-4 in the CPU rehearsal. A step that
-# applied no update can pass it (one step moved the loss by rel 0.013), so
-# what the step did is held by the next bound
+# H100 from states trained at 3e-4, 8.1e-4 to 1.3e-2 over eight data
+# streams trained at ``TRAIN_LR`` (PERF.md section 6), 5e-4 in the CPU
+# rehearsal. A step that applied no update can pass it (one step from a
+# state trained at 3e-4 moved the loss by rel 0.013), so what the step did
+# is held by the next bound
 TRAIN_COMPRESS_REL = 0.02
 # per leaf, the compressed step's update of the parameters (p_c - p0)
 # against the uncompressed step's (p_u - p0), relative (Frobenius) over the
 # leaves the uncompressed step moved: read 0.339 at most (head.w; median
-# 0.113) on an H100, while a step that applied no update reads 1.0 (the
-# planted fault); the bound sits between them (PERF.md section 6)
+# 0.113) on an H100 from states trained at 3e-4, 0.328-0.440 from eight
+# trained at ``TRAIN_LR``, while a step that applied no update reads 1.0
+# (the planted fault); the bound sits between them (PERF.md section 6)
 TRAIN_UPDATE_REL_MAX = 0.6
 TRAIN_PROMPTS = (5, 17, 40, 100)  # prefill buckets 8, 32, 64, 128
 TRAIN_SERVE_SLOTS = 4  # the decode step's M
@@ -5179,7 +5224,7 @@ def _run_loop(cfg, step_fn, mgr, ds, device) -> tuple:
     from repro_torch.launch.train import TrainLoop, init_train_state
     from repro_torch.optim import AdamW
 
-    params, opt_state = init_train_state(cfg, AdamW(), seed=0, device=device)
+    params, opt_state = init_train_state(cfg, AdamW(lr=TRAIN_LR), seed=0, device=device)
     armed = [True]
 
     def injector(step):
@@ -5191,6 +5236,54 @@ def _run_loop(cfg, step_fn, mgr, ds, device) -> tuple:
     params, opt_state, losses, end = loop.run(params, opt_state, 0, TRAIN_STEPS,
                                               fail_injector=injector)
     return params, opt_state, losses, end, loop
+
+
+def train_sweep(device, card: str, cfg, lrs, seeds, batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ) -> None:
+    """``--train-sweep``: phase 13's loss fall (the first loss less the mean
+    of the last two, over ``TRAIN_STEPS`` steps from the seed-0 state) for
+    each learning rate in ``lrs`` on the data streams ``TokenDataset(seed=s)``
+    for ``s`` in ``seeds``, under deterministic algorithms, and at
+    ``TRAIN_LR`` the phase's compression check from each trained state. A
+    stream's seed moves its windows over the corpus as an edit of the
+    repo's text does."""
+    import os
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenDataset, load_corpus
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.optim import AdamW
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev_det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    tokens = load_corpus()
+    try:
+        for lr in lrs:
+            falls = []
+            for s in seeds:
+                ds = TokenDataset(tokens, batch=batch, seq=seq, seed=s)
+                opt = AdamW(lr=lr)
+                params, state = init_train_state(cfg, opt, seed=0, device=device)
+                step = make_train_step(cfg, opt)
+                losses = []
+                for i in range(TRAIN_STEPS):
+                    params, state, loss = step(params, state, ds.batch_at(i))
+                    losses.append(float(loss))
+                falls.append(losses[0] - sum(losses[-2:]) / 2)
+                print(f"train sweep lr={lr} data seed={s} losses={json.dumps(losses)} "
+                      f"fall={falls[-1]:.4f}", flush=True)
+                if lr == TRAIN_LR:  # phase 13's compression check from this state
+                    train_compress_check(cfg, params, state, ds.batch_at(TRAIN_STEPS))
+                del params, state
+                _free()
+            passed = sum(f >= TRAIN_FALL_MIN for f in falls)
+            print(f"train sweep lr={lr} falls={json.dumps([round(f, 4) for f in falls])} min="
+                  f"{min(falls):.4f} at least {TRAIN_FALL_MIN}: {passed} of {len(falls)} "
+                  f"corpus_tokens={len(tokens)} card=\"{card}\"", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(prev_det)
 
 
 def train_compress_check(cfg, params, opt_state, batch) -> None:
@@ -5391,7 +5484,7 @@ def train_phase(device, card: str, cfg, batch: int = TRAIN_BATCH, seq: int = TRA
     tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
     try:
         times: list = []
-        step_fn = _timed_step(make_train_step(cfg, AdamW()), times, device)
+        step_fn = _timed_step(make_train_step(cfg, AdamW(lr=TRAIN_LR)), times, device)
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         mgr = drill_manager(tmp, device)
@@ -5452,6 +5545,242 @@ def train_phase(device, card: str, cfg, batch: int = TRAIN_BATCH, seq: int = TRA
           f"loss0={loss0:.6f} card=\"{card_line() if cuda else card}\"", flush=True)
 
 
+SHARD_MOE_LAYERS = 1  # OLMoE-1B-7B's 16 layers cut to the one MoE block (b) runs
+SHARD_MOE_BATCH = (2, 1024)  # tokens through the MoE block: 2 sequences of the repo's text
+
+
+def _shard_group(device):
+    """A one-rank process group (NCCL on the card, gloo on the CPU) through a
+    ``FileStore`` in a temporary directory: no address, no network. Returns
+    the directory, for removal."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    tmp = Path(tempfile.mkdtemp(prefix="shard_"))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.FileStore(str(tmp / "store"), 1), rank=0, world_size=1)
+    return tmp
+
+
+def _host_state(params, opt_state) -> dict:
+    """Host copies of a train state's parameters and moments, by leaf."""
+    from torch.distributed.tensor import DTensor
+
+    def host(t):
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        return t.detach().to("cpu", copy=True)
+
+    out = {f"params|{n}": host(p) for n, p in params.named_parameters()}
+    out.update((f"mu|{n}", host(t)) for n, t in opt_state.mu.items())
+    out.update((f"nu|{n}", host(t)) for n, t in opt_state.nu.items())
+    return out
+
+
+def _two_steps(cfg, batch, device, times: list, ctx=None):
+    """(loss of step 1, host state after it) of two train steps from the
+    seeded init, under ``ctx`` when given; each step's device ms appended
+    to ``times``. The state is freed before returning."""
+    import contextlib
+
+    from repro_torch.launch.train import (
+        distribute_batch,
+        init_train_state,
+        make_train_step,
+        placement_mismatches,
+    )
+    from repro_torch.models.context import mesh_context
+    from repro_torch.optim import AdamW
+
+    with mesh_context(ctx) if ctx is not None else contextlib.nullcontext():
+        opt = AdamW()
+        params, state = init_train_state(cfg, opt, seed=0, device=device)
+        step = _timed_step(make_train_step(cfg, opt), times, device)
+        params, state, loss = step(params, state, batch)
+        loss, host = loss.detach().cpu(), _host_state(params, state)
+        extra = None
+        if ctx is not None:  # the layout check, on the state after step 1
+            extra = placement_mismatches(cfg, params, state,
+                                         distribute_batch(cfg, batch, ctx, device), ctx)
+        step(params, state, batch)
+    del params, state
+    _free()
+    return loss, host, extra
+
+
+def shard_phase(device, card: str, cfg_dense, cfg_moe, batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ, moe_batch: tuple = SHARD_MOE_BATCH) -> dict:
+    """Phase 14: the sharded path (``models/context.py``, ``launch/mesh.py``,
+    ``launch/sharding.py``, the EP body of ``models/moe_layer.py``, the
+    sharded train step, ZeRO-1 AdamW, the elastic restore) at world size 1
+    on a (1, 1) ``("data", "model")`` mesh, the mesh context set and every
+    DTensor path taken (see the module docstring). Returns its figures."""
+    import copy
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenDataset, load_corpus
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import (
+        distribute_batch,
+        distribute_params,
+        init_train_state,
+        placement_mismatches,
+    )
+    from repro_torch.models import moe_layer as M
+    from repro_torch.models.common import trainable
+    from repro_torch.models.context import MeshContext, mesh_context
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamW
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    tmp = _shard_group(device)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev_det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    out = {}
+    try:
+        mesh = make_debug_mesh((1, 1), device=device)
+        ctx = MeshContext(mesh=mesh, dp_axes=("data",), tp_axis="model", ep_axis="model",
+                          fsdp_axes=("data",))
+        tokens = load_corpus()
+        # (a) the sharded step against the unsharded one, from one init
+        b = TokenDataset(tokens, batch=batch, seq=seq, seed=0).batch_at(0)
+        plain_ms, shard_ms = [], []
+        loss_p, host_p, _ = _two_steps(cfg_dense, b, device, plain_ms)
+        loss_s, host_s, mism = _two_steps(cfg_dense, b, device, shard_ms, ctx)
+        unequal = [k for k in host_p if not torch.equal(host_p[k], host_s[k])]
+        if not torch.equal(loss_p, loss_s) or unequal or len(host_s) != len(host_p):
+            fail(f"shard (a): the sharded step != the unsharded one: loss {float(loss_s)} vs "
+                 f"{float(loss_p)}, {len(unequal)} leaves differ {unequal[:3]}")
+        if mism:
+            fail(f"shard (a): leaves not in the table's placements: {mism[:3]}")
+        del host_p, host_s
+        _free()
+        out["step_ms"] = {"unsharded": plain_ms, "sharded": shard_ms,
+                          "ratio": shard_ms[1] / plain_ms[1]}
+        print(f"shard (a) {cfg_dense.name} d_model={cfg_dense.d_model} n_layers="
+              f"{cfg_dense.n_layers} batch={batch}x{seq} mesh (1, 1) (data, model) world 1 "
+              f"({dist.get_backend()}): sharded step == unsharded step (loss {float(loss_s):.6f} "
+              f"and every parameter and moment torch.equal); every parameter, moment and batch "
+              f"leaf in the table's placements; step device ms unsharded {plain_ms[0]:.2f} then "
+              f"{plain_ms[1]:.2f}, sharded {shard_ms[0]:.2f} then {shard_ms[1]:.2f}, ratio "
+              f"(second steps) {out['step_ms']['ratio']:.4f} card=\"{card}\"", flush=True)
+
+        # (b) the EP body against the local path, forward and every gradient
+        rows = TokenDataset(tokens, batch=moe_batch[0], seq=moe_batch[1], seed=1).batch_at(0)
+        model = trainable(get_model(cfg_moe).init_params(cfg_moe, seed=0, device=device))
+        x0 = model.embed[torch.as_tensor(rows["tokens"], device=device).reshape(-1)].detach()
+        plain = copy.deepcopy(model.layers[0].moe)
+        distribute_params(cfg_moe, model, ctx)  # the experts in the table's placements
+        moe = model.layers[0].moe
+        del model
+
+        def run(fn, p):
+            """(out, aux, dx, {name: grad}, device ms) of one forward and
+            backward from zero gradients."""
+            for q in p.parameters():
+                q.grad = None
+            x = x0.clone().requires_grad_(True)
+            times = []
+            y, aux = _timed_step(lambda *a: fn(p, x), times, device)(None, None, None)
+            _timed_step(lambda *a: (y.float().square().mean() + aux).backward(), times,
+                        device)(None, None, None)
+            grads = {n: (q.grad.full_tensor() if hasattr(q.grad, "full_tensor") else q.grad)
+                     for n, q in p.named_parameters()}
+            return y.detach(), aux.detach(), x.grad, grads, sum(times)
+
+        ep_fn = lambda p, x: M._moe_ep(p, x, cfg_moe)  # noqa: E731
+        with mesh_context(ctx):
+            run(ep_fn, moe)  # warm: the NCCL communicator starts at the first exchange
+            ep = run(ep_fn, moe)
+        run(lambda p, x: M._moe_local(p, x, cfg_moe), plain)
+        loc = run(lambda p, x: M._moe_local(p, x, cfg_moe), plain)
+        diff = [n for n in loc[3] if not torch.equal(loc[3][n], ep[3][n])]
+        if not (torch.equal(ep[0], loc[0]) and torch.equal(ep[1], loc[1])
+                and torch.equal(ep[2], loc[2])) or diff:
+            fail(f"shard (b): _moe_ep != _moe_local: out {torch.equal(ep[0], loc[0])}, aux "
+                 f"{torch.equal(ep[1], loc[1])}, dx {torch.equal(ep[2], loc[2])}, grads "
+                 f"{diff}")
+        # planted: the body's local experts permuted
+        ws = {n: torch.roll(plain.experts[n].w.detach(), 1, dims=0) for n in ("gate", "up",
+                                                                                "down")}
+        with mesh_context(ctx), torch.no_grad():
+            bad, _ = M._moe_shard_body(x0, plain.router, ws["gate"], ws["up"], ws["down"],
+                                       cfg=cfg_moe, ctx=ctx, ep_axis="model", ep_size=1,
+                                       all_axes=("data", "model"))
+        if torch.equal(bad, loc[0]):
+            fail("shard (b): the EP body with its local experts permuted was not caught")
+        out["ep_ms"], out["local_ms"] = ep[4], loc[4]
+        print(f"shard (b) {cfg_moe.name} one MoE block E={cfg_moe.n_experts} top-"
+              f"{cfg_moe.top_k} d_model={cfg_moe.d_model} d_ff_expert={cfg_moe.d_ff_expert} "
+              f"tokens={moe_batch[0]}x{moe_batch[1]}: _moe_ep over the {dist.get_backend()} ep "
+              f"group (size 1) == _moe_local: output, aux, dx and every parameter's gradient "
+              f"torch.equal; local experts permuted: differs (caught); forward+backward device "
+              f"ms (second runs) EP {ep[4]:.2f}, local {loc[4]:.2f} card=\"{card}\"",
+              flush=True)
+        del loc, ep, plain, bad, ws
+        _free()
+
+        # (c) the elastic restore: (b)'s parameters saved, restored replicated
+        ckpt = CheckpointManager(tmp / "ckpt", async_save=False)
+        ckpt.save(1, {"params": moe})
+        want = {n: p.full_tensor().detach().clone() for n, p in moe.named_parameters()}
+        ask = (Replicate(), Replicate())
+        like = copy.deepcopy(moe)
+        with torch.no_grad():
+            for p in like.parameters():
+                p.to_local().zero_()
+        got = ckpt.restore_like(1, {"params": like},
+                                shardings={f"params|{n}": (mesh, ask) for n in want})
+        bad = [n for n, p in got["params"].named_parameters()
+               if not torch.equal(p.full_tensor(), want[n]) or tuple(p.placements) != ask]
+        # planted: a restore that ignores the shardings keeps the template's layout
+        ignored = CheckpointManager(tmp / "ckpt").restore_like(1, {"params": copy.deepcopy(moe)})
+        caught = [n for n, p in ignored["params"].named_parameters()
+                  if tuple(p.placements) != ask]
+        if bad or not caught:
+            fail(f"shard (c): restored leaves not equal or not in the asked placements: "
+                 f"{bad[:3]}; a restore without shardings caught: {bool(caught)}")
+        print(f"shard (c) elastic restore of (b)'s {len(want)} parameters saved in the table's "
+              f"placements, restored replicated: torch.equal, placements as asked; a restore "
+              f"ignoring the shardings: caught ({len(caught)} leaves)", flush=True)
+        del moe, like, got, ignored, want
+        _free()
+
+        # (d) a parameter left out of the table, at the reduced config
+        small = get_config("llama3-8b", reduced=True)
+        rules = [(pat, fn) for pat, fn in S._rules(small, ctx) if pat.pattern != r"attn/o/w$"]
+        with mesh_context(ctx):
+            params, state = init_train_state(small, AdamW(), seed=0, device=device)
+        planted = trainable(get_model(small).init_params(small, seed=0, device=device))
+        distribute_params(small, planted, ctx, rules=rules)
+        sb = distribute_batch(small, {k: v[:, :64] for k, v in b.items()}, ctx, device)
+        found = placement_mismatches(small, planted, state, sb, ctx)
+        clean = placement_mismatches(small, params, state, sb, ctx)
+        if clean or sorted(k for k, *_ in found) != [f"params|layers.{i}.attn.o.w"
+                                                      for i in range(small.n_layers)]:
+            fail(f"shard (d): the spec check on a table without attn/o/w found {found[:3]}, "
+                 f"on the table's layout {clean[:3]}")
+        print(f"shard (d) a parameter left out of the table (attn/o/w): the spec check catches "
+              f"{len(found)} leaves; the table's own layout: none", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(prev_det)
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"shard phase seconds {out['seconds']:.1f} card=\"{card}\"", flush=True)
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -5487,6 +5816,11 @@ def main() -> None:
                          "phase alone (no result line)")
     ap.add_argument("--train-only", action="store_true",
                     help="build, then run the training phase alone (no result line)")
+    ap.add_argument("--train-sweep", metavar="LR,LR,...",
+                    help="build, then the training loop's loss fall at each learning rate "
+                         "over several data streams (no result line)")
+    ap.add_argument("--shard-only", action="store_true",
+                    help="build, then run the sharded path's phase alone (no result line)")
     ap.add_argument("--src", metavar="DIR",
                     help="import repro_torch from DIR (another tree's src) instead")
     args = ap.parse_args()
@@ -5569,6 +5903,18 @@ def main() -> None:
         train_phase(device, card, get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS))
         print(f"train phase total seconds {time.perf_counter() - t:.1f}", flush=True)
         return
+    if args.train_sweep:
+        from repro_torch.configs import get_config
+
+        train_sweep(device, card, get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS),
+                    [float(v) for v in args.train_sweep.split(",")], range(TRAIN_SWEEP_SEEDS))
+        return
+    if args.shard_only:
+        from repro_torch.configs import get_config
+
+        shard_phase(device, card, get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS),
+                    get_config("olmoe-1b-7b").replace(n_layers=SHARD_MOE_LAYERS))
+        return
     if args.lifecycle_only:
         from repro_torch.configs import QuantSpec, get_config
         from repro_torch.core.twinquant import fuse_params, quantize_params
@@ -5630,6 +5976,11 @@ def main() -> None:
     t = time.perf_counter()
     train_phase(device, card, get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS))
     secs["train_llama3_8b"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    shard_phase(device, card, get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS),
+                get_config("olmoe-1b-7b").replace(n_layers=SHARD_MOE_LAYERS))
+    secs["shard"] = time.perf_counter() - t
     print(f"phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
 
     rows = []

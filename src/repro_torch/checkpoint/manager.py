@@ -1,5 +1,5 @@
 """Checkpoints of the port with async writes, atomic publish and retention:
-the reference's ``repro/checkpoint/manager.py`` on one card.
+the reference's ``repro/checkpoint/manager.py``.
 
 Format (the reference's): ``step_%09d/host0.npz`` holding every leaf by
 its key, plus ``meta.json`` with the step and a dtype sidecar; bf16 is
@@ -11,10 +11,16 @@ starts, so later in-place steps cannot change what is written.
 Keys are the port's own: containers' keys, NamedTuple field names and
 sequence indices joined by ``|``, and a module's tensors by their dotted
 names (``params|layers.0.attn.q.w``, ``opt|mu|layers.0.attn.q.w``,
-``opt|count``). :meth:`CheckpointManager.restore_like` restores onto one
-device (``device``, in the place of the reference's ``shardings``: sharded
-restore waits for the multi-GPU slice) and writes a module's tensors in
-place.
+``opt|count``). :meth:`CheckpointManager.restore_like` writes a module's
+tensors in place and makes every other leaf anew.
+
+Sharded state (DTensors, ``launch.train``'s sharded step) keeps the
+single-host format: ``save`` gathers each DTensor whole on every rank (a
+collective: every rank calls it) before the writer thread starts, and rank
+0 writes. ``restore_like(..., shardings=...)`` is the reference's elastic
+restore: each leaf is laid out with its placements on the current mesh,
+which may differ from the one that saved it. Every rank reads the step
+after a barrier, so that none reads a step that rank 0 has not published.
 """
 
 from __future__ import annotations
@@ -76,10 +82,28 @@ def flatten(tree: Any, prefix: str = "") -> dict:
     return flat
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def to_host(v) -> tuple:
     """(C-contiguous numpy copy on the host, dtype sidecar or None) of a
-    leaf. A CUDA tensor is copied into page-locked memory (a pageable copy
-    runs at a small fraction of the link's rate)."""
+    leaf, a DTensor gathered whole first. A CUDA tensor is copied into
+    page-locked memory (a pageable copy runs at a small fraction of the
+    link's rate)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
     if isinstance(v, torch.Tensor):
         if v.is_cuda:
             t = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
@@ -156,7 +180,22 @@ def from_host(arrays: dict, dtypes: dict) -> dict:
 def restore_into(like: Any, flat: dict, device=None) -> Any:
     """``flat`` (by :func:`flatten`'s keys) in the structure of ``like``,
     as :meth:`CheckpointManager.restore_like` restores it."""
-    return _restore(like, flat, "", device)
+    return _restore(like, flat, "", device, {})
+
+
+def _laid_out(a: torch.Tensor, like, layout, device) -> torch.Tensor:
+    """The whole leaf ``a`` as ``like`` holds it: a DTensor on ``layout``
+    (mesh, placements) or on ``like``'s own, else a tensor on ``device``
+    (default ``like``'s)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if layout is None and isinstance(like, DTensor):
+        layout = (like.device_mesh, like.placements)
+    if layout is not None:
+        mesh, pl = layout
+        return distribute_tensor(a.to(mesh.device_type), mesh, pl)
+    # a copy: ``flat`` may be kept and restored again
+    return a.to(device if device is not None else like.device, copy=True)
 
 
 class CheckpointManager:
@@ -173,6 +212,8 @@ class CheckpointManager:
         # host copies BEFORE going async: the state is updated in place later
         arrays, dtypes = host_copies(state)
         self.wait()
+        if _rank():
+            return  # rank 0 writes the gathered state
         if self.async_save:
             self._thread = threading.Thread(target=self._write, args=(step, arrays, dtypes),
                                             daemon=True)
@@ -232,38 +273,60 @@ class CheckpointManager:
                       for k, a in part.items()}
         return from_host(arrays, meta["dtypes"])
 
-    def restore_like(self, step: int, like: Any, device=None) -> Any:
+    def restore_like(self, step: int, like: Any, shardings: Optional[dict] = None,
+                     device=None) -> Any:
         """Restore into the structure of ``like``: a module's tensors are
         overwritten in place (the module is returned), every other tensor
         leaf comes back new on ``device`` (default: the device of its leaf
-        in ``like``), Python numbers as their type."""
-        return restore_into(like, self.restore(step), device)
+        in ``like``), Python numbers as their type. A DTensor leaf keeps its
+        mesh and placements; ``shardings`` ({key: (mesh, placements)} by
+        :func:`flatten`'s keys) lays a leaf out anew, a module's parameter
+        replaced by one in those placements."""
+        self.wait()
+        _barrier()
+        return _restore(like, self.restore(step), "", device, shardings or {})
 
     def restore_latest(self, like: Any = None, device=None):
+        self.wait()
+        _barrier()
         steps = self.list_steps()
         if not steps:
             return None
         step = steps[-1]
         if like is not None:
-            return step, self.restore_like(step, like, device)
+            return step, self.restore_like(step, like, device=device)
         return step, self.restore(step)
 
 
 @torch.no_grad()
-def _restore(like: Any, flat: dict, prefix: str, device) -> Any:
+def _restore(like: Any, flat: dict, prefix: str, device, shardings: dict) -> Any:
+    from torch.distributed.tensor import DTensor
+
     if like is None:
         return None
     items = _items(like)
     if items is None:
         a = flat[prefix]
-        if isinstance(like, torch.Tensor):  # a copy: ``flat`` may be kept and restored again
-            return a.to(device if device is not None else like.device, copy=True)
+        if isinstance(like, torch.Tensor):
+            return _laid_out(a, like, shardings.get(prefix), device)
         return type(like)(a.item())
     if isinstance(like, torch.nn.Module):
         for k, t in items:
-            t.copy_(flat[f"{prefix}{_SEP}{k}" if prefix else k])
+            key = f"{prefix}{_SEP}{k}" if prefix else k
+            if key in shardings:
+                mod, _, leaf = k.rpartition(".")
+                owner = like.get_submodule(mod) if mod else like
+                new = _laid_out(flat[key], t, shardings[key], device)
+                if leaf in owner._parameters:
+                    owner._parameters[leaf] = torch.nn.Parameter(new, t.requires_grad)
+                else:
+                    owner._buffers[leaf] = new
+            elif isinstance(t, DTensor):
+                t.to_local().copy_(_laid_out(flat[key], t, None, device).to_local())
+            else:
+                t.copy_(flat[key])
         return like
-    vals = [_restore(v, flat, f"{prefix}{_SEP}{k}" if prefix else str(k), device)
+    vals = [_restore(v, flat, f"{prefix}{_SEP}{k}" if prefix else str(k), device, shardings)
             for k, v in items]
     if isinstance(like, dict):
         return dict(zip(like.keys(), vals))

@@ -26,7 +26,8 @@ unstacked; an xLSTM tree (``m_layers`` stacked ``(n_seg, m_per, ...)`` and
 an :class:`~repro_torch.models.xlstm.XLSTMModel`. :func:`params_to_numpy` is the
 inverse for the bf16 models of every family (the trained weights go back
 to the reference's stacked tree): :func:`reference_leaf` names the
-reference leaf and the stacked index each of the port's tensors lands in.
+reference leaf and the stacked index each of the port's tensors lands in,
+and :func:`port_spec` carries a partition spec across the same way.
 :func:`calib_result_from_numpy` and
 :func:`gl_params_from_numpy` carry a calibration's result and a ``GLParams``
 across the same way. bf16 arrays are recognised by dtype name and moved bit for bit
@@ -62,8 +63,8 @@ from repro_torch.models.olmoe import OLMoELayer
 from repro_torch.models.xlstm import MLSTMBlock, SLSTMBlock, XLSTMModel
 
 __all__ = ["calib_result_from_numpy", "gl_params_from_numpy", "named_tensors",
-           "params_from_numpy", "params_to_numpy", "reference_leaf", "reference_ndim",
-           "to_torch"]
+           "params_from_numpy", "params_to_numpy", "port_spec", "reference_leaf",
+           "reference_ndim", "to_torch"]
 
 
 def to_torch(a, device) -> torch.Tensor:
@@ -282,6 +283,19 @@ def reference_leaf(name: str, cfg: ModelConfig = None) -> tuple:
         path[0] = "dense_layers" if idx[0] < nd else "moe_layers"
         idx = (idx[0] - (0 if idx[0] < nd else nd),) + idx[1:]
     return tuple(path), idx
+
+
+def port_spec(spec, name: str, cfg: ModelConfig = None) -> tuple:
+    """A partition spec of the reference leaf that the port's tensor
+    ``name`` lands in (a ``PartitionSpec`` or any sequence of its entries)
+    as the port tensor's own: the entries of the leaf's leading stacked
+    axes dropped. Raises when one of them shards (the port has no such
+    axis)."""
+    n = len(reference_leaf(name, cfg)[1])
+    entries = tuple(spec)
+    if any(e is not None for e in entries[:n]):
+        raise ValueError(f"{name}: the spec {entries} shards a stacked axis of its reference leaf")
+    return entries[n:]
 
 
 def reference_ndim(name: str, t: torch.Tensor) -> int:

@@ -562,6 +562,13 @@ class ContinuousBatchingEngine:
         # latency(): host bookkeeping only
         self._requests: list[Request] = []
         self._queue_depths: list[int] = []
+        # a preempted request's generated rows are recomputed by decode
+        # steps (_decode_rows) when the paged state is pools alone: a
+        # per-slot recurrent leaf would be stepped for every slot
+        self._resume_by_decode = (self.allocator is not None
+                                  and set(self._slot_keys) <= {"pos", "bt"})
+        # each such readmission: (request id, first row, rows)
+        self.resumed_by_decode: list[tuple] = []
         self.stats = {
             "prefill_tokens": 0, "prefill_s": 0.0,
             "decode_tokens": 0, "decode_steps": 0, "decode_s": 0.0,
@@ -803,15 +810,22 @@ class ContinuousBatchingEngine:
                 return False
             m_tok, shared, pages = res
             self._set_status(req, RequestState.PREFILL)
+            # a resumed request's generated rows past the restored pages go
+            # through decode steps, as they were first written
+            n_pre = len(prompt) - (len(req.out) if self._resume_by_decode else 0)
             try:
-                last, sub, bucket = self._run_prefill(prompt[m_tok:], off=m_tok,
-                                                      shared_pages=shared, frontend=req.frontend)
+                self._map_row(i, shared + pages)
+                if m_tok < n_pre:
+                    last, sub, bucket = self._run_prefill(
+                        prompt[m_tok:n_pre], off=m_tok, shared_pages=shared,
+                        frontend=req.frontend)
+                    self._insert(sub, i)
+                    n_write = -(-(bucket + self._extra_rows) // self.page_size)
+                    self._write_pages(sub, pages[:min(n_write, len(pages))])
+                if n_pre < len(prompt):
+                    last = self._decode_rows(i, req, prompt, max(m_tok, n_pre))
                 if C.nonfinite_rows(last[None, :], self.cfg.vocab):
                     raise _SlotFault("nan_logits", "non-finite prefill logits")
-                self._insert(sub, i)
-                n_write = -(-(bucket + self._extra_rows) // self.page_size)
-                self._write_pages(sub, pages[:min(n_write, len(pages))])
-                self._map_row(i, shared + pages)
                 if self.prefix_cache is not None and not req.frontend:
                     self.prefix_cache.register(prompt, shared + pages)
             except Exception as e:  # noqa: BLE001 — a faulty request fails alone
@@ -825,6 +839,37 @@ class ContinuousBatchingEngine:
         self._set_status(req, RequestState.DECODE)
         self.slots[i] = req
         return True
+
+    def _decode_rows(self, i: int, req: Request, prompt: np.ndarray, start: int) -> np.ndarray:
+        """Readmission of a preempted request by decode steps: feed
+        ``prompt[start:]`` (its generated tokens past the restored pages and
+        the re-prefilled prompt rows) into slot ``i`` one eager decode step
+        each, rows ``start`` on, every other slot masked out of the step (no
+        pages mapped, pos 0), so that each row gets the bits the lock-step
+        decode (or a verify step, whose stacked rows take a plain decode
+        step's, ``C.per_draft_row``) first gave it. Counted as prefill work.
+        Returns the last step's logits row, as a prefill would."""
+        t0 = time.monotonic()
+        extra = self._extra_rows
+        bt = torch.full_like(self.state["bt"], -1)  # -1: unmapped, no row is written
+        bt[i] = self.state["bt"][i]
+        pos = np.zeros(self.batch, np.int64)
+        pos[i] = start + extra
+        state = {**{k: self.state[k] for k in self._pool_keys}, "bt": bt,
+                 "pos": upload(pos, self.device, out=torch.empty_like(self.state["pos"]))}
+        tok = np.zeros((self.batch, 1), np.int64)
+        for t in prompt[start:]:
+            tok[i, 0] = int(t)
+            logits, _ = self.model.decode_step(self.params, self.cfg, state,
+                                               upload(tok, self.device))
+        self.state["pos"][i].copy_(state["pos"][i])
+        with sync_point(self.device):
+            last = logits[i, -1].float().cpu().numpy()  # sync-point
+        last = C.logits_tap(last, "prefill")
+        self.stats["prefill_s"] += time.monotonic() - t0
+        self.stats["prefill_tokens"] += len(prompt) - start
+        self.resumed_by_decode.append((req.request_id, start, len(prompt) - start))
+        return last
 
     def _admit_one_ragged(self, req: Request, i: int) -> bool:
         """Ragged admission: reserve the pages (prefix hits included) and

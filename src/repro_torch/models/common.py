@@ -44,6 +44,7 @@ from repro_torch.kernels.ref import (
     TwinQuantWeights,
     fuse_twinquant_weights,
 )
+from repro_torch.models.context import get_mesh_context, psum
 
 DTYPE = torch.bfloat16
 
@@ -238,9 +239,41 @@ def _fusable(ps) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _cs(x: torch.Tensor, *spec_dims) -> torch.Tensor:
+    """Context-aware sharding constraint (the reference's ``_cs``): under a
+    mesh a DTensor is redistributed to the spec's placements; a plain
+    tensor is this rank's block of the sharded step's layout (its dp rows,
+    the weights gathered) and passes as is, as does everything without a
+    mesh."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import P, placements
+
+    ctx = get_mesh_context()
+    if ctx.mesh is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(ctx.mesh, placements(ctx.mesh, P(*spec_dims)))
+
+
+def embed_attend(embed: torch.Tensor) -> torch.Tensor:
+    """The embedding table at its use site, (vocab over tp, features over
+    fsdp) under a mesh."""
+    ctx = get_mesh_context()
+    if ctx.mesh is None:
+        return embed
+    fsdp = tuple(ctx.fsdp_axes) or None
+    return _cs(embed, ctx.tp_axis, fsdp)
+
+
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Token-embedding gather: (B, S) -> (B, S, D)."""
-    return embed[tokens]
+    """Token-embedding gather: (B, S) -> (B, S, D), batch over dp under a
+    mesh."""
+    ctx = get_mesh_context()
+    x = embed_attend(embed)[tokens]
+    if ctx.mesh is None:
+        return x
+    dp = tuple(ctx.dp_axes) or None
+    return _cs(x, dp, *([None] * (x.ndim - 1)))
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -324,6 +357,25 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
     return out.reshape(b, sq, h, v.shape[-1])
 
 
+def _shard_heads(x: torch.Tensor, head_axis: int) -> torch.Tensor:
+    """An attention tensor's head dim over the TP axis (when it divides)
+    and its batch dim over dp, under a mesh (:func:`_cs`)."""
+    ctx = get_mesh_context()
+    if ctx.mesh is None or ctx.tp_axis is None:
+        return x
+    sizes = ctx.sizes
+    spec = [None] * x.ndim
+    dp = tuple(ctx.dp_axes)
+    dpn = 1
+    for a in dp:
+        dpn *= sizes[a]
+    if dp and x.shape[0] % dpn == 0:
+        spec[0] = dp
+    if x.shape[head_axis] % sizes[ctx.tp_axis] == 0:
+        spec[head_axis] = ctx.tp_axis
+    return _cs(x, *spec)
+
+
 def _sdpa_causal_chunked(q, k, v, chunk: int = _ATTN_CHUNK) -> torch.Tensor:
     """Causal attention; online softmax over KV blocks (flash recurrence)
     when S is a multiple of ``chunk`` above it, fully-masked blocks skipped."""
@@ -336,9 +388,12 @@ def _sdpa_causal_chunked(q, k, v, chunk: int = _ATTN_CHUNK) -> torch.Tensor:
         return _sdpa(q, k, v, causal)
     n = s // chunk
     scale = hd ** -0.5
+    q = _shard_heads(q, 2)
+    k = _shard_heads(k, 2)
+    v = _shard_heads(v, 2)
     qb = (q * scale).reshape(b, n, chunk, kv, g, hd)
-    kb = k.reshape(b, n, chunk, kv, hd)
-    vb = v.reshape(b, n, chunk, kv, hv)
+    kb = _shard_heads(k.reshape(b, n, chunk, kv, hd), 3)
+    vb = _shard_heads(v.reshape(b, n, chunk, kv, hv), 3)
     ar = torch.arange(chunk, device=q.device)
     blocks = []
     for qi in range(n):
@@ -708,17 +763,34 @@ def _nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> tuple:
     return torch.sum(nll * mask), torch.sum(mask).to(torch.float32)
 
 
+def _global_mean(tot: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """``tot / max(cnt, 1)``; under a mesh both are first summed over the
+    dp axes (each rank holds its dp rows), so every rank has the global
+    mean."""
+    ctx = get_mesh_context()
+    if ctx.mesh is not None:
+        tot, cnt = psum(tot, ctx, ctx.dp_axes), psum(cnt.detach(), ctx, ctx.dp_axes)
+    return tot / torch.clamp_min(cnt, 1)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean CE over tokens in f32; labels < 0 are masked out."""
-    tot, cnt = _nll_sum(logits, labels)
-    return tot / torch.clamp_min(cnt, 1)
+    return _global_mean(*_nll_sum(logits, labels))
+
+
+def _shard_logits(x: torch.Tensor) -> torch.Tensor:
+    """Chunk logits (dp, None, model) under a mesh (:func:`_cs`)."""
+    ctx = get_mesh_context()
+    if ctx.mesh is None or ctx.tp_axis is None:
+        return x
+    return _cs(x, tuple(ctx.dp_axes) or None, None, ctx.tp_axis)
 
 
 _CE_CHUNK = 256
 
 
 def _ce_chunk(unembed_fn, xc: torch.Tensor, lc: torch.Tensor) -> tuple:
-    return _nll_sum(unembed_fn(xc), lc)
+    return _nll_sum(_shard_logits(unembed_fn(xc).to(torch.float32)), lc)
 
 
 def cross_entropy_chunked(hidden: torch.Tensor, labels: torch.Tensor, unembed_fn,
@@ -733,13 +805,13 @@ def cross_entropy_chunked(hidden: torch.Tensor, labels: torch.Tensor, unembed_fn
     c, V)."""
     s = hidden.shape[1]
     if s % chunk != 0 or s <= chunk:
-        return cross_entropy(unembed_fn(hidden).to(torch.float32), labels)
+        return cross_entropy(_shard_logits(unembed_fn(hidden).to(torch.float32)), labels)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, chunk):
         t, c = remat(_ce_chunk, unembed_fn, hidden[:, i:i + chunk], labels[:, i:i + chunk])
         tot, cnt = tot + t, cnt + c
-    return tot / torch.clamp_min(cnt, 1)
+    return _global_mean(tot, cnt)
 
 
 def remat(fn, *args, enabled: bool = True):

@@ -93,7 +93,7 @@ def head_fn(params: DenseModel, cfg: ModelConfig):
     """Chunk-applicable unembed: (B, c, D) -> (B, c, V); tied to the
     embedding or the bf16 head."""
     if cfg.tie_embeddings:
-        return lambda xc: xc @ params.embed.to(xc.dtype).T
+        return lambda xc: xc @ C.embed_attend(params.embed).to(xc.dtype).T
     return lambda xc: C.linear(params.head, xc)
 
 

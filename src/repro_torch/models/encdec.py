@@ -197,7 +197,7 @@ def _embed(params: EncDecModel, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _unembed(params: EncDecModel, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = C.layernorm(x, params.ln_f.w, params.ln_f.b, cfg.norm_eps)
-    return x @ params.embed.to(x.dtype).T  # tied head
+    return x @ C.embed_attend(params.embed).to(x.dtype).T  # tied head
 
 
 def _hidden(params: EncDecModel, cfg: ModelConfig, tokens: torch.Tensor,
@@ -228,7 +228,7 @@ def loss_fn(params: EncDecModel, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     x = _hidden(params, cfg, batch["tokens"], batch["frames"])
     h = C.layernorm(x, params.ln_f.w, params.ln_f.b, cfg.norm_eps)
     return C.cross_entropy_chunked(h[:, :-1], batch["labels"][:, 1:],
-                                   lambda xc: xc @ params.embed.to(xc.dtype).T)
+                                   lambda xc: xc @ C.embed_attend(params.embed).to(xc.dtype).T)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,22 @@
-"""Mixture-of-Experts layer of the port: top-k routing and sort-based
-capacity dispatch, all experts resident (the reference's local,
-collective-free path of ``repro/models/moe_layer.py``; its expert-parallel
-path waits for the multi-GPU slice).
+"""Mixture-of-Experts layer of the port: top-k routing, sort-based
+capacity dispatch, and expert parallelism over ``all_to_all_single`` (the
+reference's ``repro/models/moe_layer.py``).
+
+Two paths, as in the reference:
+
+* **local** (no mesh context, or no expert parallelism): all experts
+  resident, no collectives. Under a mesh with data parallelism the dp
+  ranks' tokens are gathered first, so capacity, routing and the aux loss
+  are the global batch's, as the reference's partitioned program has them.
+* **EP** (``_moe_ep``, taken by ``moe_ffn``'s switch: a mesh, ``ep_size >
+  1``, ``E % ep_size == 0``, bf16 experts): the reference's ``shard_map``
+  body written out for each rank. Tokens are split over (dp axes + ep
+  axis), the expert weights gathered over their fsdp dims and kept split
+  over E on the ep axis; each rank routes its own tokens, packs per-expert
+  capacity buffers (capacity of its own token count), exchanges them with
+  one ``all_to_all_single`` over the ep group, runs its resident experts,
+  reverses the exchange and combines; the aux loss is the mean over the
+  token axes. Every collective is differentiable (``models.context``).
 
 An MoE block is a :class:`MoEFFN`: the f32 router (D, E), the experts as
 one expert-stacked module per linear under ``experts`` (bf16
@@ -33,6 +48,14 @@ from torch import nn
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.ref import _exact_matmuls
 from repro_torch.models import common as C
+from repro_torch.models.context import (
+    all_gather,
+    all_to_all,
+    axis_rank,
+    gathered,
+    get_mesh_context,
+    psum,
+)
 
 __all__ = ["MoEFFN", "moe_init", "route", "moe_ffn", "layer_ffn", "record_drops"]
 
@@ -144,6 +167,34 @@ def _capacity(tokens: int, cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _dispatch(x: torch.Tensor, slot: torch.Tensor, tok_s: torch.Tensor, rows: int):
+    """The (rows, D) capacity buffer: each kept assignment's token at its
+    slot; dropped assignments all land on the scratch row past ``rows``."""
+    buf = torch.zeros((rows + 1, x.shape[1]), dtype=x.dtype, device=x.device)
+    buf[slot] = x[tok_s]
+    return buf[:rows]
+
+
+def _combine(yb: torch.Tensor, top_w, top_i, slot, order, keep) -> torch.Tensor:
+    """(T, D): each token's experts' outputs ``yb`` (E*Cp, D) weighted by
+    its router weights."""
+    t, k = top_i.shape
+    d, dt, dev = yb.shape[1], yb.dtype, yb.device
+    yb = torch.cat([yb, torch.zeros((1, d), dtype=dt, device=dev)])
+    w_s = top_w.reshape(-1)[order].to(dt)
+    contrib = yb[slot] * (w_s * keep.to(dt))[:, None]
+    # each token's k contributions in ascending expert order (their order in
+    # the stable sort), added one after another in bf16 from zero
+    n = order.shape[0]
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(n, device=dev))
+    asc = torch.sort(top_i, dim=1).indices  # a token's experts are distinct
+    rows = inv[torch.arange(t, device=dev)[:, None] * k + asc]  # (T, k)
+    out = torch.zeros((t, d), dtype=dt, device=dev)
+    for j in range(k):
+        out = out + contrib[rows[:, j]]
+    return out
+
+
 def _moe_local(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig,
                logits: Optional[torch.Tensor] = None):
     t, d = x.shape
@@ -153,24 +204,95 @@ def _moe_local(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig,
     slot, tok_s, order, keep = _dispatch_indices(top_i, k, E, Cp)
     if _drop_log is not None:
         _drop_log.append((t, Cp, (~keep).sum()))
-    buf = torch.zeros((E * Cp + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot] = x[tok_s]  # dropped assignments all land on the scratch row
     # the reference's _expert_ffn: (E, Cp, D) through the stacked experts,
     # bf16 or packed (gate/up one fused launch)
-    yb = C.mlp_apply(p.experts, buf[:E * Cp].reshape(E, Cp, d))
-    yb = torch.cat([yb.reshape(E * Cp, d), torch.zeros((1, d), dtype=x.dtype, device=x.device)])
-    w_s = top_w.reshape(-1)[order].to(x.dtype)
-    contrib = yb[slot] * (w_s * keep.to(x.dtype))[:, None]
-    # each token's k contributions in ascending expert order (their order in
-    # the stable sort), added one after another in bf16 from zero
-    n = order.shape[0]
-    inv = torch.empty_like(order).scatter_(0, order, torch.arange(n, device=x.device))
-    asc = torch.sort(top_i, dim=1).indices  # a token's experts are distinct
-    rows = inv[torch.arange(t, device=x.device)[:, None] * k + asc]  # (T, k)
-    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        out = out + contrib[rows[:, j]]
-    return out, aux
+    yb = C.mlp_apply(p.experts, _dispatch(x, slot, tok_s, E * Cp).reshape(E, Cp, d))
+    return _combine(yb.reshape(E * Cp, d), top_w, top_i, slot, order, keep), aux
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel path (the reference's shard_map body, on each rank)
+# ---------------------------------------------------------------------------
+
+
+def _moe_shard_body(x, router_w, gate, up, down, *, cfg: ModelConfig, ctx, ep_axis: str,
+                    ep_size: int, all_axes: tuple):
+    """One rank's body. x: (T_loc, D) its tokens; gate/up (E_loc, D, F),
+    down (E_loc, F, D) its resident experts, gathered over fsdp. Returns
+    (out (T_loc, D), aux averaged over ``all_axes``)."""
+    ep = ep_size
+    t, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    e_loc = E // ep
+    Cp = _capacity(t, cfg)
+
+    top_w, top_i, aux = route(router_w, x, cfg)
+    slot, tok_s, order, keep = _dispatch_indices(top_i, k, E, Cp)
+    buf = _dispatch(x, slot, tok_s, E * Cp).reshape(ep, e_loc, Cp, d)
+    # exchange: rank i sends its buffer slice for rank j's experts to j
+    buf = all_to_all(buf, ctx, ep_axis)
+    xin = buf.transpose(0, 1).reshape(e_loc, ep * Cp, d)
+    g = torch.bmm(xin, gate.to(xin.dtype))
+    u = torch.bmm(xin, up.to(xin.dtype))
+    y = torch.bmm(C.swiglu(g, u), down.to(xin.dtype))
+    y = y.reshape(e_loc, ep, Cp, d).transpose(0, 1)
+    y = all_to_all(y, ctx, ep_axis)
+    out = _combine(y.reshape(E * Cp, d), top_w, top_i, slot, order, keep)
+    n = 1
+    for ax in all_axes:
+        n *= ctx.sizes[ax]
+    return out, psum(aux, ctx, all_axes) / n
+
+
+def _token_axes_for(ctx, t: int) -> tuple[str, ...]:
+    """Largest prefix of (dp + ep) axes whose product divides the token count
+    (decode steps may have fewer tokens than devices)."""
+    axes = []
+    prod = 1
+    for ax in ctx.token_axes:
+        size = ctx.sizes[ax]
+        if t % (prod * size) != 0:
+            break
+        axes.append(ax)
+        prod *= size
+    return tuple(axes)
+
+
+def _dp_size(ctx) -> int:
+    n = 1
+    for ax in ctx.dp_axes:
+        n *= ctx.sizes[ax]
+    return n
+
+
+def _moe_ep(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig):
+    """The EP path on this rank's dp rows ``x`` (T_loc, D), replicated over
+    the ep axis: its ep share of the tokens through the body, the shares
+    gathered back. The expert weights are gathered over every mesh dim but
+    the ep axis (ZeRO-3), so each rank keeps its E / ep experts."""
+    ctx = get_mesh_context()
+    ep_axis = ctx.ep_axis
+    ep = ctx.sizes[ep_axis]
+    tok_axes = _token_axes_for(ctx, x.shape[0] * _dp_size(ctx))
+    split = ep_axis in tok_axes
+    xs = x.chunk(ep)[axis_rank(ctx, ep_axis)] if split else x
+    w = {n: gathered(p.experts[n].w, keep=ep_axis) for n in ("gate", "up", "down")}
+    out, aux = _moe_shard_body(xs, gathered(p.router), w["gate"], w["up"], w["down"], cfg=cfg,
+                               ctx=ctx, ep_axis=ep_axis, ep_size=ep,
+                               all_axes=tok_axes or (ep_axis,))
+    return (all_gather(out, ctx, ep_axis) if split else out), aux
+
+
+def _dp_gathered_local(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig, ctx):
+    """The local path under a mesh: every dp rank's tokens gathered (pod
+    major), the global batch's MoE, this rank's rows taken back."""
+    xs, idx = x, 0
+    for ax in reversed(ctx.dp_axes):
+        idx += axis_rank(ctx, ax) * (xs.shape[0] // x.shape[0])
+        xs = all_gather(xs, ctx, ax)
+    out, aux = _moe_local(p, xs, cfg)
+    t = x.shape[0]
+    return out[idx * t:(idx + 1) * t], aux
 
 
 # ---------------------------------------------------------------------------
@@ -187,10 +309,23 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig, *, per_draft_row: bool
     row-independent."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
+    ctx = get_mesh_context()
+    use_ep = (
+        ctx.mesh is not None
+        and ctx.ep_size > 1
+        and cfg.n_experts % ctx.ep_size == 0
+        # the EP path is bf16-experts only, as the reference's
+        and isinstance(p.experts["gate"] if "gate" in p.experts else None, C.ExpertLinear)
+    )
     logits = None
     if per_draft_row and s > 1:
         logits = C.per_draft_row(lambda y: router_logits(p.router, y), x).reshape(b * s, -1)
-    out, aux = _moe_local(p, xf, cfg, logits)
+    if use_ep:
+        out, aux = _moe_ep(p, xf, cfg)
+    elif ctx.mesh is not None and _dp_size(ctx) > 1:
+        out, aux = _dp_gathered_local(p, xf, cfg, ctx)
+    else:
+        out, aux = _moe_local(p, xf, cfg, logits)
     if p.shared is not None:
         out = out + C.mlp_apply(p.shared, xf)
     return out.reshape(b, s, d), aux

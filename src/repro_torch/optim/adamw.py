@@ -21,6 +21,16 @@ parameter names, ``count`` an int32 scalar on the parameters' device. An
 update writes the parameters and the moments in place, one leaf at a time
 (so the f32 temporaries of one leaf are alive at once), and returns them
 with a new ``count``.
+
+Sharded (the parameters DTensors of the sharded train step): each moment
+lives in its own placements (``init``'s ``placements``, from
+``launch.sharding.opt_state_specs``). The update is computed on the
+moment's shard, the gradient and the parameter taken onto the moment's
+placements first, and the new parameter shard is redistributed to the
+parameter's placements (ZeRO-1 when a replicated parameter has sharded
+moments: an all-gather). Every op is elementwise, so a shard's update has
+the bits of the same rows updated on one device. The global norm sums each
+leaf's local sum of squares over the mesh dims that shard it.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.interop import named_tensors, reference_ndim
+from repro_torch.models.context import local_shard, reduce_over_shards, shard_like
 
 __all__ = ["AdamW", "AdamWState"]
 
@@ -58,15 +69,23 @@ class AdamW:
     moment_dtype: torch.dtype = torch.float32
     clip_norm: Optional[float] = 1.0
 
-    def init(self, params) -> AdamWState:
+    def init(self, params, placements: Optional[dict] = None) -> AdamWState:
+        """Zero moments; a DTensor parameter's in ``placements[name]``
+        (default: the parameter's own) on its mesh."""
+        from torch.distributed.tensor import DTensor, zeros as dzeros
+
         named = named_tensors(params)
 
-        def z(p):
+        def z(n, p):
+            if isinstance(p, DTensor):
+                pl = (placements or {}).get(n, p.placements)
+                return dzeros(p.shape, dtype=self.moment_dtype, device_mesh=p.device_mesh,
+                              placements=pl)
             return torch.zeros(p.shape, dtype=self.moment_dtype, device=p.device)
 
-        dev = next(iter(named.values())).device
-        return AdamWState(mu={n: z(p) for n, p in named.items()},
-                          nu={n: z(p) for n, p in named.items()},
+        dev = local_shard(next(iter(named.values()))).device
+        return AdamWState(mu={n: z(n, p) for n, p in named.items()},
+                          nu={n: z(n, p) for n, p in named.items()},
                           count=torch.zeros((), dtype=torch.int32, device=dev))
 
     def decays(self, params) -> dict:
@@ -75,31 +94,65 @@ class AdamW:
         return {n: reference_ndim(n, p) >= 2 for n, p in named_tensors(params).items()}
 
     @torch.no_grad()
+    def clip_factor(self, grads: dict) -> Optional[torch.Tensor]:
+        """``min(1, clip_norm / (global norm + 1e-12))`` as an f32 0-d tensor
+        (None without clipping): the reference's Python sum over its leaves,
+        then one sqrt."""
+        if self.clip_norm is None:
+            return None
+        gn = torch.sqrt(sum(reduce_over_shards(torch.sum(local_shard(g).to(torch.float32) ** 2), g)
+                            for g in grads.values()))
+        return torch.clamp(_full(self.clip_norm, gn) / (gn + 1e-12), max=1.0)
+
+    @torch.no_grad()
     def update(self, grads: dict, state: AdamWState, params):
         """One step: ``grads`` by name (any float dtype). Writes the
         parameters and ``state``'s moments in place; returns (params,
         AdamWState with the new count)."""
+        return self.apply(grads, state, params, self.clip_factor(grads))
+
+    @torch.no_grad()
+    def apply(self, grads: dict, state: AdamWState, params, factor: Optional[torch.Tensor]):
+        """:meth:`update` with the clip ``factor`` given (None: no clip)."""
         f32 = torch.float32
         named = named_tensors(params)
         count = state.count + 1
-        if self.clip_norm is not None:
-            # the reference's Python sum over its leaves, then one sqrt
-            gn = torch.sqrt(sum(torch.sum(g.to(f32) ** 2) for g in grads.values()))
-            factor = torch.clamp(_full(self.clip_norm, gn) / (gn + 1e-12), max=1.0)
-            # a bf16 leaf times the f32 factor is f32 in the reference
-            grads = {n: g.to(f32) * factor for n, g in grads.items()}
         cf = count.to(f32)
         b1c = 1 - torch.pow(_full(self.b1, cf), cf)
         b2c = 1 - torch.pow(_full(self.b2, cf), cf)
         decays = self.decays(named)
         for n, p in named.items():
-            g32 = grads[n].to(f32)
-            mu32 = self.b1 * state.mu[n].to(f32) + (1 - self.b1) * g32
-            nu32 = self.b2 * state.nu[n].to(f32) + (1 - self.b2) * g32 * g32
+            mu, nu = state.mu[n], state.nu[n]
+            g = _onto(grads[n], mu)
+            if factor is not None:
+                # a bf16 leaf times the f32 factor is f32 in the reference
+                g = g.to(f32) * factor
+            g32 = g.to(f32)
+            mu32 = self.b1 * local_shard(mu).to(f32) + (1 - self.b1) * g32
+            nu32 = self.b2 * local_shard(nu).to(f32) + (1 - self.b2) * g32 * g32
             step = (mu32 / b1c) / (torch.sqrt(nu32 / b2c) + self.eps)
             decay = self.weight_decay if decays[n] else 0.0
-            p32 = p.to(f32)
-            p.copy_((p32 - self.lr * (step + decay * p32)).to(p.dtype))
-            state.mu[n].copy_(mu32.to(self.moment_dtype))
-            state.nu[n].copy_(nu32.to(self.moment_dtype))
+            p32 = _onto(p, mu).to(f32)
+            _write(p, (p32 - self.lr * (step + decay * p32)).to(p.dtype), mu)
+            local_shard(mu).copy_(mu32.to(self.moment_dtype))
+            local_shard(nu).copy_(nu32.to(self.moment_dtype))
         return params, AdamWState(mu=state.mu, nu=state.nu, count=count)
+
+
+def _onto(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``'s local shard in ``like``'s placements (a DTensor ``like``)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(like, DTensor):
+        return t
+    return t.redistribute(like.device_mesh, like.placements).to_local()
+
+
+def _write(p: torch.Tensor, new: torch.Tensor, like: torch.Tensor) -> None:
+    """In place: the parameter ``p`` from ``new``, its shard in ``like``'s
+    placements, redistributed to ``p``'s."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(like, DTensor):
+        new = shard_like(new, like).redistribute(p.device_mesh, p.placements).to_local()
+    local_shard(p).copy_(new)

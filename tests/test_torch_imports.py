@@ -1,5 +1,6 @@
-"""The port stands alone: no module of src/repro_torch/ (nor chip_smoke.py)
-imports JAX or anything of the JAX package ``repro``, and every module
+"""The port stands alone: no module of src/repro_torch/ (nor chip_smoke.py,
+nor the 4-rank tests' rank body) imports JAX or anything of the JAX
+package ``repro``, and every module
 imports under the CPU-only PyTorch of the test machine."""
 
 import ast
@@ -10,7 +11,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the rank body of the 4-rank tests is spawned on its own: it stands alone too
+FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                      REPO / "tests" / "torch_dist_worker.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -39,7 +39,7 @@ JAX package's.
     norms do not move at lr 1e-3 (1 - 1e-3 rounds to 1).
 * Phase 13's helpers of ``chip_smoke.py`` on a tiny config: the decay
   flags, the bf16 step against the f32 upcast and its planted faults, the
-  drill's state comparison and the error-feedback check.
+  drill's state comparison and the error-feedback check; ``--train-sweep``.
 """
 
 import sys
@@ -298,9 +298,13 @@ def test_train_loop_recovers_from_failure(tmp_path, tiny_setup):
 
 def test_train_loop_restores_the_initial_state_without_a_checkpoint(tmp_path, tiny_setup):
     """A step that fails halfway through AdamW's in-place update before the
-    first checkpoint: the loop goes back to the state it started from (the
-    reference's immutable initial state), so its end state and losses are
-    those of a run with no failure."""
+    first checkpoint: the loop goes back to the state it started from, so
+    its end state and losses are those of a run with no failure. A held
+    difference: the reference's loop, on a failure at the same step, keeps
+    the state its last successful step left and replays the data stream
+    from ``start_step`` over it (``repro/launch/train.py:121-129``), so its
+    replayed losses and its end state differ from its run with no
+    failure."""
     cfg, opt, step_fn, ds = tiny_setup
     armed, mixed = [True], []
 
@@ -340,6 +344,34 @@ def test_train_loop_restores_the_initial_state_without_a_checkpoint(tmp_path, ti
     assert all(torch.equal(p, p0.get_parameter(n)) for n, p in p1.named_parameters())
     assert all(torch.equal(o1.mu[n], o0.mu[n]) and torch.equal(o1.nu[n], o0.nu[n])
                for n in o0.mu) and int(o1.count) == int(o0.count) == 4
+
+    # the reference's loop on a failure at the same step
+    from repro.checkpoint.manager import CheckpointManager as JCheckpointManager
+    from repro.launch.train import TrainLoop as JTrainLoop
+
+    jcfg = jget("qwen2-1.5b", reduced=True).replace(remat=False)
+    jstep = jax.jit(j_make_train_step(jcfg, JAdamW(lr=opt.lr)))
+    tree = jax.tree.map(jnp.asarray, params_to_numpy(
+        init_train_state(cfg, opt, seed=0, device="cpu")[0], cfg))
+    jds = JP.TokenDataset(ds.tokens, batch=ds.batch, seq=ds.seq)
+    fired = []
+
+    def fail_once(s):
+        if s == 2 and not fired:
+            fired.append(s)
+            raise RuntimeError("injected")
+
+    ref = []
+    for inj in (None, fail_once):
+        loop = JTrainLoop(jcfg, jstep, JCheckpointManager(tmp_path / f"ref{len(ref)}"),
+                          jds.iterate, ckpt_every=5)
+        ref.append(loop.run(tree, JAdamW(lr=opt.lr).init(tree), 0, 4, fail_injector=inj))
+    (rp0, _, rl0, _), (rp1, _, rl1, rend) = ref
+    assert fired == [2] and rend == 4 and rl1[:2] == rl0[:2]
+    # the replay from step 0 runs on the state after two steps, not the initial one
+    assert rl1[2] != rl0[0] and rl1[2:] != rl0
+    assert any(not np.array_equal(np.asarray(a), np.asarray(b))
+               for a, b in zip(jax.tree.leaves(rp1), jax.tree.leaves(rp0)))
 
 
 def test_straggler_monitor():
@@ -622,7 +654,7 @@ def test_chip_smoke_train_helpers_on_cpu(chip_smoke, tmp_path):
     assert cs.ef_worst(grads, deq, ef, s)[0] <= cs.TRAIN_EF_BOUND
     assert cs.ef_worst(grads, deq, {n: torch.zeros_like(e) for n, e in ef.items()},
                        s)[0] > cs.TRAIN_EF_BOUND
-    step = make_train_step(cfg, AdamW())
+    step = make_train_step(cfg, AdamW(lr=cs.TRAIN_LR))
     for i in range(cs.TRAIN_STEPS):  # a state as far in as the phase's
         params, opt_state, _ = step(params, opt_state, ds.batch_at(2 + i))
     p0 = {n: p.detach().clone() for n, p in params.named_parameters()}
@@ -633,3 +665,21 @@ def test_chip_smoke_train_helpers_on_cpu(chip_smoke, tmp_path):
     assert still == len(p0) - len(rels) and rels[0][0] == 0.0
     rels, _ = cs.update_rels(p0, moved, p0)  # no update: 1.0 on every moved leaf
     assert rels and all(r == 1.0 and n.startswith("layers.0.") for r, n in rels)
+
+
+def test_chip_smoke_train_sweep_on_cpu(chip_smoke, capsys):
+    """``--train-sweep`` at a tiny llama3-8b: a line of losses and its fall a
+    data stream, the compression check's line at the phase's learning rate
+    only, a summary a learning rate, and the deterministic setting put back."""
+    cs = chip_smoke
+    cfg = get_config("llama3-8b").replace(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                                          head_dim=32, d_ff=256, vocab=512)  # the helpers' own
+    det = torch.are_deterministic_algorithms_enabled()
+    cs.train_sweep(CPU, "cpu", cfg, [cs.TRAIN_LR, 2 * cs.TRAIN_LR], range(2), batch=2, seq=65)
+    assert torch.are_deterministic_algorithms_enabled() == det
+    out = capsys.readouterr().out.splitlines()
+    streams = [ln for ln in out if " data seed=" in ln]
+    assert len(streams) == 4 and all(" fall=" in ln for ln in streams)
+    assert sum(ln.startswith("train compression") for ln in out) == 2
+    summary = [ln for ln in out if " falls=" in ln]
+    assert len(summary) == 2 and all(" of 2 " in ln for ln in summary)
