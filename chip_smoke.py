@@ -15,6 +15,7 @@
     python3 chip_smoke.py --train-only      # build, then the training stack (llama3-8b)
     python3 chip_smoke.py --train-sweep 3e-4,1e-4  # build, then the loss fall per lr
     python3 chip_smoke.py --shard-only      # build, then the sharded path at world size 1
+    python3 chip_smoke.py --cost-only       # build, W4A4 llama3-8b, the cost model's phase
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -299,6 +300,23 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    table without the ``attn/o/w`` rule: the spec check must catch the
    leaves it lays out otherwise. No kernel of ``KERNELS`` runs on this
    path (the reference trains in plain ``jnp``).
+15. cost — the cost model (``launch/roofline.py``, ``launch/op_cost.py``,
+   ``launch/dryrun.py``): (a) every bound in the kernel table comes from
+   ``roofline.kernel_cost`` / ``bound_ms`` (the ``cost (a)`` line repeats
+   the seven table cases'); (b) inside phase 4, on its W4A4 packs: one
+   eager paged decode step and one ragged step (budget 256) of llama3-8b
+   at ``SERVE_LAYERS``, each at step ``CHECK_STEP`` of a graph engine,
+   counted by ``op_cost.analyze_step`` through the kernels and again under
+   ``set_force_ref(True)`` (the two counts equal key for key, every routed
+   call counted), printed with flops by class, bytes, the roofline bound,
+   what bounds it, the hand-written kernels' share of the count, and the
+   bound's share of the same step's replay device ms (CUDA events); a
+   count with one kernel's cost left out must fail that check; (c) the
+   dry-run (``python -m repro_torch.launch.dryrun``) of llama3-8b
+   ``decode_32k`` (W4A4) and ``train_4k`` (bf16) on (16, 16), each in a
+   subprocess of its own (phase 14 owns an NCCL group; the fake process
+   group of the dry-run lives apart), started with (b) and read after
+   phase 14: each must print ``status ok`` and its roofline terms.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -314,7 +332,8 @@ W4A4 packs), ``--calib-only`` (phases 1-2, then phase 6) and
 ``--zamba2-only`` (phases 1-2, then phase 11) and ``--xlstm-only``
 (phases 1-2, the narrow-N tile of phase 3, then phase 12; any of these
 flags together run their phases in that order), ``--train-only`` (phases
-1-2, then phase 13), ``--shard-only`` (phases 1-2, then phase 14);
+1-2, then phase 13), ``--shard-only`` (phases 1-2, then phase 14),
+``--cost-only`` (phases 1-2, llama3-8b's W4A4 packs, then phase 15);
 ``--timing-only`` times the four dual wrappers at their table cases,
 ``w4a16_gemm`` at the four llama3-8b shapes and M in
 ``W4A16_MS``, the paged decode kernel at its table case (sq 1 and 4,
@@ -339,9 +358,6 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 
-HBM_BYTES_S = 3.35e12  # H100 SXM memory rate
-INT8_OPS_S = 1.979e15  # H100 SXM dense int8 tensor-core rate
-BF16_OPS_S = 9.89e14  # H100 SXM dense bf16 tensor-core rate
 # llama3-8b's 32 layers cut to keep the whole script, DeepSeek-V3's and the
 # training and sharding phases included, inside its limit (16 until the
 # training phase came, 12 until the sharding phase; PERF.md section 4)
@@ -424,14 +440,20 @@ def pack_bytes(gw) -> int:
 
 
 def bound(m: int, k: int, gw) -> tuple[float, str]:
-    """Least time (ms) and what bounds it: each input read once and the
-    output written once over the memory rate, vs the int8 operations
-    (residual, H, and V products) over the int8 rate."""
-    n, r = gw.ndim_out, gw.rank
-    nbytes = m * k * 2 + pack_bytes(gw) + m * n * 2
-    ops = 2 * m * k * n + 2 * m * k * r + sum(2 * m * rj * nj for rj, nj in zip(gw.seg_r, gw.seg_n))
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT8_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time (ms) of a dual launch of ``m`` rows an expert over the
+    pack ``gw`` and what bounds it (``roofline.kernel_cost``: each input
+    read once and the output written once over the memory rate, vs the
+    int8 residual, H and V products over the int8 rate)."""
+    from repro_torch.launch.roofline import bound_ms, kernel_cost
+
+    return bound_ms(kernel_cost("dual_gemm", m=m, w=gw))
+
+
+def w4a16_bound(m: int, k: int, n: int, experts: int = 1) -> tuple[float, str]:
+    """``bound`` of a ``w4a16_gemm`` launch (``roofline.kernel_cost``)."""
+    from repro_torch.launch.roofline import bound_ms, kernel_cost
+
+    return bound_ms(kernel_cost("w4a16_gemm", m=m, k=k, n=n, experts=experts))
 
 
 GEMV_MS = (1, 2, 5, 8)  # the decode panel
@@ -903,9 +925,7 @@ def w4a16_phase(device) -> dict:
             t_lib = device_ms(lambda: torch.matmul(x, wb))
             t_lib_ev = cuda_ms(lambda: torch.matmul(x, wb), iters=50)
             del wb
-            nbytes = k * n // 2 + (k // 128) * n * 4 + m * k * 2 + m * n * 2
-            t_b, t_o = nbytes / HBM_BYTES_S * 1e3, 2 * m * n * k / BF16_OPS_S * 1e3
-            t_b, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+            t_b, by = w4a16_bound(m, k, n)
             print(f"kernel w4a16_gemm       {lname:8s} M={m:4d} K={k:5d} N={n:5d} close "
                   f"max_abs_err={err:.5f} max_rel={rel:.5f} (limit {W4A16_REL_MAX}; bf16 plain "
                   f"{rel_p:.5f}) rows == one-row launches ms={t_k:.4f} plain_ms={t_p:.4f} "
@@ -1081,14 +1101,13 @@ def narrow_phase(device) -> dict:
             wb = torch.randn(k, n, generator=gen, device=device).to(torch.bfloat16)
             lib = graph_ms(lambda: torch.matmul(x, wb))
             t_d, by_d = bound(m, k, ref.as_group(w))
-            nbytes = k * n // 2 + (k // 128) * n * 4 + m * k * 2 + m * n * 2
-            t_w, t_o = nbytes / HBM_BYTES_S * 1e3, 2 * m * n * k / BF16_OPS_S * 1e3
+            t_w, by_w = w4a16_bound(m, k, n)
             out[f"{kern.__name__} M={m}"] = dict(
                 ms=graph_ms(lambda: kern(x, w)), library_ms=lib, bound_ms=t_d, bound_by=by_d,
                 plain_ms=cuda_ms(lambda: ref.dual_gemm_ref(x, w), iters=3, warmup=1))
             out[f"w4a16_gemm M={m}"] = dict(
                 ms=graph_ms(lambda: w4a16_gemm(x, wp, ws)), library_ms=lib,
-                bound_ms=max(t_w, t_o), bound_by="bytes" if t_w >= t_o else "operations",
+                bound_ms=t_w, bound_by=by_w,
                 plain_ms=cuda_ms(lambda: ref.w4a16_gemm_ref(x, wp, ws), iters=3, warmup=1))
         print(f"kernel narrow M={m:3d} K={k} N={n} r={r}: dual == plain, group N="
               f"{list(NARROW_GROUP['seg_n'])} r={list(NARROW_GROUP['seg_r'])} == plain; "
@@ -1247,11 +1266,6 @@ def _pools(gen, device, copies: int, att: dict = ATT):
                   for _ in range(2)) for _ in range(copies)]
 
 
-def _bound_attn(nbytes: int, flops: int) -> tuple[float, str]:
-    t_b, t_o = nbytes / HBM_BYTES_S * 1e3, flops / BF16_OPS_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
 RAGGED_CTX = [1, 250, 777, 1500, 2000, 512, 0, 0]
 RAGGED_RUNS = [1, 1, 1, 1, 1, 200, 40, 0]  # slot 7 idle; 11 pad rows
 RAGGED_CUT = 77  # slot 5's chunk cut for the two-launch check (mid-tile: 8 rows a tile)
@@ -1392,17 +1406,16 @@ def _sdpa_ragged(rc, kp, vp):
 
 
 def _bound_ragged(rc) -> tuple[float, str]:
-    """The ragged table case's bound: the committed keys and values of the
-    slots with rows, the rows' q, k, v and output, the metadata, read or
-    written once; the score and P.V operations of every real row."""
+    """The ragged table case's bound (``roofline.kernel_cost``: the
+    committed keys and values of the slots with rows, the rows' q, k, v and
+    output, the metadata, read or written once; the score and P.V
+    operations of every real row)."""
+    from repro_torch.launch.roofline import bound_ms, kernel_cost
+
     c = rc["att"]
-    B, H, KV, hd = c["B"], c["H"], c["KV"], c["hd"]
-    T = rc["T"]
-    keys_ctx = sum(n0 for n0, r in zip(rc["ctx_l"], rc["runs"]) if r)
-    nbytes = (2 * keys_ctx * KV * hd * 2 + T * (2 * H + 2 * KV) * hd * 2 + rc["bt"].numel() * 4
-              + T * 8 + B * 4)
-    flops = sum(4 * hd * H * (p + 1) for p, s_i in zip(rc["pos_l"], rc["slot_l"]) if s_i < B)
-    return _bound_attn(nbytes, flops)
+    return bound_ms(kernel_cost("ragged_attention_kernel", t=rc["T"], h=c["H"], kv=c["KV"],
+                                hd=c["hd"], b=c["B"], maxp=rc["bt"].shape[1],
+                                slot=rc["slot_l"], pos=rc["pos_l"], ctx=rc["ctx_l"]))
 
 
 def attention_phase(device, att: dict = ATT, ragged: bool = True) -> dict:
@@ -1417,6 +1430,7 @@ def attention_phase(device, att: dict = ATT, ragged: bool = True) -> dict:
     from repro_torch.kernels import build, contracts
     from repro_torch.kernels.paged_attention import paged_decode_kernel, paged_decode_ref
     from repro_torch.kernels.ragged_attention import ragged_attention_kernel, ragged_attention_ref
+    from repro_torch.launch.roofline import bound_ms, kernel_cost
 
     c = att
     B, H, KV, hd = c["B"], c["H"], c["KV"], c["hd"]
@@ -1487,10 +1501,8 @@ def attention_phase(device, att: dict = ATT, ragged: bool = True) -> dict:
             lib = _sdpa_case(q, kp, vp, kt, vt, bt, pos)
             t_lib, t_lib_ev = device_ms(lib), cuda_ms(lib, iters=20)
             del lib
-            nbytes = (2 * sum(DECODE_LENS) * KV * hd * 2 + 2 * B * sq * H * hd * 2
-                      + (2 + 2 * commit) * B * sq * KV * hd * 2 + bt.numel() * 4 + B * 4)
-            flops = sum(4 * hd * H * (n + i + 1) for n in DECODE_LENS for i in range(sq))
-            t_b, by = _bound_attn(nbytes, flops)
+            t_b, by = bound_ms(kernel_cost("paged_decode_kernel", b=B, sq=sq, h=H, kv=KV, hd=hd,
+                                           maxp=bt.shape[1], lens=DECODE_LENS, commit=commit))
             print(f"kernel paged_decode_kernel sq={sq} commit={int(commit)} B={B} H={H}/{KV} "
                   f"hd={hd} lens={list(DECODE_LENS)} close max_abs_err={err:.5f} "
                   f"max_rel={rel:.5f} ms={t_k:.4f} "
@@ -2867,6 +2879,13 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
     launches = dict(w4.launches)
     w4_times = dict(w4.step_times)
 
+    # -- phase 15 (b): the cost model's count of a paged and a ragged step
+    t_cost = time.perf_counter()
+    cost_phase(device, card, cfg, qp, prompts[:8], max_len)
+    cost_s = time.perf_counter() - t_cost
+    if secs is not None:
+        secs["cost"] = secs.get("cost", 0.0) + cost_s
+
     # -- the request lifecycle on the same packs
     t_life = time.perf_counter()
     lifecycle_phase(device, card, cfg, qp)
@@ -2894,9 +2913,177 @@ def serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 
             print(f"serve step times {json.dumps({'setting': tag, 'mode': mode, **times})}",
                   flush=True)
     t7 = time.perf_counter()
-    print(f"serve phase seconds: w4a4 {t5 - t4 - life_s:.1f} lifecycle {life_s:.1f} "
+    print(f"serve phase seconds: w4a4 {t5 - t4 - life_s - cost_s:.1f} "
+          f"lifecycle {life_s:.1f} "
           f"w4a8 {t6 - t5:.1f} w4a16 {t7 - t6:.1f}", flush=True)
     return launches
+
+
+# phase 15: the dry-run cells run in subprocesses (arch, shape, quant)
+COST_DRYRUN = (("llama3-8b", "decode_32k", "w4a4"), ("llama3-8b", "train_4k", "bf16"))
+COST_DRYRUN_TIMEOUT = 600
+
+
+def start_dryrun(out_dir) -> list:
+    """Start the ``COST_DRYRUN`` cells of ``python -m repro_torch.launch.dryrun``
+    on (16, 16), one subprocess each (no collective check: the phase's time),
+    writing under ``out_dir``; returns (cell, process) pairs."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    for arch, shape, quant in COST_DRYRUN:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--quant", quant, "--mesh", "single", "--out", str(out_dir),
+               "--no-comm-check"]
+        procs.append(((arch, shape, quant), subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def finish_dryrun(procs) -> None:
+    """Wait for the dry-run subprocesses (each stopped at
+    ``COST_DRYRUN_TIMEOUT``); each must exit 0 and print ``status ok`` and
+    its roofline terms."""
+    try:
+        for (arch, shape, quant), proc in procs:
+            try:
+                out, _ = proc.communicate(timeout=COST_DRYRUN_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+                fail(f"cost (c) dry-run {arch} {shape} {quant}: past {COST_DRYRUN_TIMEOUT} s")
+            lines = [ln for ln in out.splitlines() if "suboptimal" not in ln]
+            for ln in lines:
+                if ln.startswith(("[", "  roofline")):
+                    print(f"cost (c) {ln.strip()}", flush=True)
+            if proc.returncode != 0 or not any("status ok" in ln for ln in lines) \
+                    or not any("roofline: compute=" in ln for ln in lines):
+                fail(f"cost (c) dry-run {arch} {shape} {quant} exit {proc.returncode}: "
+                     + " | ".join(lines[-8:]))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _cost_table_line() -> None:
+    """The seven table cases' bounds from ``roofline.kernel_cost``."""
+    from repro_torch.launch.roofline import bound_ms, dual_pack_bytes, kernel_cost
+
+    d, f, r = 4096, 14336, 128
+    rows = {}
+    for name, (lname, m) in DUAL_REP.items():
+        k, seg_n = (f, (d,)) if lname == "down" else (d, (f, f))
+        seg_r = (r,) * len(seg_n)
+        rows[name] = bound_ms(kernel_cost(name, m=m, k=k, seg_n=seg_n, seg_r=seg_r,
+                                          pack_bytes=dual_pack_bytes(k, seg_n, seg_r)))
+    c = ATT
+    rows["paged_decode_kernel"] = bound_ms(kernel_cost(
+        "paged_decode_kernel", b=c["B"], sq=1, h=c["H"], kv=c["KV"], hd=c["hd"], maxp=c["maxp"],
+        lens=DECODE_LENS, commit=False))
+    slot_l, pos_l, _ = _ragged_rows(RAGGED_CTX, RAGGED_RUNS, 256)
+    rows["ragged_attention_kernel"] = bound_ms(kernel_cost(
+        "ragged_attention_kernel", t=256, h=c["H"], kv=c["KV"], hd=c["hd"], b=c["B"],
+        maxp=c["maxp"], slot=slot_l, pos=pos_l, ctx=RAGGED_CTX))
+    lname, m = W4A16_REP
+    k, n = (f, d) if lname == "down" else (d, f)
+    rows["w4a16_gemm"] = bound_ms(kernel_cost("w4a16_gemm", m=m, k=k, n=n))
+    print("cost (a) kernel_cost bounds of the table cases: "
+          + " ".join(f"{kname}={ms:.4f}({by})" for kname, (ms, by) in rows.items()), flush=True)
+
+
+def _count_step(fn, buffers, restore, force_ref: bool) -> dict:
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.op_cost import analyze_step
+
+    restore()
+    prev = dispatch.set_force_ref(force_ref)
+    try:
+        return analyze_step(fn, **buffers)
+    finally:
+        dispatch.set_force_ref(prev)
+        restore()
+
+
+def cost_phase(device, card: str, cfg, qp, prompts, max_len: int = 2048) -> dict:
+    """Phase 15 (b): one eager paged decode step and one ragged step of the
+    served W4A4 model, counted through the kernels and under
+    ``set_force_ref(True)`` from one state (equal key for key), beside the
+    same step's replay device ms; a count with one kernel's cost left out
+    must fail the equality. Returns {mode: (count, bound ms, replay ms)}."""
+    import torch
+
+    from repro_torch.kernels import cuda_launch, dispatch
+    from repro_torch.launch.roofline import from_counts
+    from repro_torch.launch.serve import ContinuousBatchingEngine, Request
+
+    cuda = device.type == "cuda"
+    out = {}
+    launches, routes = cuda_launch.launch_counts(), dispatch.dispatch_counters()
+    for mode, left_out in (("paged", "paged_decode_kernel"), ("ragged", "ragged_attention_kernel")):
+        eng = ContinuousBatchingEngine(cfg, qp, batch_slots=8, max_len=max_len, device=device,
+                                       **MODES[mode])
+        for p in prompts:
+            eng.submit(Request(p, max_new=32))
+        for _ in range(CHECK_STEP):
+            eng.step()
+        _sync(device)
+        sg = eng.step_graph
+        snap = {"state": _clone_state(eng.state), "buffers": _clone_state(sg.buffers)}
+
+        def restore():
+            _restore_state(sg.buffers, snap["buffers"])
+            _restore_state(eng.state, snap["state"])
+
+        got = _count_step(sg.fn, sg.buffers, restore, False)
+        forced = _count_step(sg.fn, sg.buffers, restore, True)
+        differ = sorted(k for k in got if got[k] != forced[k])
+        if differ or got["uncounted_calls"] or not got["kernels"]:
+            fail(f"cost (b) {mode}: the count through the kernels != under set_force_ref(True) "
+                 f"in {differ}, or {got['uncounted_calls']} routed calls uncounted")
+
+        keep = dispatch._counted
+
+        def without(name, cost, body):
+            return body() if name == left_out else keep(name, cost, body)
+
+        dispatch._counted = without
+        try:
+            planted = _count_step(sg.fn, sg.buffers, restore, False)
+            planted_ref = _count_step(sg.fn, sg.buffers, restore, True)
+        finally:
+            dispatch._counted = keep
+        caught = planted != planted_ref
+        print(f"cost (b) planted fault ({mode}: {left_out}'s cost left out): counts equal "
+              f"{not caught}, uncounted calls {planted['uncounted_calls']} -> "
+              f"{'caught' if caught else 'MISSED'}", flush=True)
+        if cuda and not caught:
+            fail(f"cost (b) {mode}: a kernel cost left out passes the kernel == forced check")
+        if not planted["uncounted_calls"]:
+            fail(f"cost (b) {mode}: a kernel cost left out leaves no routed call uncounted")
+        rf = from_counts(got, chips=1)
+        bound = rf.bound_time * 1e3
+        hw_flops = sum(sum(k["flops_by_class"].values()) for k in got["kernels"].values())
+        hw_bytes = sum(k["bytes"] for k in got["kernels"].values())
+        replay = _step_times(eng, snap)["replay_events_ms"] if cuda else float("nan")
+        print(f"cost (b) {mode} step ({cfg.n_layers} layers, step {CHECK_STEP}): counts through "
+              f"the kernels == under set_force_ref(True), key for key; flops by class "
+              f"{json.dumps(got['flops_by_class'])} bytes={got['bytes']:.0f} ops={got['ops']} "
+              f"kernel calls {json.dumps({k: v['calls'] for k, v in got['kernels'].items()})} "
+              f"hand-written share flops={hw_flops / got['flops']:.4f} "
+              f"bytes={hw_bytes / got['bytes']:.4f}; bound_ms={bound:.4f} "
+              f"(t_compute_ms={rf.t_compute * 1e3:.4f} t_memory_ms={rf.t_memory * 1e3:.4f}, "
+              f"{'operations' if rf.dominant == 'compute' else 'bytes'}) replay_ms={replay:.4f} "
+              f"share_of_bound={bound / replay:.4f} card=\"{card}\"", flush=True)
+        out[mode] = (got, bound, replay)
+        del eng, snap, sg
+    cuda_launch.reset_launch_counts()
+    cuda_launch.add_launch_counts(launches)
+    dispatch.reset_dispatch_counters()
+    dispatch.add_dispatch_counts(routes)
+    return out
 
 
 def ragged_serve_phase(device, card: str, cfg, prompt_lens=PROMPT_LENS, max_len: int = 2048,
@@ -3329,17 +3516,6 @@ def _stacked_pack(gen, e, k, n, r, device):
                                   rnd(e, k, n, s=0.05), a_bits=4, group=128)
 
 
-def _bound_stacked(e: int, cp: int, k: int, gw) -> tuple[float, str]:
-    """``bound`` of one launch over E experts: every expert's Cp rows in and
-    out and the whole stacked pack moved once, every expert's operations."""
-    n, r = gw.ndim_out, gw.rank
-    nbytes = e * cp * k * 2 + pack_bytes(gw) + e * cp * n * 2
-    ops = e * (2 * cp * k * n + 2 * cp * k * r
-               + sum(2 * cp * rj * nj for rj, nj in zip(gw.seg_r, gw.seg_n)))
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT8_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def _swap_experts(w, a: int = 0, b: int = 1):
     """A copy of stacked pack ``w`` whose experts ``a`` and ``b`` swap their
     residual packs (``rp``): the planted fault of the expert axis."""
@@ -3435,7 +3611,7 @@ def moe_kernel_phase(device, cfg, packs=None, lib=None, cps=(MOE_GEMV_CPS, MOE_G
                 t_h = host_us(lambda: kern(x, wa))
                 t_p = cuda_ms(lambda: ref.dual_gemm_group_ref(xs, gsa), iters=1, warmup=0)
                 t_lib = cuda_ms(lambda: [torch.bmm(x, wb) for wb in wbs], iters=20)
-                t_b, by = _bound_stacked(e, cp, k, gw)
+                t_b, by = bound(cp, k, gw)  # every expert's Cp rows, the whole stack
                 print(f"kernel {name:16s} stacked {lname:8s} E={e} Cp={cp:4d} K={k:5d} N={n:5d} "
                       f"equal, experts == one-expert launches device_ms={t_k:.4f} "
                       f"host_us={t_h:.1f} plain_ms({n_held} experts)={t_p:.4f} "
@@ -3552,9 +3728,7 @@ def stacked_w4a16_phase(device, cfg, cps=W4A16_MOE_CPS, col=W4A16_COL_CASE, samp
             t_h = host_us(lambda: w4a16_gemm(x, wp, ws))
             t_p = cuda_ms(lambda: ref.w4a16_gemm_ref(xs, wp_h, ws_h), iters=1, warmup=0)
             t_lib = cuda_ms(lambda: torch.bmm(x, wb), iters=20)
-            nbytes = ee * (k * n // 2 + (k // 128) * n * 4 + cp * k * 2 + cp * n * 2)
-            t_b, t_o = nbytes / HBM_BYTES_S * 1e3, 2 * ee * cp * n * k / BF16_OPS_S * 1e3
-            t_b, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+            t_b, by = w4a16_bound(cp, k, n, experts=ee)
             print(f"kernel w4a16_gemm        stacked {lname:8s} E={ee} Cp={cp:4d} K={k:5d} "
                   f"N={n:5d} close max_abs_err={err:.5f} max_rel={rel:.5f} (limit "
                   f"{W4A16_REL_MAX}) experts == one-expert launches device_ms={t_k:.4f} "
@@ -5821,6 +5995,9 @@ def main() -> None:
                          "over several data streams (no result line)")
     ap.add_argument("--shard-only", action="store_true",
                     help="build, then run the sharded path's phase alone (no result line)")
+    ap.add_argument("--cost-only", action="store_true",
+                    help="build, quantize llama3-8b W4A4, then run the cost model's phase alone "
+                         "(no result line)")
     ap.add_argument("--src", metavar="DIR",
                     help="import repro_torch from DIR (another tree's src) instead")
     args = ap.parse_args()
@@ -5915,6 +6092,28 @@ def main() -> None:
         shard_phase(device, card, get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS),
                     get_config("olmoe-1b-7b").replace(n_layers=SHARD_MOE_LAYERS))
         return
+    if args.cost_only:
+        import tempfile
+
+        import numpy as np
+
+        from repro_torch.configs import QuantSpec, get_config
+        from repro_torch.core.twinquant import fuse_params, quantize_params
+        from repro_torch.models import dense
+
+        cfg = get_config("llama3-8b").replace(n_layers=SERVE_LAYERS)
+        qp = fuse_params(quantize_params(dense.init_params(cfg, seed=0, device=device), cfg,
+                                         QuantSpec("w4a4", rank=128, group_size=128)))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in PROMPT_LENS][:8]
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as out_dir:
+            procs = start_dryrun(out_dir)
+            _cost_table_line()
+            cost_phase(device, card, cfg, qp, prompts)
+            finish_dryrun(procs)
+        print(f"cost phase seconds {time.perf_counter() - t:.1f}", flush=True)
+        return
     if args.lifecycle_only:
         from repro_torch.configs import QuantSpec, get_config
         from repro_torch.core.twinquant import fuse_params, quantize_params
@@ -5928,7 +6127,10 @@ def main() -> None:
         print(f"lifecycle phase seconds {time.perf_counter() - t:.1f}", flush=True)
         return
 
+    import tempfile
+
     secs = {}
+    dryrun_dir = tempfile.TemporaryDirectory()
     t = time.perf_counter()
     table = kernel_phase(device)
     table.update(w4a16_phase(device))
@@ -5938,9 +6140,14 @@ def main() -> None:
     from repro_torch.configs import get_config
 
     t = time.perf_counter()
+    procs = start_dryrun(dryrun_dir.name)  # phase 15 (c), read after phase 14
+    _cost_table_line()
+    secs["cost"] = time.perf_counter() - t
+    t, before = time.perf_counter(), secs["cost"]
     launches = serve_phase(device, card, get_config("llama3-8b").replace(n_layers=SERVE_LAYERS),
                            spec_probe=args.spec_probe, secs=secs)
-    secs["serve_llama3_8b"] = time.perf_counter() - t - secs["lifecycle"]
+    secs["serve_llama3_8b"] = (time.perf_counter() - t - secs["lifecycle"]
+                               - (secs["cost"] - before))
     t = time.perf_counter()
     qwen_phase(device, card, get_config("qwen3-8b").replace(n_layers=QWEN_LAYERS))
     secs["serve_qwen3_8b"] = time.perf_counter() - t
@@ -5981,6 +6188,10 @@ def main() -> None:
     shard_phase(device, card, get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS),
                 get_config("olmoe-1b-7b").replace(n_layers=SHARD_MOE_LAYERS))
     secs["shard"] = time.perf_counter() - t
+    t = time.perf_counter()
+    finish_dryrun(procs)
+    dryrun_dir.cleanup()
+    secs["cost"] += time.perf_counter() - t
     print(f"phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
 
     rows = []

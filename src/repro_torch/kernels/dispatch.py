@@ -43,6 +43,14 @@ A ``decode`` or ``prefill`` route calls the kernel wrapper, which launches
 the CUDA kernel for a CUDA tensor and runs the plain version for a CPU
 tensor. :func:`set_force_ref` runs the plain version on any device (route
 ``ref[forced]``), which is how the kernels are held to it.
+
+Each entry also reports its call's work to a cost sink, when one is set
+(``launch.op_cost.analyze_step`` sets it): ``launch.roofline.kernel_cost``
+of the wrapper the call is for, once, whichever route it takes, with the
+sink's op counting suspended for the entry's body. On ``meta`` tensors
+while a sink is set (the dry-run's count), an entry routes and records as
+on the card and returns an empty ``meta`` output of the kernel contract's
+shape; without a sink a ``meta`` tensor stands in for the card, as before.
 """
 
 from __future__ import annotations
@@ -79,6 +87,7 @@ from repro_torch.kernels.ref import (
 from repro_torch.kernels.twinquant_dual_gemm import dual_gemm, dual_gemm_group
 from repro_torch.kernels.twinquant_dual_gemv import dual_gemv, dual_gemv_group
 from repro_torch.kernels.w4a16_gemm import w4a16_gemm
+from repro_torch.launch.roofline import kernel_cost
 
 __all__ = [
     "DECODE_M_MAX",
@@ -97,6 +106,7 @@ __all__ = [
     "quant_linear",
     "ragged_attention",
     "reset_dispatch_counters",
+    "set_cost_sink",
     "set_force_ref",
     "set_fusion",
     "w4a16_linear",
@@ -110,6 +120,36 @@ PATH_KERNEL = "kernel"
 _fusion_enabled = True
 _force_ref = False
 _counters: dict[str, int] = {}
+_cost_sink = None
+
+
+def set_cost_sink(sink):
+    """Report each entry's kernel cost to ``sink`` (an object with
+    ``kernel(name, cost_fn)`` and a ``suspend()`` context), or to nobody
+    with ``None``; returns the previous sink."""
+    global _cost_sink
+    prev = _cost_sink
+    _cost_sink = sink
+    return prev
+
+
+def _shape_only(x: torch.Tensor) -> bool:
+    """A ``meta`` call while a sink counts (the dry-run): the entry returns
+    an empty output of its contract's shape. Without a sink a ``meta``
+    tensor stands in for the card and reaches the kernel wrapper."""
+    return x.is_meta and _cost_sink is not None
+
+
+def _counted(name: str, cost, body):
+    """``body()``; with a sink set, ``cost()`` (``roofline.kernel_cost``'s
+    pair) recorded for the wrapper ``name`` first and none of the body's
+    ops counted."""
+    sink = _cost_sink
+    if sink is None:
+        return body()
+    sink.kernel(name, cost)
+    with sink.suspend():
+        return body()
 
 
 def fusion_enabled() -> bool:
@@ -259,12 +299,15 @@ def quant_linear(x: torch.Tensor, w: TwinQuantWeights,
         route = classify_dual(m, n, k, w.group, w.rgroup, w.rank)
     _require_cpu_for_ref("dual", route, x)
     _record("dual", route)
-    if route.path == PATH_REF:
-        y = _ref.dual_gemm_ref(x2, w)
-    elif route.path == PATH_DECODE:
-        y = dual_gemv(x2, w)
-    else:
-        y = dual_gemm(x2, w)
+    def run():
+        if _shape_only(x):
+            return x2.new_empty((*x2.shape[:-1], n), dtype=torch.bfloat16)
+        if route.path == PATH_REF:
+            return _ref.dual_gemm_ref(x2, w)
+        return (dual_gemv if route.path == PATH_DECODE else dual_gemm)(x2, w)
+
+    name = "dual_gemv" if m <= DECODE_M_MAX else "dual_gemm"
+    y = _counted(name, lambda: kernel_cost(name, m=m, w=w), run)
     return _finish(y, batch_shape, n, bias)
 
 
@@ -293,12 +336,15 @@ def fused_linear(x: torch.Tensor,
         route = classify_dual_group(m, k, gw.group, gw.seg_n, gw.seg_r, gw.rgroups)
     _require_cpu_for_ref("dual_fused", route, x)
     _record("dual_fused", route)
-    if route.path == PATH_REF:
-        y = _ref.dual_gemm_group_ref(x2, gw)
-    elif route.path == PATH_DECODE:
-        y = dual_gemv_group(x2, gw)
-    else:
-        y = dual_gemm_group(x2, gw)
+    def run():
+        if _shape_only(x):
+            return x2.new_empty((*x2.shape[:-1], gw.ndim_out), dtype=torch.bfloat16)
+        if route.path == PATH_REF:
+            return _ref.dual_gemm_group_ref(x2, gw)
+        return (dual_gemv_group if route.path == PATH_DECODE else dual_gemm_group)(x2, gw)
+
+    name = "dual_gemv_group" if m <= DECODE_M_MAX else "dual_gemm_group"
+    y = _counted(name, lambda: kernel_cost(name, m=m, w=gw), run)
     return tuple(
         _finish(yj, batch_shape, nj, bj)
         for yj, nj, bj in zip(gw.split(y), gw.seg_n, biases)
@@ -336,10 +382,15 @@ def w4a16_linear(x: torch.Tensor, wp: torch.Tensor, ws: torch.Tensor,
         route = classify_w4a16(m, n, k, group, experts=experts or 1)
     _require_cpu_for_ref("w4a16", route, x)
     _record("w4a16", route)
-    if route.path == PATH_REF:
-        y = _ref.w4a16_gemm_ref(x2, wp, ws, group)
-    else:
-        y = w4a16_gemm(x2, wp, ws, group=group)
+    def run():
+        if _shape_only(x):
+            return x2.new_empty((*x2.shape[:-1], n), dtype=torch.bfloat16)
+        if route.path == PATH_REF:
+            return _ref.w4a16_gemm_ref(x2, wp, ws, group)
+        return w4a16_gemm(x2, wp, ws, group=group)
+
+    y = _counted("w4a16_gemm", lambda: kernel_cost("w4a16_gemm", m=m, k=k, n=n, group=group,
+                                                   experts=experts or 1), run)
     return _finish(y, batch_shape, n, bias)
 
 
@@ -401,9 +452,31 @@ def ragged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, kt: to
         route = classify_ragged(t, h, kt.shape[1], hd, b, maxp, kp.shape[1])
     _require_cpu_for_ref("ragged", route, q)
     _record("ragged", route)
-    if route.path == PATH_REF:
-        return ragged_attention_ref(q, kp, vp, kt, vt, bt, slot, pos, ctx)
-    return ragged_attention_kernel(q, kp, vp, kt, vt, bt, slot, pos, ctx)
+    def run():
+        if _shape_only(q):
+            return q.new_empty((t, h, hd), dtype=vt.dtype)
+        if route.path == PATH_REF:
+            return ragged_attention_ref(q, kp, vp, kt, vt, bt, slot, pos, ctx)
+        return ragged_attention_kernel(q, kp, vp, kt, vt, bt, slot, pos, ctx)
+
+    return _counted("ragged_attention_kernel",
+                    lambda: _ragged_cost(q, kt, bt, slot, pos, ctx, kp.shape[1]), run)
+
+
+def _host_list(t: torch.Tensor, fill: int) -> list:
+    """``t``'s values on the host (a meta tensor's: ``fill`` each)."""
+    return [fill] * t.numel() if t.is_meta else t.tolist()  # sync-point: counting only
+
+
+def _ragged_cost(q, kt, bt, slot, pos, ctx, page: int):
+    t, h, hd = q.shape
+    b, maxp = bt.shape
+    # a meta call's lengths are unknown: every row in slot 0 at the block
+    # table's full context
+    full = maxp * page - 1
+    return kernel_cost("ragged_attention_kernel", t=t, h=h, kv=kt.shape[1], hd=hd, b=b,
+                       maxp=maxp, slot=_host_list(slot, 0), pos=_host_list(pos, full),
+                       ctx=_host_list(ctx, full))
 
 
 def paged_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, kt: torch.Tensor,
@@ -425,6 +498,21 @@ def paged_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, kt: torch.
         route = classify_paged_decode(b, sq, h, kt.shape[2], hd, bt.shape[1], kp.shape[1])
     _require_cpu_for_ref("paged_decode", route, q)
     _record("paged_decode", route)
-    if route.path == PATH_REF:
-        return paged_decode_ref(q, kp, vp, kt, vt, bt, pos, commit=commit)
-    return paged_decode_kernel(q, kp, vp, kt, vt, bt, pos, commit=commit)
+    def run():
+        if _shape_only(q):
+            out = q.new_empty((b, sq, h, hd), dtype=torch.bfloat16)
+            return (out, kp, vp) if commit else out
+        if route.path == PATH_REF:
+            return paged_decode_ref(q, kp, vp, kt, vt, bt, pos, commit=commit)
+        return paged_decode_kernel(q, kp, vp, kt, vt, bt, pos, commit=commit)
+
+    return _counted("paged_decode_kernel",
+                    lambda: _paged_cost(q, kt, bt, pos, kp.shape[1], commit), run)
+
+
+def _paged_cost(q, kt, bt, pos, page: int, commit: bool):
+    b, sq, h, hd = q.shape
+    maxp = bt.shape[1]
+    # a meta call's lengths are unknown: every slot at the table's full context
+    return kernel_cost("paged_decode_kernel", b=b, sq=sq, h=h, kv=kt.shape[2], hd=hd, maxp=maxp,
+                       lens=_host_list(pos, maxp * page - sq), commit=commit)
